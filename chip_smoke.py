@@ -12,18 +12,36 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the mu sweep gives it (h = 0.02, B = 20), with the stated
    tolerance; prints errors and median times from CUDA events.
+   The flow path's cases follow (``phase_kernels_flow``, on the solved
+   Stokes velocity): kernel A on the advection band at B = 3 and on the
+   Stokes velocity band at B = 2; kernel B on the fine restriction and
+   prolongation of the advective hierarchy at B = 3 and of the velocity
+   hierarchy at B = 2; kernels A and B at B = 96 (the coarse-pressure
+   deflation's one wide apply); kernel C in f64 on the nonsymmetric
+   advection block at B = 3.
 4. slice: the 20-point Phase-A mu sweep at h = 0.02 through
    studies.phase_a.run_mu_sweep, twice (first and steady run).  Checks that
    every kernel was launched by the first run, the true f64 relative
    residuals (<= 1e-11), the inner iterations (<= 40 per column), and the
    CSV columns against the committed JAX artifact
    examples/phase_a_tpu_h0.02 (1e-6 relative).
+5. no_uptake: the no-uptake study on the reference geometry (w = 0.5,
+   d = 1.0 mm) and the rectangle at h = 0.02, Pe = 0.1, 1, 10, through
+   studies.no_uptake.run_geometry_study, twice (first and steady run):
+   Stokes MINRES+MG, then one batched BiCGStab over the three Pe.  Prints
+   the seconds of every stage; checks that kernels A, B and C were launched
+   by the first run, the true f64 relative residuals (Stokes <= 1e-9,
+   transport <= 1e-11 in every column), the iteration bounds, the six CSV
+   rows against the committed JAX artifact examples/no_uptake_tpu_h0.02
+   (1e-6 relative; the signed net fluxes 1e-6 |Mouth Q_in| absolute), and
+   that the steady run's rows equal the first run's.
 
-With ``--profile``, a fifth phase profiles one more steady sweep: cProfile
-of the whole ``no_adv_batch`` (where the host setup goes) and
-``torch.profiler`` of one ``solve_sweep`` (device busy time by kernel, and
-the device's idle share against the unprofiled solve's wall time).  Full
-reports go to build/chip_smoke/profile_*.txt and solve_trace.json.
+With ``--profile``, a last phase profiles both paths once more: cProfile of
+one steady ``no_adv_batch`` and one steady no-uptake study (where the host
+setup goes), and ``torch.profiler`` of one mu-sweep CG solve, one Stokes
+saddle solve and one BiCGStab solve (device busy time by kernel, and the
+device's idle share against the unprofiled solve's wall time).  Full
+reports go to build/chip_smoke/profile_*.txt and *_trace.json.
 
 Then prints one JSON line of per-kernel results and, last, the device line.
 Imports nothing of JAX.
@@ -49,9 +67,25 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN_CSV = (ROOT / "examples" / "phase_a_tpu_h0.02"
               / "Mu Parameter Sweep Analysis"
               / "mu_parameter_sweep_results.csv")
+GOLDEN_NU_CSV = (ROOT / "examples" / "no_uptake_tpu_h0.02"
+                 / "Geometry Comparison Analysis"
+                 / "geometry_comparison_results.csv")
 OUT_DIR = ROOT / "build" / "chip_smoke"
 B_SWEEP = 20
 BENCH_CELLS = 50647
+PECLET = [0.1, 1.0, 10.0]
+# iteration bounds of the no-uptake phase, twice the port's CPU runs of the
+# same path (reference geometry, h = 0.035, the finest run on the CPU):
+# MINRES 130 over 2 passes; BiCGStab per Pe column 16, 29, 158
+MINRES_BOUND = 260
+BICGSTAB_BOUND = [32, 58, 316]
+# CSV columns held to 1e-6 relative, and the signed net fluxes held to
+# 1e-6 |Mouth Q_in| absolute (differences of much larger fluxes)
+NU_REL_COLUMNS = ("Total Mass", "Avg Concentration",
+                  "Sulcus Avg Concentration", "Mouth E_L1", "Mouth Q_in",
+                  "Max_Ux_mid_channel", "Avg_Ux_mid_channel",
+                  "Concentration_Ratio")
+NU_NET_COLUMNS = ("Mouth_Flux_Total", "Inlet-Outlet Flux")
 PALLAS = "fenics_eff_uptake_tpu/ops/pallas_kernels.py"
 CSRC = "fenics_eff_uptake_tpu_torch/ops/csrc"
 
@@ -177,6 +211,82 @@ def phase_kernels(dev):
     return out
 
 
+def phase_kernels_flow(dev):
+    """The kernels at the no-uptake path's shapes (reference geometry,
+    h = 0.02): the advection band and block under the solved Stokes
+    velocity and the advective hierarchy's fine transfers (B = 3), the
+    Stokes velocity band and its fine transfers (B = 2), and the
+    deflation's wide apply (B = 96)."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.models.stokes_flow import (
+        VELOCITY_DIRICHLET)
+    from fenics_eff_uptake_tpu_torch.ops.banded import (
+        band_apply, band_apply_plain, rect_band_apply, rect_band_apply_plain)
+    from fenics_eff_uptake_tpu_torch.ops.elemspmv import (
+        element_apply, element_apply_plain)
+    from fenics_eff_uptake_tpu_torch.parallel.sweep import (
+        build_transport_system)
+    from fenics_eff_uptake_tpu_torch.solvers.multilevel import (
+        build_multilevel, build_multilevel_for, level_meshes_for)
+    from fenics_eff_uptake_tpu_torch.studies.no_uptake import _make_params
+    from fenics_eff_uptake_tpu_torch.studies.common import (
+        make_mesh, stokes_for_study)
+
+    p = _make_params(PECLET[0], 0.5, 1.0, 0.02)
+    mesh = make_mesh(p, "sulcus")
+    u, _ = stokes_for_study(mesh, p.H, dev)
+    D = [1.0 / pe for pe in PECLET]
+    adv = build_transport_system(mesh, dev, u_values=u.values,
+                                 u_space=u.space)
+    aml = build_multilevel_for(adv, mesh, D, [0.0] * len(D), u_fine=u)
+    vel = build_transport_system(mesh, dev, dirichlet=VELOCITY_DIRICHLET,
+                                 with_robin=False)
+    vml = build_multilevel(vel, level_meshes_for(mesh), np.ones(2),
+                           np.zeros(2), dirichlet=VELOCITY_DIRICHLET,
+                           with_robin=False)
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(n, B, dtype=torch.float32):
+        return torch.rand((n, B), generator=g, device=dev,
+                          dtype=dtype) * 2 - 1
+
+    out = {"band_apply": [], "rect_band_apply": [], "element_apply": []}
+    # A: 1e-5 of max |Y| (f32 sums in another order than cuBLAS)
+    for label, band, B, coef in (
+            ("Adv band", adv.Advband, 3, None),
+            ("velocity band", vel.Kband, 2, torch.ones(2, device=dev)),
+            ("velocity band", vel.Kband, 96,
+             torch.rand(96, generator=g, device=dev) + 0.5)):
+        X = rnd(band.shape[0] * band.shape[1], B)
+        out["band_apply"].append(compare(
+            f"A {label} {tuple(band.shape)} B={B}",
+            lambda: band_apply(band, X, coef),
+            lambda: band_apply_plain(band, X, coef), 1e-5))
+    # B: each hierarchy's fine restriction and prolongation at the widths
+    # the path gives them (transport cycles, Stokes cycles, deflation)
+    for label, tb, B in (("transport", aml.levels[0].bands, 3),
+                         ("velocity", vml.levels[0].bands, 2),
+                         ("velocity", vml.levels[0].bands, 96)):
+        for way, band, offs, rows in (("restrict", tb.r, tb.ro, tb.pad_r),
+                                      ("prolong", tb.p, tb.po, tb.pad_p)):
+            Xq = rnd(rows, B)
+            out["rect_band_apply"].append(compare(
+                f"B {label} {way} {tuple(band.shape)} B={B}",
+                lambda: rect_band_apply(band, offs, Xq),
+                lambda: rect_band_apply_plain(band, offs, Xq), 1e-5))
+    # C: f64, 1e-12 (summation order)
+    blk = adv.Adv
+    X = rnd(blk.ndofs, 3, torch.float64)
+    out["element_apply"].append(compare(
+        f"C f64 Adv A{tuple(blk.A64.shape)} B=3",
+        lambda: element_apply(blk.A64, blk.dofs, blk.scatter, X),
+        lambda: element_apply_plain(blk.A64, blk.dofs, blk.scatter, X),
+        1e-12))
+    del adv, aml, vel, vml
+    torch.cuda.empty_cache()
+    return out
+
+
 def read_golden():
     with open(GOLDEN_CSV, newline="") as f:
         return list(csv.DictReader(f))
@@ -259,58 +369,147 @@ def phase_slice(dev):
     return launches, stats, stats2, worst
 
 
-def phase_profile(dev):
-    """cProfile of one steady sweep, torch.profiler of one steady solve."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from fenics_eff_uptake_tpu_torch.parallel.sweep import (
-        build_transport_system, solve_sweep)
-    from fenics_eff_uptake_tpu_torch.solvers.multilevel import (
-        build_multilevel_for)
-    from fenics_eff_uptake_tpu_torch.studies.common import (
-        make_mesh, make_no_adv_params, no_adv_batch, sweep_mus)
-    from fenics_eff_uptake_tpu_torch.studies.phase_a import MU_SWEEP_REGIMES
+def check_no_uptake_golden(rows):
+    """The six rows (reference sulcus and rectangle, each Pe) against the
+    committed artifact's; returns the worst error per column."""
+    with open(GOLDEN_NU_CSV, newline="") as f:
+        golden = [r for r in csv.DictReader(f)
+                  if r["Domain"] == "rectangle"
+                  or (r["Sulcus Width (mm)"], r["Sulcus Depth (mm)"])
+                  == ("0.5", "1.0")]
 
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    factors = [f for r in MU_SWEEP_REGIMES.values() for f in r]
-    geom = make_no_adv_params(1.0, sulci_w_dim=0.25, sulci_h_dim=0.25,
-                              mesh_size_dim=0.02)
+    def key(r):
+        return r["Domain"], round(float(r["Peclet"]), 9)
+
+    want = {key(r): r for r in golden}
+    got = {key(r): r for r in rows}
+    if len(want) != 6 or sorted(got) != sorted(want):
+        raise AssertionError(f"rows {sorted(got)} vs golden {sorted(want)}")
+    q_in = {pe: abs(float(r["Mouth Q_in"]))
+            for (dom, pe), r in want.items() if dom == "sulcus"}
+    worst = {c: 0.0 for c in NU_REL_COLUMNS + NU_NET_COLUMNS}
+    for (dom, pe), r in got.items():
+        gr = want[(dom, pe)]
+        for col in worst:
+            if gr[col] == "":
+                if r[col] is not None:
+                    raise AssertionError(f"{dom} Pe={pe} {col}: {r[col]} "
+                                         "where the artifact has none")
+                continue
+            v, ref = float(r[col]), float(gr[col])
+            if not np.isfinite(v):
+                raise AssertionError(f"{dom} Pe={pe} {col}: {v}")
+            scale = q_in[pe] if col in NU_NET_COLUMNS else abs(ref)
+            worst[col] = max(worst[col], abs(v - ref) / scale)
+    for col, e in worst.items():
+        scale = "of |Q_in|" if col in NU_NET_COLUMNS else "rel"
+        print(f"[no_uptake] {col}: worst diff vs golden {e:.3e} "
+              f"({scale}, tol 1e-6)", flush=True)
+    bad = {k: v for k, v in worst.items() if not v <= 1e-6}
+    if bad:
+        raise AssertionError(f"CSV columns off the golden artifact: {bad}")
+    return worst
+
+
+def phase_no_uptake(dev):
+    from fenics_eff_uptake_tpu_torch.ops.banded import (band_apply,
+                                                        rect_band_apply)
+    from fenics_eff_uptake_tpu_torch.ops.elemspmv import element_apply
+    from fenics_eff_uptake_tpu_torch.studies.no_uptake import \
+        run_geometry_study
+
+    kernels = {"band_apply": band_apply, "rect_band_apply": rect_band_apply,
+               "element_apply": element_apply}
+    for k in kernels.values():
+        k.launches = 0
+    rows, stats = run_geometry_study(["reference"], PECLET, 0.02,
+                                     base_dir=str(OUT_DIR / "nu_first"),
+                                     device=dev)
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"[no_uptake] launches in the first run: {launches}", flush=True)
+    rows2, stats2 = run_geometry_study(["reference"], PECLET, 0.02,
+                                       base_dir=str(OUT_DIR / "nu_steady"),
+                                       device=dev, verbose=False)
+    for tag, st in (("first", stats), ("steady", stats2)):
+        for s in st:
+            print(f"[no_uptake] {tag} {s['geometry']} ({s['cells']} cells, "
+                  f"{s['ndofs']} P2 dofs): mesh {s['mesh_s']:.3f}s "
+                  f"stokes_setup {s['stokes_setup_s']:.3f}s stokes_solve "
+                  f"{s['stokes_solve_s']:.3f}s assembly "
+                  f"{s['assembly_s']:.3f}s ml_setup {s['ml_setup_s']:.3f}s "
+                  f"solve {s['solve_s']:.3f}s metrics {s['metrics_s']:.3f}s "
+                  f"total {s['total_s']:.3f}s", flush=True)
+    for s in stats:
+        print(f"[no_uptake] {s['geometry']}: MINRES {s['minres_iters']} "
+              f"iters in {s['minres_passes']} passes, rel residual "
+              f"{s['stokes_rel_resnorm']:.3e}; BiCGStab iters {s['iters']} "
+              f"in {s['passes']} passes, max rel residual "
+              f"{max(s['rel_resnorm']):.3e}", flush=True)
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the no-uptake "
+                             f"study: {missing}")
+    for s in stats + stats2:
+        if not s["multilevel"]:
+            raise AssertionError("the transport solve did not use the "
+                                 "multigrid path")
+        if not s["stokes_rel_resnorm"] <= 1e-9:
+            raise AssertionError(f"Stokes rel residual "
+                                 f"{s['stokes_rel_resnorm']:.3e} > 1e-9")
+        if not max(s["rel_resnorm"]) <= 1e-11:
+            raise AssertionError(f"transport rel residual "
+                                 f"{max(s['rel_resnorm']):.3e} > 1e-11")
+        if not s["minres_iters"] <= MINRES_BOUND:
+            raise AssertionError(f"MINRES iterations {s['minres_iters']} > "
+                                 f"{MINRES_BOUND}")
+        if not all(i <= b for i, b in zip(s["iters"], BICGSTAB_BOUND)):
+            raise AssertionError(f"BiCGStab iterations {s['iters']} above "
+                                 f"{BICGSTAB_BOUND}")
+    worst = check_no_uptake_golden(rows)
+    if rows2 != rows:
+        raise AssertionError("steady run's rows differ from the first's")
+    return launches, stats, stats2, worst
+
+
+def _cprofile(tag, fn):
+    """cProfile of fn(): the top 40 entries by cumulative time printed,
+    60 written to build/chip_smoke/profile_<tag>.txt; returns fn()."""
     pr = cProfile.Profile()
     pr.enable()
-    _, st = no_adv_batch(geom, factors, "sulcus", dev, verbose=False)
+    out = fn()
     pr.disable()
     buf = io.StringIO()
     pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(60)
-    (OUT_DIR / "profile_sweep.txt").write_text(buf.getvalue())
-    print("[profile] cProfiled sweep: " + " ".join(
-        f"{k} {st[k]:.3f}s" for k in ("mesh_s", "assembly_s", "ml_setup_s",
-                                      "solve_s", "metrics_s", "total_s")),
-        flush=True)
-    stats = pstats.Stats(pr)
+    (OUT_DIR / f"profile_{tag}.txt").write_text(buf.getvalue())
     rows = []
-    for (fname, line, func), (_, nc, tt, ct, _) in stats.stats.items():
+    for (fname, line, func), (_, nc, tt, ct, _) in pstats.Stats(
+            pr).stats.items():
         rows.append((ct, tt, nc, f"{Path(fname).name}:{line}({func})"))
     for ct, tt, nc, name in sorted(rows, reverse=True)[:40]:
-        print(f"[profile] cum {ct:8.3f}s own {tt:8.3f}s {nc:7d}x {name}",
-              flush=True)
+        print(f"[profile {tag}] cum {ct:8.3f}s own {tt:8.3f}s {nc:7d}x "
+              f"{name}", flush=True)
+    return out
 
-    mesh = make_mesh(geom)
-    mus = sweep_mus(geom, factors)
-    D = [geom.D] * len(mus)
-    sys_ = build_transport_system(mesh, dev)
-    ml = build_multilevel_for(sys_, mesh, D, mus)
+
+def _device_profile(tag, fn):
+    """fn() twice to warm, three unprofiled walls, then torch.profiler of
+    one more: device busy time, idle share of the median wall, and device
+    time by kernel (top 15 printed, all in build/chip_smoke/
+    profile_<tag>.txt, the timeline in <tag>_trace.json)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
-        solve_sweep(sys_, D, mus, multilevel=ml)
+        fn()
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.time()
-        solve_sweep(sys_, D, mus, multilevel=ml)
+        fn()
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        solve_sweep(sys_, D, mus, multilevel=ml)
+        fn()
         torch.cuda.synchronize()
     busy, per = 0.0, {}
     for e in prof.events():
@@ -321,17 +520,73 @@ def phase_profile(dev):
             n_us[0] += 1
             n_us[1] += us
     wall = float(np.median(walls))
-    print(f"[profile] steady solve wall {[round(w, 4) for w in walls]} s "
+    print(f"[profile {tag}] steady wall {[round(w, 4) for w in walls]} s "
           f"(unprofiled); device busy {busy / 1e3:.3f} ms -> idle share "
           f"{1 - busy / 1e6 / wall:.3f} of the median wall", flush=True)
     table = sorted(per.items(), key=lambda kv: -kv[1][1])
     for name, (n, us) in table[:15]:
-        print(f"[profile] device {us / 1e3:8.3f} ms {n:6d}x {name}",
+        print(f"[profile {tag}] device {us / 1e3:8.3f} ms {n:6d}x {name}",
               flush=True)
-    (OUT_DIR / "profile_solve.txt").write_text("".join(
+    (OUT_DIR / f"profile_{tag}.txt").write_text("".join(
         f"{us / 1e3:10.3f} ms {n:7d}x {name}\n"
         for name, (n, us) in table))
-    prof.export_chrome_trace(str(OUT_DIR / "solve_trace.json"))
+    prof.export_chrome_trace(str(OUT_DIR / f"{tag}_trace.json"))
+
+
+def phase_profile(dev):
+    """Host cProfile of one steady mu sweep and one steady no-uptake study
+    (reference geometry and rectangle); device profiles of one steady
+    mu-sweep CG solve, one Stokes saddle solve and one BiCGStab solve of
+    the reference geometry."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.models.stokes_flow import (
+        saddle_solve, stokes_setup)
+    from fenics_eff_uptake_tpu_torch.parallel.sweep import (
+        build_transport_system, solve_sweep)
+    from fenics_eff_uptake_tpu_torch.solvers.multilevel import (
+        build_multilevel_for)
+    from fenics_eff_uptake_tpu_torch.studies.common import (
+        make_mesh, make_no_adv_params, no_adv_batch, stokes_for_study,
+        sweep_mus)
+    from fenics_eff_uptake_tpu_torch.studies.no_uptake import (
+        _make_params, run_geometry_study)
+    from fenics_eff_uptake_tpu_torch.studies.phase_a import MU_SWEEP_REGIMES
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    factors = [f for r in MU_SWEEP_REGIMES.values() for f in r]
+    geom = make_no_adv_params(1.0, sulci_w_dim=0.25, sulci_h_dim=0.25,
+                              mesh_size_dim=0.02)
+    _, st = _cprofile("sweep", lambda: no_adv_batch(geom, factors, "sulcus",
+                                                    dev, verbose=False))
+    print("[profile sweep] stages: " + " ".join(
+        f"{k} {st[k]:.3f}s" for k in ("mesh_s", "assembly_s", "ml_setup_s",
+                                      "solve_s", "metrics_s", "total_s")),
+        flush=True)
+    mesh = make_mesh(geom)
+    mus = sweep_mus(geom, factors)
+    D = [geom.D] * len(mus)
+    sys_ = build_transport_system(mesh, dev)
+    ml = build_multilevel_for(sys_, mesh, D, mus)
+    _device_profile("solve", lambda: solve_sweep(sys_, D, mus,
+                                                 multilevel=ml))
+    del sys_, ml
+
+    _cprofile("no_uptake", lambda: run_geometry_study(
+        ["reference"], PECLET, 0.02, base_dir=str(OUT_DIR / "nu_profile"),
+        device=dev, verbose=False))
+    p0 = _make_params(PECLET[0], 0.5, 1.0, 0.02)
+    mesh = make_mesh(p0, "sulcus")
+    stk = stokes_setup(mesh, p0.H, dev)
+    _device_profile("stokes", lambda: saddle_solve(stk))
+    del stk
+    u, _ = stokes_for_study(mesh, p0.H, dev)
+    D = [1.0 / pe for pe in PECLET]
+    mu0 = [0.0] * len(D)
+    sys_ = build_transport_system(mesh, dev, u_values=u.values,
+                                  u_space=u.space)
+    ml = build_multilevel_for(sys_, mesh, D, mu0, u_fine=u)
+    _device_profile("bicgstab", lambda: solve_sweep(sys_, D, mu0,
+                                                    multilevel=ml))
     del sys_, ml
     torch.cuda.empty_cache()
 
@@ -339,7 +594,7 @@ def phase_profile(dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one steady sweep (host and device)")
+                    help="also profile both paths (host and device)")
     args = ap.parse_args(argv)
     t_start = time.time()
     card = phase_device()
@@ -357,7 +612,10 @@ def main(argv=None):
     print(f"[build] {lib_path.name} ready in {build_s:.1f}s", flush=True)
 
     cases = phase_kernels(dev)
+    for name, cs in phase_kernels_flow(dev).items():
+        cases[name] += cs
     launches, stats, stats2, worst = phase_slice(dev)
+    nu_launches, nu_stats, nu_stats2, nu_worst = phase_no_uptake(dev)
     if args.profile:
         phase_profile(dev)
 
@@ -371,13 +629,18 @@ def main(argv=None):
         cs = cases[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"{CSRC}/{src}",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[name] + nu_launches[name],
+            "launches_by_path": {"mu_sweep": launches[name],
+                                 "no_uptake": nu_launches[name]},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "max_rel_err": max(c["max_rel_err"] for c in cs),
             "ms": cs[0]["ms"], "plain_ms": cs[0]["plain_ms"],
             "cases": cs})
     summary = {"card": card, "build_s": build_s, "kernels": kernels,
                "first": stats, "steady": stats2, "golden_worst": worst,
+               "no_uptake_first": nu_stats, "no_uptake_steady": nu_stats2,
+               "no_uptake_golden_worst": nu_worst,
                "wall_s": time.time() - t_start}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))

@@ -1,14 +1,17 @@
 """Batched sweep metrics (counterpart of ``analysis/batched_metrics.py``).
 
-Every boundary, interface and mass integral of the no-advection study is
+Every boundary, interface and mass integral of the sweep studies is
 evaluated for all B sweep columns at once, in float64 on the columns'
 device, from quadrature tables built once per (mesh, space).
 ``metrics_to_dicts`` expands the (B,) results into the reference's metric
 dict schema, key for key.
 
-Advective traces (u . n) and per-sample mu(x) tables belong to the
-advective and step-mu studies and are not ported yet; the ``adv_*``
-entries are zero here, as in the JAX package without a velocity.
+With a velocity ``u`` (shared by the batch: the nondimensional Stokes field
+is Pe-independent) its normal traces u . n are baked into per-facet-set
+(F, Q) tables, and the advective fluxes u.n c fill the ``adv_*`` entries
+(zero without it, as in the JAX package); per-sample diffusivities
+``D_values`` scale the diffusive fluxes of Pe sweeps.  Per-sample mu(x)
+tables (step-mu studies) are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,8 +38,9 @@ DEGREE = 4
 
 
 class SweepMetrics(NamedTuple):
-    fn: "object"          # (X (B, n), mu_vec (B,)) -> dict of (B,)
+    fn: "object"          # (X (B, n), mu_vec (B,), D_vec (B,)) -> dict
     space: FunctionSpace
+    D: float              # diffusivity of every column unless D_vec given
 
 
 class _FQ(NamedTuple):
@@ -75,9 +79,10 @@ def _integral(qw, fq: _FQ, density):
 
 
 def build_sweep_metrics(space: FunctionSpace, mesh: MeshData, D,
-                        device) -> SweepMetrics:
-    """The all-metrics function of a no-advection sweep with diffusivity
-    ``D`` in every column."""
+                        device, u=None) -> SweepMetrics:
+    """The all-metrics function of a sweep with default diffusivity ``D``
+    and, optionally, the velocity Function ``u`` (numpy values on a P2
+    vector space of the same mesh)."""
     device = torch.device(device)
     raw = {}
     for name in ("left", "right", "top", "bottom"):
@@ -92,6 +97,13 @@ def build_sweep_metrics(space: FunctionSpace, mesh: MeshData, D,
             space, mesh.y0_marker == MARKERS["y0_line"], DEGREE)
         raw["mouth"] = mouth_quad(space, DEGREE)
     quads = {k: _fq(v, device) for k, v in raw.items()}
+    un_tab = {}
+    if u is not None:
+        for name, fq in raw.items():
+            if fq is not None:
+                un = np.einsum("fqa,fa->fq", fq.eval_vector(u.values, u.space),
+                               fq.normal)
+                un_tab[name] = torch.as_tensor(un, device=device)
     qw_f = next(torch.as_tensor(v.qw, dtype=torch.float64, device=device)
                 for v in raw.values() if v is not None)
 
@@ -106,43 +118,46 @@ def build_sweep_metrics(space: FunctionSpace, mesh: MeshData, D,
                             device=device)
     cav = (torch.as_tensor(mesh.cell_domain == 1, device=device)
            if is_sulcus else None)
-    D = float(D)
 
-    def fn(X, mu_vec):
+    def fn(X, mu_vec, D_vec):
         B = X.shape[0]
         zeros = torch.zeros(B, dtype=torch.float64, device=X.device)
+        Ds = D_vec[:, None, None]
         out = {}
 
         def flux(name):
+            """(diffusive flux, advective flux, their densities)"""
             fq = quads.get(name)
             if fq is None:
-                return zeros, None
-            dd = -D * _grad_n(fq, X)
-            return _integral(qw_f, fq, dd), dd
+                return zeros, zeros, None, None
+            dd = -Ds * _grad_n(fq, X)
+            un = un_tab.get(name)
+            ad = None if un is None else un[None] * _eval(fq, X)
+            return (_integral(qw_f, fq, dd),
+                    zeros if ad is None else _integral(qw_f, fq, ad), dd, ad)
 
         for name in ("left", "right", "top", "bottom"):
-            out[f"flux_{name}"] = flux(name)[0]
-            out[f"adv_{name}"] = zeros
+            out[f"flux_{name}"], out[f"adv_{name}"] = flux(name)[:2]
         fb = quads.get("bottom")
         out["uptake_bottom"] = (mu_vec * _integral(qw_f, fb, _eval(fb, X))
                                 if fb is not None else zeros)
         if is_sulcus:
             for name in ("bottom_left", "sulcus", "bottom_right"):
                 fq = quads.get(name)
-                out[f"flux_{name}"] = flux(name)[0]
-                out[f"adv_{name}"] = zeros
+                out[f"flux_{name}"], out[f"adv_{name}"] = flux(name)[:2]
                 out[f"uptake_{name}"] = (
                     mu_vec * _integral(qw_f, fq, _eval(fq, X))
                     if fq is not None else zeros)
             fy = quads.get("y0_ext")
             mq = quads.get("mouth")
-            out["flux_y0_ext"] = flux("y0_ext")[0]
+            out["flux_y0_ext"], out["adv_y0_ext"] = flux("y0_ext")[:2]
             out["C_y0_ext"] = (_integral(qw_f, fy, _eval(fy, X))
                                if fy is not None else zeros)
-            J_open, q_open = flux("mouth")
-            out["flux_mouth"] = J_open
+            J_open, J_open_adv, dd, ad = flux("mouth")
+            out["flux_mouth"], out["adv_mouth"] = J_open, J_open_adv
             if mq is not None:
                 # exchange metrics use the total signed density
+                q_open = dd if ad is None else dd + ad
                 out["E_L1"] = _integral(qw_f, mq, q_open.abs())
                 out["Q_in"] = _integral(qw_f, mq, q_open.clamp(min=0.0))
                 out["Q_out"] = _integral(qw_f, mq, (-q_open).clamp(min=0.0))
@@ -150,7 +165,6 @@ def build_sweep_metrics(space: FunctionSpace, mesh: MeshData, D,
             else:
                 out["E_L1"] = out["Q_in"] = out["Q_out"] = zeros
                 out["C_mouth"] = zeros
-            out["adv_mouth"] = out["adv_y0_ext"] = zeros
         cq = torch.einsum("qi,bti->btq", phi_c, X[:, cdofs])
         per_cell = torch.einsum("q,btq,t->bt", qwj, cq, detJ)
         out["total_mass"] = per_cell.sum(dim=1)
@@ -159,18 +173,23 @@ def build_sweep_metrics(space: FunctionSpace, mesh: MeshData, D,
                                              0.0).sum(dim=1)
         return out
 
-    return SweepMetrics(fn=fn, space=space)
+    return SweepMetrics(fn=fn, space=space, D=float(D))
 
 
 def metrics_to_dicts(sm: SweepMetrics, mesh: MeshData, X, mu_values,
-                     params_list):
+                     params_list, D_values=None):
     """Run the batched metrics and expand them into the reference's dicts.
+    ``D_values`` (B,): per-column diffusivities (Pe sweeps); default the
+    build-time D in every column.
 
     Returns (flux_metrics_list, mass_metrics_list, mu_eff_list)."""
     B = X.shape[0]
     mu_vec = torch.as_tensor(np.asarray(mu_values, dtype=np.float64),
                              device=X.device)
-    raw = {k: v.cpu().numpy() for k, v in sm.fn(X, mu_vec).items()}
+    D_vec = torch.as_tensor(
+        np.full(B, sm.D) if D_values is None
+        else np.asarray(D_values, dtype=np.float64), device=X.device)
+    raw = {k: v.cpu().numpy() for k, v in sm.fn(X, mu_vec, D_vec).items()}
 
     areas = mesh.cell_areas()
     total_area = float(areas.sum())

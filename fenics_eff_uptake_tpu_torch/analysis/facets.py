@@ -29,6 +29,14 @@ class FacetQuad(NamedTuple):
     length: np.ndarray        # (F,)
     qw: np.ndarray            # (Q,)
     cell_dofs: np.ndarray     # (F, nd)
+    cells: np.ndarray         # (F,) owner cells
+
+    def eval_vector(self, values, vspace: FunctionSpace):
+        """Interleaved vector field (numpy values on ``vspace``, same mesh)
+        at the quadrature points: (F, Q, 2)."""
+        vd = np.asarray(vspace.cell_dofs)[self.cells]     # (F, 2 nd)
+        ce = np.asarray(values)[vd].reshape(vd.shape[0], -1, 2)
+        return np.einsum("fqi,fia->fqa", self.phi, ce)
 
 
 def _edge_ref_points(t):
@@ -72,4 +80,5 @@ def build_facet_quad(space: FunctionSpace, cells_f, local_edges,
         lens[:, None], 1e-300)
     return FacetQuad(phi=phi, grad=grad, normal=n, length=lens,
                      qw=np.asarray(w),
-                     cell_dofs=np.asarray(space.cell_dofs)[cells_f])
+                     cell_dofs=np.asarray(space.cell_dofs)[cells_f],
+                     cells=cells_f)

@@ -13,14 +13,15 @@ from typing import List
 import numpy as np
 import torch
 
-from fenics_eff_uptake_tpu.fem.space import FunctionSpace
+from fenics_eff_uptake_tpu.fem.space import Function, FunctionSpace
 
 from .ops.elemspmv import Scatter
 from .parallel.sweep import TransportSystem, _Block
 from .solvers.multilevel import (Level, MultilevelData, Transfer,
                                  TransferBands)
 
-__all__ = ["transport_system_from_arrays", "multilevel_from_arrays"]
+__all__ = ["transport_system_from_arrays", "multilevel_from_arrays",
+           "velocity_from_values"]
 
 
 def _i32(a, device):
@@ -43,25 +44,36 @@ def _block(d, name, device):
 
 
 def transport_system_from_arrays(d, mesh, element, device) -> TransportSystem:
-    """The port's TransportSystem from the dict of numpy arrays that the
-    JAX package's ``parallel.sweep._system_to_arrays`` produces."""
-    if "Adv_A64" in d:
-        raise NotImplementedError("advective systems are not ported yet")
+    """The port's TransportSystem (advective or not) from the dict of numpy
+    arrays that the JAX package's ``parallel.sweep._system_to_arrays``
+    produces."""
     device = torch.device(device)
-    kband = d.get("Kband")
+
+    def band(name):
+        v = d.get(name)
+        return None if v is None else torch.tensor(
+            np.asarray(v), dtype=torch.float32, device=device)
+
     perm = d.get("perm")
     iperm = d.get("iperm")
     return TransportSystem(
         K=_block(d, "K", device), R=_block(d, "R", device),
+        Adv=_block(d, "Adv", device), Advband=band("Advband"),
         free=torch.tensor(np.asarray(d["free"], dtype=bool),
                           device=device),
         bc_values=torch.tensor(np.asarray(d["bc_values"]),
                                dtype=torch.float64, device=device),
         ndofs=int(d["ndofs"]), space=FunctionSpace(mesh, element),
-        Kband=None if kband is None else torch.tensor(
-            np.asarray(kband), dtype=torch.float32, device=device),
+        Kband=band("Kband"),
         perm=None if perm is None else np.asarray(perm),
         iperm=None if iperm is None else np.asarray(iperm))
+
+
+def velocity_from_values(values, mesh) -> Function:
+    """The port's velocity field (a Function on the P2 vector space with
+    numpy values) from a JAX velocity Function's interleaved values."""
+    return Function(FunctionSpace(mesh, "P2", vs=2),
+                    np.asarray(values, dtype=np.float64))
 
 
 def multilevel_from_arrays(levels: List[dict], Ainv, free_c, omega, D_vec,

@@ -1,12 +1,15 @@
 """Batched element assembly in PyTorch (counterpart of ``fem/assembly.py``).
 
-Each weak-form term of the no-advection sweep is a vectorised quadrature
-einsum in float64 that emits per-entity dense matrices ``A_e (N, nd, nd)``
-with their entity -> dof map ``(N, nd)`` (``parallel.sweep`` renumbers the
-dofs and builds the operator block from the pair):
+Each weak-form term of the studies is a vectorised quadrature einsum in
+float64 that emits per-entity dense matrices ``A_e (N, nd, nd)`` with their
+entity -> dof map ``(N, nd)`` (``parallel.sweep`` renumbers the dofs and
+builds the operator block from the pair):
 
-  stiffness (P2 x P2 grads)   quadrature degree 2
-  Robin facet phi phi         degree 4 (1-D Gauss), unit mu
+  stiffness (P2 x P2 grads)         quadrature degree 2
+  mass (phi phi)                    degree 4
+  advection (u . grad phi_j) phi_i  degree 5, u a P2 vector field
+  Robin facet phi phi               degree 4 (1-D Gauss), unit mu
+  divergence -psi_k d_b phi_j       degree 3, rectangular (P1 x vector P2)
 
 Meshes, dof maps, quadrature rules and basis tables come from the JAX
 package's host modules, which never load jax.  Unlike the JAX assembly,
@@ -25,7 +28,8 @@ from fenics_eff_uptake_tpu.fem.elements import (_EDGE_VERTS, _REF_VERTS,
 from fenics_eff_uptake_tpu.fem.quadrature import interval_rule, triangle_rule
 from fenics_eff_uptake_tpu.fem.space import FunctionSpace
 
-__all__ = ["cell_geometry", "stiffness_block", "robin_facet_block",
+__all__ = ["cell_geometry", "stiffness_block", "mass_block",
+           "advection_block", "divergence_block", "robin_facet_block",
            "BCData", "make_bc"]
 
 _F64 = torch.float64
@@ -54,6 +58,27 @@ def _stiffness_dev(verts, cells, qw, gref):
     return torch.einsum("q,tqia,tqja,t->tij", qw, G, G, detJ)
 
 
+def _mass_dev(verts, cells, qw, phi):
+    detJ, _ = cell_geometry(verts, cells)
+    return torch.einsum("q,qi,qj,t->tij", qw, phi, phi, detJ)
+
+
+def _advection_dev(verts, cells, qw, phi, gref, phi_u, u_flat, ucd):
+    detJ, invJT = cell_geometry(verts, cells)
+    G = torch.einsum("tab,qib->tqia", invJT, gref)
+    u_cell = u_flat[ucd].reshape(ucd.shape[0], -1, 2)
+    u_q = torch.einsum("qk,tka->tqa", phi_u, u_cell)
+    return torch.einsum("q,qi,tqa,tqja,t->tij", qw, phi, u_q, G, detJ)
+
+
+def _divergence_dev(verts, cells, qw, psi, gref):
+    detJ, invJT = cell_geometry(verts, cells)
+    G = torch.einsum("tab,qib->tqia", invJT, gref)
+    Bd = torch.einsum("q,qk,tqjb,t->tkjb", qw, psi, G, detJ)
+    T, npp, ndu, _ = Bd.shape
+    return -Bd.reshape(T, npp, 2 * ndu)
+
+
 def _robin_dev(w, tabs, le, lens):
     phi_f = tabs[le]
     return torch.einsum("q,fqi,fqj,f->fij", w, phi_f, phi_f, lens)
@@ -63,14 +88,59 @@ def stiffness_block(space: FunctionSpace, device):
     """Unit stiffness K_e[i,j] = int grad(phi_i) . grad(phi_j) dx.
 
     Returns (A_e (T, nd, nd) f64 tensor, cell dofs (T, nd) numpy)."""
-    mesh = space.mesh
     qp, qw = triangle_rule(2)
-    K = _stiffness_dev(_t(mesh.vertices, device),
-                       torch.as_tensor(np.asarray(mesh.cells),
-                                       dtype=torch.long, device=device),
-                       _t(qw, device),
+    K = _stiffness_dev(*_cell_args(space.mesh, device), _t(qw, device),
                        _t(tabulate_grad(space.element, qp), device))
     return K, np.asarray(space.cell_dofs)
+
+
+def _cell_args(mesh, device):
+    return (_t(mesh.vertices, device),
+            torch.as_tensor(np.asarray(mesh.cells), dtype=torch.long,
+                            device=device))
+
+
+def mass_block(space: FunctionSpace, device):
+    """Unit mass M_e[i,j] = int phi_i phi_j dx.
+
+    Returns (A_e (T, nd, nd) f64 tensor, cell dofs (T, nd) numpy)."""
+    qp, qw = triangle_rule(4)
+    M = _mass_dev(*_cell_args(space.mesh, device), _t(qw, device),
+                  _t(tabulate(space.element, qp), device))
+    return M, np.asarray(space.cell_dofs)
+
+
+def advection_block(space: FunctionSpace, u_values, u_space: FunctionSpace,
+                    device):
+    """Advection A_e[i,j] = int (u . grad phi_j) phi_i dx, nonsymmetric.
+
+    ``u_values`` are the interleaved vector dofs of ``u_space`` (a P2
+    vector space on the same mesh).  Returns (A_e (T, nd, nd) f64 tensor,
+    cell dofs (T, nd) numpy)."""
+    qp, qw = triangle_rule(5)
+    A = _advection_dev(
+        *_cell_args(space.mesh, device), _t(qw, device),
+        _t(tabulate(space.element, qp), device),
+        _t(tabulate_grad(space.element, qp), device),
+        _t(tabulate(u_space.element, qp), device),
+        _t(np.asarray(u_values).ravel(), device),
+        torch.as_tensor(np.asarray(u_space.cell_dofs), dtype=torch.long,
+                        device=device))
+    return A, np.asarray(space.cell_dofs)
+
+
+def divergence_block(pspace: FunctionSpace, vspace: FunctionSpace, device):
+    """Coupling B_e[k, 2j+b] = -int psi_k d_b(phi_j) dx, so that the saddle
+    matrix [[A, B^T], [B, 0]] is the Stokes form grad u : grad v - p div v
+    - q div u.  Columns follow the interleaved velocity layout.
+
+    Returns (B_e (T, np, 2*nd) f64 tensor, pressure cell dofs (T, np),
+    interleaved velocity cell dofs (T, 2*nd), both numpy)."""
+    qp, qw = triangle_rule(3)
+    B = _divergence_dev(*_cell_args(vspace.mesh, device), _t(qw, device),
+                        _t(tabulate(pspace.element, qp), device),
+                        _t(tabulate_grad(vspace.element, qp), device))
+    return B, np.asarray(pspace.cell_dofs), np.asarray(vspace.cell_dofs)
 
 
 def _facet_data(space: FunctionSpace, facet_mask):

@@ -29,9 +29,13 @@
 //   * splits each 256-row tile over 4 blocks of 128 threads, so the fine
 //     band runs as ~1600 small blocks, many resident per SM, and loads the
 //     next step's slabs into registers while the current step computes;
-//   * fuses kernel A's optional per-column coef into the store.
-// Batches above kMaxCols columns are refused (cudaErrorInvalidValue), never
-// truncated; so are band pointers not 16-byte aligned and W % 4 != 0.
+//   * fuses kernel A's optional per-column coef into the store;
+//   * takes any batch width B: a third grid dimension walks blocks of
+//     kMaxCols columns (the Pallas kernels pad B instead), each block
+//     re-reading the band, so a wide call costs ceil(B / 32) band streams
+//     and its columns equal a <= 32-column launch's bit for bit.
+// Band pointers not 16-byte aligned and W % 4 != 0 are refused
+// (cudaErrorInvalidValue), never worked around.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,7 +46,7 @@ constexpr int kRows = 64;            // band rows of one tile per block
 constexpr int kThreads = 2 * kRows;  // one thread per (row, column half)
 constexpr int kK = 32;               // window columns staged per step
 constexpr int kPitch = kK + 1;       // odd: conflict-free row reads
-constexpr int kMaxCols = 32;
+constexpr int kMaxCols = 32;         // columns of one block (2 * max BH)
 
 template <int BH, bool RECT>
 __global__ void __launch_bounds__(kThreads)
@@ -51,6 +55,7 @@ window_band_kernel(const float* __restrict__ band, const int* __restrict__ offs,
                    float* __restrict__ Y, int R, int W, int halo, long long n,
                    int B)
 {
+    // this block's columns: [col0, col0 + nb) of the B-wide rows of X, Y
     // per-thread share of one step's staging: the index arithmetic is the
     // same every step, so it is computed once
     constexpr int kBandLoads = kRows * (kK / 4) / kThreads;
@@ -62,6 +67,8 @@ window_band_kernel(const float* __restrict__ band, const int* __restrict__ offs,
     __shared__ __align__(16) float sx[kK * 2 * BH];
     const int t = blockIdx.x;
     const int r0 = blockIdx.y * kRows;
+    const int col0 = blockIdx.z * kMaxCols;
+    const int nb = min(kMaxCols, B - col0);
     const int tid = threadIdx.x;
     const int r = tid % kRows;        // lanes of a warp: consecutive rows
     const int half = tid / kRows;     // uniform across a warp
@@ -88,7 +95,7 @@ window_band_kernel(const float* __restrict__ band, const int* __restrict__ offs,
         const int i = tid + j * kThreads;
         xrow[j] = i / (2 * BH);
         xcol[j] = i % (2 * BH);
-        if (xcol[j] >= B) xrow[j] = -1;
+        if (xcol[j] >= nb) xrow[j] = -1;
     }
 
     float4 vb[kBandLoads];
@@ -105,7 +112,7 @@ window_band_kernel(const float* __restrict__ band, const int* __restrict__ offs,
         for (int j = 0; j < kXLoads; ++j) {
             const long long row = start + k0 + xrow[j];
             vx[j] = (xrow[j] >= 0 && row >= 0 && row < n)
-                        ? __ldg(X + row * B + xcol[j]) : 0.f;
+                        ? __ldg(X + row * B + col0 + xcol[j]) : 0.f;
         }
     };
 
@@ -143,12 +150,13 @@ window_band_kernel(const float* __restrict__ band, const int* __restrict__ offs,
         }
     }
     if (r < rows) {
-        float* yr = Y + ((long long)t * R + r0 + r) * B;
+        float* yr = Y + ((long long)t * R + r0 + r) * B + col0;
 #pragma unroll
         for (int j = 0; j < BH; ++j) {
             const int b = half * BH + j;
-            if (b < B)
-                yr[b] = (!RECT && coef != nullptr) ? acc[j] * coef[b] : acc[j];
+            if (b < nb)
+                yr[b] = (!RECT && coef != nullptr) ? acc[j] * coef[col0 + b]
+                                                   : acc[j];
         }
     }
 }
@@ -158,7 +166,8 @@ cudaError_t launch(const float* band, const int* offs, const float* X,
                    const float* coef, float* Y, int T, int R, int W, int halo,
                    long long n, int B, cudaStream_t stream)
 {
-    const dim3 grid(T, (R + kRows - 1) / kRows);
+    const dim3 grid(T, (R + kRows - 1) / kRows,
+                    (B + kMaxCols - 1) / kMaxCols);
     window_band_kernel<BH, RECT><<<grid, kThreads, 0, stream>>>(
         band, offs, X, coef, Y, R, W, halo, n, B);
     return cudaGetLastError();
@@ -170,9 +179,11 @@ cudaError_t dispatch(const float* band, const int* offs, const float* X,
                      int halo, long long n, int B, cudaStream_t stream)
 {
     if (T < 1 || R < 1 || R > 65535 * kRows || W < 4 || W % 4 != 0 ||
-        B < 1 || B > kMaxCols ||
+        B < 1 || (B + kMaxCols - 1) / kMaxCols > 65535 ||
         reinterpret_cast<uintptr_t>(band) % 16 != 0)
         return cudaErrorInvalidValue;
+    // the register tile fits the widest column block, the last one may be
+    // partial (masked by nb)
     if (B <= 8)
         return launch<4, RECT>(band, offs, X, coef, Y, T, R, W, halo, n, B,
                                stream);

@@ -14,7 +14,7 @@ a CUDA tensor launches the hand-written kernel of
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,7 +23,7 @@ from . import _build
 
 __all__ = ["Scatter", "make_scatter", "element_apply",
            "element_apply_plain", "check_element_apply_args",
-           "sorted_segment_sum"]
+           "SegmentPlan", "make_segment_plan", "planned_segment_sum"]
 
 # entity sizes kernel C is compiled for: 6 (P2 cells, and P2 Robin facets,
 # which carry their owner cell's dofs), 3 (P1), 2 (two-node edge blocks)
@@ -52,27 +52,60 @@ def make_scatter(entity_dofs, ndofs: int, device) -> Scatter:
                    ndofs=int(ndofs))
 
 
-def sorted_segment_sum(vals, ids_sorted, num_segments: int):
-    """out[s] = sum of vals[k] over ids_sorted[k] == s, added in k order.
+class SegmentPlan(NamedTuple):
+    """Gather plan of a segment sum over a fixed entry -> segment map:
+    row k of ``idx`` holds, for every segment that has entries, one plus
+    the position of its k-th entry (in entry order), or 0, a prepended
+    zero, where it has fewer."""
+    idx: torch.Tensor              # (max_count, n_used) int64
+    segs: Optional[torch.Tensor]   # (n_used,) int64 segment ids, or None
+                                   #   when every segment has entries
+    num_segments: int
 
-    Deterministic on every device: pass r adds the r-th entry of each
-    segment, so no two additions of one pass touch the same slot (CUDA's
-    ``index_add_`` with repeated ids uses atomics in no fixed order)."""
-    ids = ids_sorted.long()
-    out = torch.zeros((num_segments,) + tuple(vals.shape[1:]),
-                      dtype=vals.dtype, device=vals.device)
+
+def make_segment_plan(ids, num_segments: int, device,
+                      order=None) -> SegmentPlan:
+    """Plan, built on ``device``, for the segment ids of the entries (any
+    shape, flattened in C order; numpy or tensor).  A caller that already
+    holds a stable argsort of the ids passes them sorted, and that argsort
+    as ``order``; entries it leaves out of ``order`` stay out of the
+    sums."""
+    ids = torch.as_tensor(ids, device=device).reshape(-1).long()
+    if order is None:
+        ids, order = torch.sort(ids, stable=True)
+    order = torch.as_tensor(order, device=device).long()
     m = ids.numel()
-    if m == 0:
+    first = torch.ones(m, dtype=torch.bool, device=device)
+    first[1:] = ids[1:] != ids[:-1]
+    start = torch.nonzero(first).reshape(-1)
+    counts = torch.diff(start, append=start.new_tensor([m]))
+    col = torch.repeat_interleave(
+        torch.arange(start.numel(), device=device), counts)
+    rank = torch.arange(m, device=device) - start[col]
+    max_count = int(counts.max()) if m else 0
+    idx = torch.zeros((max_count, start.numel()), dtype=torch.long,
+                      device=device)
+    idx[rank, col] = order + 1
+    dense = start.numel() == num_segments
+    return SegmentPlan(idx=idx, segs=None if dense else ids[start],
+                       num_segments=int(num_segments))
+
+
+def planned_segment_sum(vals, plan: SegmentPlan):
+    """out[s] = sum of the rows of ``vals`` (M, ...) in segment s, added in
+    entry order: one gather and add per rank and one store to distinct
+    slots, no atomics, so every device gives the same sums (CUDA's
+    ``index_add_`` with repeated ids adds in no fixed order)."""
+    rest = tuple(vals.shape[1:])
+    Vp = torch.cat([vals.new_zeros((1,) + rest), vals])
+    out = vals.new_zeros((plan.idx.shape[1],) + rest)
+    for k in range(plan.idx.shape[0]):
+        out = out + Vp[plan.idx[k]]
+    if plan.segs is None:
         return out
-    pos = torch.arange(m, device=ids.device)
-    start = torch.ones(m, dtype=torch.bool, device=ids.device)
-    start[1:] = ids[1:] != ids[:-1]
-    seg_start = torch.cummax(torch.where(start, pos, 0), dim=0).values
-    rank = pos - seg_start
-    for r in range(int(rank.max()) + 1):
-        sel = rank == r
-        out.index_add_(0, ids[sel], vals[sel])
-    return out
+    full = vals.new_zeros((plan.num_segments,) + rest)
+    full[plan.segs] = out
+    return full
 
 
 def element_apply_plain(A, dofs, scatter: Scatter, X, coef=None):

@@ -3,24 +3,32 @@
 A sweep shares one mesh and operator sparsity; the coefficients are
 factored out,
 
-    A(D, mu) = D * K + R(mu),    R(mu) = mu * R_unit,
+    A(D, mu) = D * K + Adv + R(mu),    R(mu) = mu * R_unit,
 
-and all B sweep columns are solved at once in the batch-minor ``(n, B)``
-layout.  The solve is the JAX package's fused mixed-precision program:
-an f64 defect-correction loop whose passes are f32 preconditioned CG with a
-per-column ``active`` mask, the first pass started from the Dirichlet lift
-and one cheap pass that carries the inner recurrence residual.  Only this
-configuration is ported; f64 CG, BiCGStab and advection come later.
+with Adv the advection by one fixed velocity field (the nondimensional
+Stokes field is Pe-independent, so one velocity feeds every Pe column), and
+all B sweep columns are solved at once in the batch-minor ``(n, B)`` layout.
+Both solves are f64 defect-correction loops around f32 preconditioned
+Krylov passes with per-column ``active`` masks, as the JAX package runs
+them on a TPU:
+
+  symmetric (no Adv)   the fused mixed program: f32 CG passes, the first
+                       started from the Dirichlet lift, one cheap pass that
+                       carries the inner recurrence residual
+  nonsymmetric (Adv)   up to 12 true passes of f32 BiCGStab (the
+                       per-pass refine program); no cheap passes
 
 Operator applies by precision:
 
-  f64 (defect residuals, right-hand side)  K and R through kernel C
-  f32 (inner CG)                            K through kernel A (the band),
-                                            R through kernel C
+  f64 (defect residuals, right-hand side)  K, Adv and R through kernel C
+  f32 (inner Krylov)                        K and Adv through kernel A (the
+                                            bands), R through kernel C
 
-Convergence of the inner CG is tested on the host once per iteration
-(``any(|r_b| > tol_b)``), one device sync each; the ``active`` masks make
-any extra iteration a no-op for converged columns, as in the JAX program.
+Convergence of the inner iteration is tested on the host once per
+iteration (``any(|r_b| > tol_b)``), one device sync each; the ``active``
+masks make any extra iteration a no-op for converged columns, as in the
+JAX programs.  f64 CG and f64 BiCGStab (the JAX CPU default) are not
+ported.
 """
 
 from __future__ import annotations
@@ -33,11 +41,12 @@ import torch
 from fenics_eff_uptake_tpu.fem.space import FunctionSpace
 from fenics_eff_uptake_tpu.meshing.mesh_data import MARKERS, MeshData
 
-from ..fem.assembly import make_bc, robin_facet_block, stiffness_block
+from ..fem.assembly import (advection_block, make_bc, robin_facet_block,
+                            stiffness_block)
 from ..ops.band_plans import best_bandwidth_permutation, build_band_plan
 from ..ops.banded import band_apply, band_from_elements
 from ..ops.elemspmv import (Scatter, element_apply, make_scatter,
-                            sorted_segment_sum)
+                            make_segment_plan, planned_segment_sum)
 
 __all__ = ["TransportSystem", "build_transport_system", "system_to",
            "unpermute_columns", "OperatorArgs", "operator_args",
@@ -47,10 +56,12 @@ __all__ = ["TransportSystem", "build_transport_system", "system_to",
 # rows per band tile; systems are padded to a multiple of it (and to
 # nothing else)
 BAND_TILE = 256
-# the JAX package's mixed-solve settings: inner f32 CG steps per pass, f64
-# passes, inner residual reduction per pass, cheap passes after the first
+# the JAX package's mixed-solve settings: inner f32 Krylov steps per pass,
+# f64 passes (CG, BiCGStab), inner residual reduction per pass, cheap
+# passes after the first (CG only)
 N_INNER = 300
 MAX_PASSES = 10
+MAX_PASSES_BICGSTAB = 12
 INNER_RTOL = 1e-4
 CHEAP_PASSES = 1
 
@@ -67,6 +78,7 @@ class _Block(NamedTuple):
         """From f64 entity matrices on their device and an (N, nd) numpy
         dof map in the system's numbering of ``ndofs`` rows."""
         dev = A64.device
+        A64 = A64.contiguous()     # einsum outputs may be strided views
         return cls(A64=A64, A32=A64.float(),
                    dofs=torch.as_tensor(np.asarray(dofs), dtype=torch.int32,
                                         device=dev),
@@ -83,8 +95,11 @@ class _Block(NamedTuple):
 
     def diagonal(self):
         de = torch.diagonal(self.A64, dim1=1, dim2=2).reshape(-1)
-        return sorted_segment_sum(de[self.scatter.perm.long()],
-                                  self.scatter.ids_sorted, self.ndofs)
+        # the rows of de are the (entity, i) entries of dofs: the scatter
+        # plan's perm is their stable argsort by dof
+        seg = make_segment_plan(self.scatter.ids_sorted, self.ndofs,
+                                de.device, order=self.scatter.perm)
+        return planned_segment_sum(de, seg)
 
     def to(self, device):
         return _Block(A64=self.A64.to(device), A32=self.A32.to(device),
@@ -104,14 +119,20 @@ class TransportSystem(NamedTuple):
     Kband: Optional[torch.Tensor] = None   # (T, R, W) f32
     perm: Optional[np.ndarray] = None      # new2old (system -> space)
     iperm: Optional[np.ndarray] = None     # old2new
+    Adv: Optional[_Block] = None           # advection (nonsymmetric)
+    Advband: Optional[torch.Tensor] = None  # its band, on K's plan
+
+
+def _to(x, device):
+    return None if x is None else x.to(device)
 
 
 def system_to(sys: TransportSystem, device) -> TransportSystem:
     """The same system with every tensor on ``device``."""
     return sys._replace(
-        K=sys.K.to(device), R=None if sys.R is None else sys.R.to(device),
+        K=sys.K.to(device), R=_to(sys.R, device), Adv=_to(sys.Adv, device),
         free=sys.free.to(device), bc_values=sys.bc_values.to(device),
-        Kband=None if sys.Kband is None else sys.Kband.to(device))
+        Kband=_to(sys.Kband, device), Advband=_to(sys.Advband, device))
 
 
 def unpermute_columns(sys: TransportSystem, Xcols):
@@ -125,18 +146,24 @@ def unpermute_columns(sys: TransportSystem, Xcols):
     return Xcols[:, idx]
 
 
-def build_transport_system(mesh: MeshData, device,
-                           element="P2") -> TransportSystem:
-    """Assemble K (unit stiffness) and R (unit Robin on the bottom wall),
-    the Dirichlet lift (c = 1 left, c = 0 right), pad to the band
-    tile, reorder for the smallest bandwidth, and build the f32 band of K.
+def build_transport_system(mesh: MeshData, device, element="P2",
+                           u_values=None, u_space=None, dirichlet=None,
+                           with_robin=True) -> TransportSystem:
+    """Assemble K (unit stiffness), Adv (advection by the velocity
+    ``u_values`` on ``u_space``, when given) and R (unit Robin on the bottom
+    wall, unless ``with_robin`` is False), the Dirichlet lift (``dirichlet``
+    (marker, value) pairs; default c = 1 left, c = 0 right), pad to the
+    band tile, reorder for the smallest bandwidth, and build the f32 bands
+    of K and Adv on K's plan (Adv has K's dofs).
 
     Padding dofs are constrained identity rows with zero right-hand side."""
     device = torch.device(device)
     space = FunctionSpace(mesh, element)
     bottom = mesh.bc_marker == MARKERS["bottom"]
     K_e, K_dofs = stiffness_block(space, device)
-    bc = make_bc(space, [(MARKERS["left"], 1.0), (MARKERS["right"], 0.0)])
+    if dirichlet is None:
+        dirichlet = [(MARKERS["left"], 1.0), (MARKERS["right"], 0.0)]
+    bc = make_bc(space, dirichlet)
     n_true = space.ndofs
     ndofs = -(-n_true // BAND_TILE) * BAND_TILE
     free = np.concatenate([bc.free, np.zeros(ndofs - n_true, dtype=bool)])
@@ -146,18 +173,23 @@ def build_transport_system(mesh: MeshData, device,
         K_dofs, np.asarray(space.dof_coords), n_true, ndofs)
     K_dofs = iperm[K_dofs]
     K = _Block.build(K_e, K_dofs, ndofs)
+    plan = build_band_plan(K_dofs, ndofs, tile=BAND_TILE)
+    Adv = Advband = None
+    if u_values is not None:
+        Adv_e, _ = advection_block(space, u_values, u_space, device)
+        Adv = _Block.build(Adv_e, K_dofs, ndofs)
+        Advband = band_from_elements(Adv.A32, plan)
     R = None
-    if bottom.any():
+    if with_robin and bottom.any():
         R_e, R_dofs = robin_facet_block(space, bottom, device)
         R = _Block.build(R_e, iperm[R_dofs], ndofs)
-    plan = build_band_plan(K_dofs, ndofs, tile=BAND_TILE)
-    Kband = band_from_elements(K.A32, plan)
     return TransportSystem(
         K=K, R=R,
         free=torch.as_tensor(free[perm], device=device),
         bc_values=torch.as_tensor(bc_values[perm], dtype=torch.float64,
                                   device=device),
-        ndofs=ndofs, space=space, Kband=Kband, perm=perm, iperm=iperm)
+        ndofs=ndofs, space=space, Kband=band_from_elements(K.A32, plan),
+        perm=perm, iperm=iperm, Adv=Adv, Advband=Advband)
 
 
 # ---------------------------------------------------------------------------
@@ -167,8 +199,10 @@ def build_transport_system(mesh: MeshData, device,
 class OperatorArgs(NamedTuple):
     """One precision's view of the sweep operator (``operator_args``)."""
     K: _Block
+    Adv: Optional[_Block]
     R: Optional[_Block]
-    Kband: Optional[torch.Tensor]   # used by the f32 view only
+    Kband: Optional[torch.Tensor]   # the bands: f32 view only
+    Advband: Optional[torch.Tensor]
     free: torch.Tensor
     D_vec: torch.Tensor             # (B,) in the view's dtype
     mu_vec: torch.Tensor
@@ -178,16 +212,21 @@ def operator_args(sys: TransportSystem, D_vec, mu_vec, f32: bool):
     dt = torch.float32 if f32 else torch.float64
     dev = sys.free.device
     return OperatorArgs(
-        K=sys.K, R=sys.R, Kband=sys.Kband if f32 else None, free=sys.free,
+        K=sys.K, Adv=sys.Adv, R=sys.R, Kband=sys.Kband if f32 else None,
+        Advband=sys.Advband if f32 else None, free=sys.free,
         D_vec=torch.as_tensor(D_vec, device=dev).to(dt),
         mu_vec=torch.as_tensor(mu_vec, device=dev).to(dt))
 
 
 def _apply_raw(a: OperatorArgs, X):
+    # summation order K, Adv, R as in the JAX programs
     if a.Kband is not None:
         Y = band_apply(a.Kband, X, coef=a.D_vec)
     else:
         Y = a.K.apply_batched(X, coef=a.D_vec)
+    if a.Adv is not None:
+        Y = Y + (band_apply(a.Advband, X) if a.Advband is not None
+                 else a.Adv.apply_batched(X))
     if a.R is not None:
         Y = Y + a.R.apply_batched(X, coef=a.mu_vec)
     return Y
@@ -213,6 +252,8 @@ def fine_dinv(sys: TransportSystem, D_vec, mu_vec):
     D = torch.as_tensor(D_vec, dtype=torch.float64, device=dev)
     mu = torch.as_tensor(mu_vec, dtype=torch.float64, device=dev)
     d = D[None, :] * sys.K.diagonal()[:, None]
+    if sys.Adv is not None:
+        d = d + sys.Adv.diagonal()[:, None]
     if sys.R is not None:
         d = d + mu[None, :] * sys.R.diagonal()[:, None]
     ok = sys.free[:, None] & (d != 0)
@@ -292,12 +333,79 @@ def _mixed_solve(a64, a32, M, RHS, X0, tol):
     return X, rn, tot, k
 
 
+def _bicgstab_solve(a64, a32, M, RHS, X0, tol):
+    """The JAX per-pass ``_refine_program_bicgstab`` loop: up to
+    MAX_PASSES_BICGSTAB true f64 passes (at least one), each an f32
+    preconditioned BiCGStab with per-column ``active`` masks, started from
+    the Dirichlet lift X0 (so the opening residual is where(free, RHS, 0),
+    and each pass's closing residual opens the next: the same f64 values
+    the JAX program recomputes).
+
+    Returns (X, rn (B,) true f64 residual norms, iters (B,), passes)."""
+    B = RHS.shape[1]
+
+    def inner(R64):
+        rn0 = _colnorm(R64)
+        R = R64.float()
+        tol_in = torch.maximum(INNER_RTOL * rn0, 0.1 * tol).float()
+        Rhat = R
+        rho = alpha = omega = torch.ones(B, dtype=R.dtype, device=R.device)
+        Dx = torch.zeros_like(R)
+        P = torch.zeros_like(R)
+        V = torch.zeros_like(R)
+        cit = torch.zeros(B, dtype=torch.int64, device=R.device)
+        for _ in range(N_INNER):
+            active = _colnorm(R) > tol_in
+            if not bool(active.any()):
+                break
+            # the breakdown guards of the JAX body, term for term
+            rho_new = torch.sum(Rhat * R, dim=0)
+            beta = torch.where(
+                active,
+                (rho_new / torch.where(rho != 0, rho, 1.0))
+                * (alpha / torch.where(omega != 0, omega, 1.0)), 0.0)
+            P = torch.where(active, R + beta * (P - omega * V), P)
+            Phat = M(P)
+            V = apply_operator(a32, Phat)
+            denom = torch.sum(Rhat * V, dim=0)
+            alpha = torch.where(active & (denom != 0),
+                                rho_new / torch.where(denom != 0, denom, 1.0),
+                                0.0)
+            S = R - alpha * V
+            Shat = M(S)
+            T = apply_operator(a32, Shat)
+            tt = torch.sum(T * T, dim=0)
+            omega = torch.where(active & (tt != 0),
+                                torch.sum(T * S, dim=0)
+                                / torch.where(tt != 0, tt, 1.0), 0.0)
+            Dx = Dx + alpha * Phat + omega * Shat
+            R = torch.where(active, S - omega * T, R)
+            rho = rho_new
+            cit = cit + active
+        return Dx, cit
+
+    X = X0
+    R64 = torch.where(a64.free[:, None], RHS, 0.0)
+    tot = torch.zeros(B, dtype=torch.int64, device=RHS.device)
+    for k in range(1, MAX_PASSES_BICGSTAB + 1):
+        Dx, cit = inner(R64)
+        X = X + Dx.double()
+        R64 = RHS - apply_operator(a64, X)
+        rn = _colnorm(R64)
+        tot = tot + cit
+        if not bool((rn > tol).any()):
+            break
+    return X, rn, tot, k
+
+
 def solve_sweep(sys: TransportSystem, D_values, mu_values, rtol=1e-12,
                 multilevel=None):
-    """Batched mixed-precision transport solve over sweep points.
+    """Batched mixed-precision transport solve over sweep points: CG
+    without advection, BiCGStab with it.
 
     D_values, mu_values: (B,).  multilevel: a ``solvers.multilevel``
-    hierarchy (hybrid cycle); None preconditions with Jacobi.
+    hierarchy (hybrid cycle for CG, multiplicative V(1,1) for BiCGStab, the
+    cycles the JAX package runs on a TPU); None preconditions with Jacobi.
     Returns (X (B, n_true) f64 in FunctionSpace numbering, info) with info
     keys iters (B,), resnorm (B,), rel_resnorm (B,), passes."""
     dev = sys.free.device
@@ -306,20 +414,23 @@ def solve_sweep(sys: TransportSystem, D_values, mu_values, rtol=1e-12,
     mu_vec = torch.as_tensor(np.asarray(mu_values, dtype=np.float64),
                              device=dev)
     B = int(D_vec.shape[0])
+    nonsym = sys.Adv is not None
     a64 = operator_args(sys, D_vec, mu_vec, f32=False)
     a32 = operator_args(sys, D_vec, mu_vec, f32=True)
     G = sys.bc_values[:, None].expand(-1, B).contiguous()
     RHS = operator_rhs(a64, G)
     if multilevel is not None:
         from ..solvers.multilevel import make_ml_preconditioner
-        M = make_ml_preconditioner(multilevel)
+        M = make_ml_preconditioner(multilevel,
+                                   cycle="mult" if nonsym else "hybrid")
     else:
         dinv = fine_dinv(sys, D_vec, mu_vec)
 
         def M(R):
             return dinv * R
     bnorm = _colnorm(RHS)
-    X, rn, tot, passes = _mixed_solve(a64, a32, M, RHS, G, rtol * bnorm)
+    solve = _bicgstab_solve if nonsym else _mixed_solve
+    X, rn, tot, passes = solve(a64, a32, M, RHS, G, rtol * bnorm)
     bn = bnorm.cpu().numpy()
     resnorm = rn.cpu().numpy()
     info = {"iters": tot.cpu().numpy(), "resnorm": resnorm,

@@ -1,21 +1,27 @@
 """Batched geometric multigrid preconditioner (counterpart of
-``solvers/multilevel.py``), hybrid cycle.
+``solvers/multilevel.py``), hybrid and multiplicative cycles.
 
 Hierarchy for a P2 fine system on mesh h:
 
     fine P2 (h) -> P1 on the same mesh -> P1 at 3h -> P1 at 9h (dense)
 
-Every level operator is A_l = D * K_l + mu * R_l in the batch-minor (n_l, B)
-layout.  Transfers are barycentric interpolation (exact embedding for the
-nested same-mesh level) stored as windowed bands, so restriction and
-prolongation run through kernel B; the mid levels' K applies run through
-kernel A and their Robin applies through kernel C.  The coarsest level is a
-batch of dense f32 inverses, built on the host (LAPACK) and shipped once.
+Every level operator is A_l = D * K_l + Adv_l + mu * R_l in the batch-minor
+(n_l, B) layout; Adv_l advects by the fine velocity interpolated onto the
+level mesh (``level_velocities``).  Transfers are barycentric interpolation
+(exact embedding for the nested same-mesh level) stored as windowed bands,
+so restriction and prolongation run through kernel B; the levels' K and
+Adv applies run through kernel A and their Robin applies through kernel C.
+The coarsest level is a batch of dense f32 inverses, built on the host
+(LAPACK) and shipped once; its advection enters symmetrised,
+constrain(0.5 (Adv + Adv^T)), as in the JAX package.
 
-The cycle is the JAX package's hybrid: additive at the fine level (scaled
-Jacobi plus the prolongated coarse correction, no fine operator apply) and a
-multiplicative V(1,1) cycle with weighted-Jacobi smoothing below.  It is
-symmetric positive definite, so CG applies.
+Two cycles (``make_ml_preconditioner``), both from the JAX package:
+
+  hybrid  additive at the fine level (scaled Jacobi plus the prolongated
+          coarse correction, no fine operator apply), multiplicative below;
+          symmetric positive definite, so CG applies (symmetric sweeps)
+  mult    the V(1,1) cycle with weighted-Jacobi smoothing on every level
+          (nonsymmetric sweeps, the Stokes velocity block)
 
 Level systems are assembled on the host (CPU tensors) and shipped to the
 fine system's device, as the JAX package does.
@@ -35,8 +41,8 @@ from ..parallel.sweep import (TransportSystem, build_transport_system,
                               fine_dinv, system_to)
 
 __all__ = ["Transfer", "TransferBands", "Level", "MultilevelData",
-           "level_meshes_for", "build_multilevel", "build_multilevel_for",
-           "make_ml_preconditioner"]
+           "level_meshes_for", "level_velocities", "build_multilevel",
+           "build_multilevel_for", "make_ml_preconditioner"]
 
 LEVEL_FACTORS = (3.0, 9.0)   # coarse level mesh sizes, in fine h
 LEVEL_CAP = 0.45             # largest level h, in channel heights
@@ -65,7 +71,8 @@ class TransferBands(NamedTuple):
 
 class Level(NamedTuple):
     sys: TransportSystem
-    dinv: torch.Tensor        # (n_l, B) f32 inverse diagonal
+    dinv: torch.Tensor        # (n_l, B) f32 inverse diagonal (or (n_l, 1)
+                              # broadcast over the columns)
     free: torch.Tensor        # (n_l,) bool
     transfer: Transfer
     bands: TransferBands
@@ -73,7 +80,8 @@ class Level(NamedTuple):
 
 class MultilevelData(NamedTuple):
     levels: tuple             # fine -> last smoothed level
-    Ainv: torch.Tensor        # (B, nc, nc) f32 coarsest inverses
+    Ainv: torch.Tensor        # (B, nc, nc) f32 coarsest inverses (or
+                              # (1, nc, nc) broadcast)
     free_c: torch.Tensor      # (nc,) bool
     omega: float
     D_vec: torch.Tensor       # (B,) f64
@@ -150,28 +158,11 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-def _level_dinv_np(sys_l: TransportSystem, D_vec, mu_vec):
-    """(n_l, B) f32 inverse diagonal of a host level system, in numpy."""
-    def seg_diag(b):
-        de = np.diagonal(_np(b.A64), axis1=-2, axis2=-1).reshape(-1)
-        de = de[_np(b.scatter.perm)]
-        out = np.zeros(b.ndofs)
-        np.add.at(out, _np(b.scatter.ids_sorted), de)
-        return out
-
-    D = np.asarray(D_vec)
-    mu = np.asarray(mu_vec)
-    d = D[None, :] * seg_diag(sys_l.K)[:, None]
-    if sys_l.R is not None:
-        d = d + mu[None, :] * seg_diag(sys_l.R)[:, None]
-    ok = _np(sys_l.free)[:, None] & (d != 0)
-    return np.where(ok, 1.0 / np.where(d != 0, d, 1.0),
-                    1.0).astype(np.float32)
-
-
 def _coarse_inverses(csys: TransportSystem, D_vec, mu_vec):
     """(B, nc, nc) f32 inverses of the constrained dense coarsest operators
-    (host f64 assembly, LAPACK inverse in f32), as the JAX CPU path."""
+    (host f64 assembly, LAPACK inverse in f32), as the JAX CPU path; the
+    advection enters symmetrised, constrain(0.5 (Adv + Adv^T)), and every
+    operator gets a 1e-6 mean-|diagonal| shift, both as in JAX."""
     nc = csys.ndofs
 
     def dense_of(block):
@@ -194,10 +185,16 @@ def _coarse_inverses(csys: TransportSystem, D_vec, mu_vec):
         return A
 
     K_c = constrain(dense_of(csys.K))
+    Adv_c = None
+    if csys.Adv is not None:
+        Adv_c = dense_of(csys.Adv)
+        Adv_c = constrain(0.5 * (Adv_c + Adv_c.T))
     R_c = constrain(dense_of(csys.R)) if csys.R is not None else None
     out = []
     for b in range(len(D_vec)):
         A = D_vec[b] * K_c
+        if Adv_c is not None:
+            A = A + Adv_c
         if R_c is not None:
             A = A + mu_vec[b] * R_c
         A = A + 1e-6 * np.abs(np.diag(A)).mean() * np.eye(nc)
@@ -206,17 +203,25 @@ def _coarse_inverses(csys: TransportSystem, D_vec, mu_vec):
 
 
 def build_multilevel(sys: TransportSystem, level_meshes, D_values,
-                     mu_values) -> MultilevelData:
+                     mu_values, u_levels=None, dirichlet=None,
+                     with_robin=True) -> MultilevelData:
     """MG hierarchy for a fine TransportSystem sweep.
 
     level_meshes: MeshData list fine -> coarse; the first may be the fine
-    mesh itself (nested P1 level), the last is solved densely."""
+    mesh itself (nested P1 level), the last is solved densely.  u_levels:
+    one (values, vector space) velocity per level mesh (advective systems,
+    ``level_velocities``).  dirichlet / with_robin: the fine system's
+    boundary structure, mirrored on every level (e.g. the Stokes velocity
+    Laplacian: Dirichlet walls, no Robin)."""
     dev = sys.free.device
     D = np.asarray(D_values, dtype=np.float64)
     mu = np.asarray(mu_values, dtype=np.float64)
     n_levels = len(level_meshes)
-    lsys = [build_transport_system(m, "cpu", element="P1")
-            for m in level_meshes]
+    u_levels = u_levels or [(None, None)] * n_levels
+    lsys = [build_transport_system(m, "cpu", element="P1", u_values=uv,
+                                   u_space=us, dirichlet=dirichlet,
+                                   with_robin=with_robin)
+            for m, (uv, us) in zip(level_meshes, u_levels)]
 
     def coords_of(s, verts=None):
         c = np.asarray(s.space.dof_coords if verts is None else verts)
@@ -238,9 +243,7 @@ def build_multilevel(sys: TransportSystem, level_meshes, D_values,
             lsys[i + 1].ndofs, lsys[i + 1].iperm))
 
     level_sys = [sys] + [system_to(s, dev) for s in lsys[:-1]]
-    dinvs = [fine_dinv(sys, D, mu)] + [
-        torch.as_tensor(_level_dinv_np(s, D, mu), device=dev)
-        for s in lsys[:-1]]
+    dinvs = [fine_dinv(s, D, mu).to(dev) for s in [sys] + lsys[:-1]]
     levels = []
     for l, tr in enumerate(transfers):
         plans = aligned_transfer_plans(tr.cols, tr.weights,
@@ -268,19 +271,49 @@ def build_multilevel(sys: TransportSystem, level_meshes, D_values,
                           mu_vec=torch.as_tensor(mu, device=dev))
 
 
-def build_multilevel_for(sys, mesh, D_values,
-                         mu_values) -> Optional[MultilevelData]:
+def level_velocities(u_fine, level_meshes):
+    """The fine velocity Function on each level mesh's P2 vector space:
+    the same-mesh level reuses the fine field, the others interpolate it
+    at their dof coordinates (zero where a point falls outside the fine
+    mesh).  Returns a list of (interleaved values, vector space)."""
+    from fenics_eff_uptake_tpu.fem.space import FunctionSpace
+
+    from ..analysis.profiles import eval_function
+    out = []
+    for m in level_meshes:
+        if m is u_fine.space.mesh:
+            out.append((np.asarray(u_fine.values), u_fine.space))
+            continue
+        Vl = FunctionSpace(m, "P2", vs=2)
+        vals, ok = eval_function(u_fine, Vl.dof_coords)
+        vals = np.where(ok[:, None], vals, 0.0)
+        inter = np.zeros(Vl.ndofs)
+        inter[0::2] = vals[:, 0]
+        inter[1::2] = vals[:, 1]
+        out.append((inter, Vl))
+    return out
+
+
+def build_multilevel_for(sys, mesh, D_values, mu_values,
+                         u_fine=None) -> Optional[MultilevelData]:
     """The study hierarchy, or None when the mesh is coarse enough
-    (h >= H_THRESHOLD) that Jacobi alone converges quickly."""
+    (h >= H_THRESHOLD) that Jacobi alone converges quickly.  u_fine: the
+    fine velocity Function of an advective sweep, carried to every level."""
     g = mesh.geom
     if g is None or g.mesh_size >= H_THRESHOLD:
         return None
-    return build_multilevel(sys, level_meshes_for(mesh), D_values,
-                            mu_values)
+    meshes = level_meshes_for(mesh)
+    u_levels = (None if u_fine is None
+                else level_velocities(u_fine, meshes))
+    return build_multilevel(sys, meshes, D_values, mu_values,
+                            u_levels=u_levels)
 
 
-def make_ml_preconditioner(ml: MultilevelData):
-    """M^{-1}: (n, B) f32 -> (n, B) f32, one hybrid cycle."""
+def make_ml_preconditioner(ml: MultilevelData, cycle="hybrid"):
+    """M^{-1}: (n, B) f32 -> (n, B) f32, one ``cycle`` ("hybrid" or
+    "mult") of the hierarchy."""
+    if cycle not in ("hybrid", "mult"):
+        raise ValueError(f"unknown cycle {cycle!r}")
     D32 = ml.D_vec.float()
     mu32 = ml.mu_vec.float()
     omega = ml.omega
@@ -292,6 +325,8 @@ def make_ml_preconditioner(ml: MultilevelData):
         free = la.free[:, None]
         Xm = torch.where(free, X, 0.0)
         Y = band_apply(la.sys.Kband, Xm, coef=D32)
+        if la.sys.Advband is not None:
+            Y = Y + band_apply(la.sys.Advband, Xm)
         if la.sys.R is not None:
             Y = Y + la.sys.R.apply_batched(Xm, coef=mu32)
         return torch.where(free, Y, Xm)
@@ -310,7 +345,7 @@ def make_ml_preconditioner(ml: MultilevelData):
 
     def coarse(rc):
         rc = torch.where(ml.free_c[:, None], rc, 0.0)
-        return torch.bmm(ml.Ainv, rc.t().unsqueeze(-1)).squeeze(-1).t()
+        return torch.matmul(ml.Ainv, rc.t().unsqueeze(-1)).squeeze(-1).t()
 
     def vcycle(l, r):
         la = levels[l]
@@ -324,6 +359,9 @@ def make_ml_preconditioner(ml: MultilevelData):
         x = x + prolong(la, xc)
         # mirrored post-smooth keeps M symmetric (CG-safe)
         return x + omega * la.dinv * (r - A_masked(la, x))
+
+    if cycle == "mult":
+        return lambda R: vcycle(0, R)
 
     def hybrid(R):
         la = levels[0]

@@ -1,8 +1,11 @@
 """Shared study-driver machinery (counterpart of ``studies/common.py``).
 
-``no_adv_batch`` is the workhorse: one mesh, one operator build, one
-multigrid hierarchy, ONE batched mixed-precision solve over all mu values of
-the geometry, then the batched metrics.
+``no_adv_batch`` is the workhorse of the no-advection studies: one mesh,
+one operator build, one multigrid hierarchy, ONE batched mixed-precision
+solve over all mu values of the geometry, then the batched metrics.
+``stokes_for_study`` and ``transport_batch`` are the advective studies'
+pair: one Stokes field per mesh, then ONE batched BiCGStab solve over the
+geometry's Pe (and mu) columns.
 """
 
 from __future__ import annotations
@@ -22,11 +25,13 @@ from fenics_eff_uptake_tpu.params import Parameters
 
 from ..analysis.batched_metrics import build_sweep_metrics, metrics_to_dicts
 from ..device import setup
+from ..models.stokes_flow import stokes_solve_mg
 from ..parallel.sweep import build_transport_system, solve_sweep
 from ..solvers.multilevel import build_multilevel_for
 
 __all__ = ["make_no_adv_params", "make_mesh", "sweep_mus", "no_adv_batch",
-           "create_study_dir", "save_csv", "save_metadata"]
+           "stokes_for_study", "transport_batch", "create_study_dir",
+           "save_csv", "save_metadata"]
 
 
 def make_no_adv_params(mu_factor=1.0, sulci_w_dim=None, sulci_h_dim=None,
@@ -134,6 +139,36 @@ def no_adv_batch(geom_params: Parameters, mu_factors: List[float],
         "multilevel": ml is not None,
     }
     return out, stats
+
+
+def stokes_for_study(mesh, H, device):
+    """The study's Stokes field (u, p) on ``device``, solved as the JAX
+    package's ``stokes_solve`` does (MINRES + MG, outer rtol 1e-9); the
+    solver report, with its setup and solve seconds, is ``u.solver_info``."""
+    return stokes_solve_mg(mesh, H, setup(device))
+
+
+def transport_batch(mesh, u, D_batch, mu_batch, device, rtol=1e-12):
+    """One domain's batch of advective transport columns (the ``mu_batch``
+    branch of the JAX ``transport_batch``): the system with advection by
+    ``u``, the hierarchy carrying u to every level, and ONE batched
+    BiCGStab solve.
+
+    Returns (X (B, n) f64 on ``device``, info, system, stats) with stats
+    the stage seconds (each ending in a device sync) assembly_s,
+    ml_setup_s, solve_s."""
+    device = setup(device)
+    t0 = time.time()
+    sys = build_transport_system(mesh, device, u_values=u.values,
+                                 u_space=u.space)
+    t_asm = _sync(device)
+    ml = build_multilevel_for(sys, mesh, D_batch, mu_batch, u_fine=u)
+    t_ml = _sync(device)
+    X, info = solve_sweep(sys, D_batch, mu_batch, rtol=rtol, multilevel=ml)
+    t_solve = _sync(device)
+    stats = {"assembly_s": t_asm - t0, "ml_setup_s": t_ml - t_asm,
+             "solve_s": t_solve - t_ml, "multilevel": ml is not None}
+    return X, info, sys, stats
 
 
 def create_study_dir(study_name, base_dir):

@@ -1,7 +1,8 @@
-"""The PyTorch port imports neither jax nor triton.
+"""The PyTorch port imports neither jax, pandas nor triton (the card's
+machine has no jax and no pandas)."""
 
-Each check runs in a fresh interpreter: this test process has jax loaded
-already (tests/conftest.py)."""
+# Each check runs in a fresh interpreter: this test process has jax loaded
+# already (tests/conftest.py).
 
 import ast
 import pkgutil
@@ -31,7 +32,7 @@ def test_port_modules_load_no_jax_or_triton():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = [k for k in ('jax', 'jaxlib', 'triton') "
+            "bad = [k for k in ('jax', 'jaxlib', 'triton', 'pandas') "
             "if k in sys.modules]\n"
             "assert not bad, bad\n"
             "print('ok')\n")
@@ -55,8 +56,10 @@ def test_chip_smoke_loads_no_jax():
         elif isinstance(node, ast.ImportFrom):
             names.append(node.module or "")
     assert "fenics_eff_uptake_tpu_torch.studies.phase_a" in names, names
+    assert "fenics_eff_uptake_tpu_torch.studies.no_uptake" in names, names
     bad = [n for n in names
-           if n.split(".")[0] in ("jax", "jaxlib", "fenics_eff_uptake_tpu")]
+           if n.split(".")[0] in ("jax", "jaxlib", "fenics_eff_uptake_tpu",
+                                  "pandas")]
     assert not bad, bad
 
 

@@ -10,8 +10,11 @@
   and band paths) and 1e-5 for the band kernels (as test_banded.py holds
   band_apply_pallas), both from summation order.
 * Wrapper guards: CPU tensors take the plain version and count no launch;
-  input the CUDA kernels do not take raises in the argument checkers.
-* Kernel against plain on the card (marker ``cuda``; skipped without one).
+  input the CUDA kernels do not take raises in the argument checkers.  The
+  band kernels take any batch width (B = 33 and 96 on the card).
+* Kernel against plain on the card (marker ``cuda``; skipped without one),
+  including the no-uptake path's cases: wide batches (B = 33, 96) and the
+  nonsymmetric advection band and element block.
 
 The JAX side is imported inside a fixture, so the file also runs where jax
 is absent: ``python -m pytest tests/test_torch_kernels.py -m cuda
@@ -263,9 +266,9 @@ def test_checkers_refuse_unsupported_input():
     band, X, coef = (torch.as_tensor(a) for a in _band_case(1))
     with pytest.raises(TypeError, match="f32"):
         tb.check_band_apply_args(band.bfloat16(), X, coef)
-    wide = torch.zeros((X.shape[0], tb.MAX_BAND_COLS + 1))
-    with pytest.raises(ValueError, match="B=33"):
-        tb.check_band_apply_args(band, wide)
+    # any width >= 1 is taken (wide batches run as column blocks)
+    with pytest.raises(ValueError, match="B=0"):
+        tb.check_band_apply_args(band, torch.zeros((X.shape[0], 0)))
     with pytest.raises(ValueError, match="CUDA device"):
         tb.check_band_apply_args(band, X, coef)
 
@@ -274,9 +277,9 @@ def test_checkers_refuse_unsupported_input():
                        torch.as_tensor(_UNALIGNED_OFFS), torch.as_tensor(Xp))
     with pytest.raises(TypeError, match="f32"):
         tb.check_rect_band_apply_args(rband.bfloat16(), offs, Xp)
-    with pytest.raises(ValueError, match="B=33"):
-        tb.check_rect_band_apply_args(
-            rband, offs, torch.zeros((Xp.shape[0], tb.MAX_BAND_COLS + 1)))
+    with pytest.raises(ValueError, match="B=0"):
+        tb.check_rect_band_apply_args(rband, offs,
+                                      torch.zeros((Xp.shape[0], 0)))
     with pytest.raises(ValueError, match="CUDA device"):
         tb.check_rect_band_apply_args(rband, offs, Xp)
 
@@ -298,14 +301,27 @@ def test_checkers_refuse_unsupported_input():
         te.check_element_apply_args(At, dt, sc, Xt)
 
 
-def test_sorted_segment_sum_is_sequential():
-    """The deterministic segment sum adds each segment in sorted order."""
-    vals = torch.tensor([1e8, 1.0, -1e8, 3.0, 4.0], dtype=torch.float32)
-    ids = torch.tensor([0, 0, 0, 2, 2])
-    out = te.sorted_segment_sum(vals, ids, 4)
+@pytest.mark.parametrize("presorted", [False, True])
+def test_sorted_segment_sum_is_sequential(presorted):
+    """The deterministic segment sum adds each segment in entry order,
+    whether the plan sorts the ids itself or is handed a stable argsort,
+    and leaves segments without entries at zero."""
+    vals = torch.tensor([3.0, 1e8, 1.0, 4.0, -1e8], dtype=torch.float32)
+    ids = np.array([2, 0, 0, 2, 0])
+    if presorted:
+        order = np.argsort(ids, kind="stable")
+        plan = te.make_segment_plan(ids[order], 4, "cpu", order=order)
+    else:
+        plan = te.make_segment_plan(ids, 4, "cpu")
+    assert plan.segs.tolist() == [0, 2]
+    out = te.planned_segment_sum(vals, plan)
     ref = ((np.float32(1e8) + np.float32(1.0)) - np.float32(1e8))
     assert out[0].item() == ref
     assert out.tolist()[1:] == [0.0, 7.0, 0.0]
+    full = te.make_segment_plan(np.array([1, 0, 1]), 2, "cpu")
+    assert full.segs is None
+    assert te.planned_segment_sum(torch.tensor([[1.0], [2.0], [3.0]]),
+                                  full).tolist() == [[2.0], [4.0]]
 
 
 # ---------------------------------------------------------------------------
@@ -313,11 +329,12 @@ def test_sorted_segment_sum_is_sequential():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 3, 20])
 @pytest.mark.parametrize("with_coef", [False, True])
 @pytest.mark.parametrize("halo", [1, 2])
-def test_band_apply_kernel_matches_plain(cuda, halo, with_coef):
+def test_band_apply_kernel_matches_plain(cuda, halo, with_coef, B):
     band, X, coef = (torch.as_tensor(a, device=cuda)
-                     for a in _band_case(halo, T=40, R=256, B=20))
+                     for a in _band_case(halo, T=40, R=256, B=B))
     c = coef if with_coef else None
     n0 = tb.band_apply.launches
     Y = tb.band_apply(band, X, c)
@@ -326,7 +343,25 @@ def test_band_apply_kernel_matches_plain(cuda, halo, with_coef):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,W,B", [(256, 1536, 20), (8, 24, 3)])
+@pytest.mark.parametrize("B", [33, 96])
+def test_band_apply_kernel_wide_batch(cuda, B):
+    """Above 32 columns the kernel walks column blocks in one launch; each
+    column equals the plain version's and a narrow launch's."""
+    band, X, coef = (torch.as_tensor(a, device=cuda)
+                     for a in _band_case(2, T=40, R=256, B=B))
+    n0 = tb.band_apply.launches
+    Y = tb.band_apply(band, X, coef)
+    assert tb.band_apply.launches == n0 + 1
+    assert _rel(Y.cpu(), tb.band_apply_plain(band, X, coef).cpu()) < 1e-5
+    narrow = tb.band_apply(band, X[:, 32:35].contiguous(),
+                           coef[32:35].contiguous())
+    assert torch.equal(Y[:, 32:35], narrow)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,W,B", [(256, 1536, 20), (8, 24, 3), (256, 1536, 2),
+                                   (256, 1536, 3), (256, 256, 33),
+                                   (256, 1536, 96)])
 def test_rect_band_apply_kernel_matches_plain(cuda, R, W, B):
     offs = np.array([5, 77, 300, 301, 999], np.int32)
     band, Xp = _rect_case(offs, R=R, W=W, B=B)
@@ -356,3 +391,47 @@ def test_element_apply_kernel_matches_plain(cuda, dtype, nd):
     assert _rel(Y.cpu(), te.element_apply_plain(*args).cpu()) < tol
     # no atomics: two launches agree bit for bit
     assert torch.equal(Y, te.element_apply(*args))
+
+
+@pytest.mark.cuda
+def test_band_values_on_card_equal_cpu(cuda):
+    """The planned segment sums that scatter band values add in entry order
+    on the card too: the square and transfer bands equal the CPU's bit for
+    bit."""
+    A, dofs, _, _ = _element_case(6, np.float64, N=120, n=512)
+    plan = bp.build_band_plan(dofs, 512, tile=128)
+    At = torch.as_tensor(A)
+    assert torch.equal(tb.band_from_elements(At.to(cuda), plan).cpu(),
+                       tb.band_from_elements(At, plan))
+    cols, w = _random_transfer(np.random.default_rng(4), 1024, 273)
+    for pm in bp.aligned_transfer_plans(cols, w, 1024, 273)[:2]:
+        wt = torch.as_tensor(w)
+        assert torch.equal(tb.rect_band_values(pm, wt.to(cuda)).cpu(),
+                           tb.rect_band_values(pm, wt))
+
+
+@pytest.mark.cuda
+def test_advection_kernels_match_plain(cuda):
+    """Kernels A and C on a real nonsymmetric advection operator: the Adv
+    band at B = 3 (f32, 1e-5) and the f64 Adv element block at B = 3
+    (1e-12), as the no-uptake transport solve applies them."""
+    from fenics_eff_uptake_tpu.fem.space import FunctionSpace
+    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
+    from fenics_eff_uptake_tpu_torch.parallel.sweep import \
+        build_transport_system
+    mesh = generate_mesh(width=10.0, height=1.0, sulcus_depth=1.0,
+                         sulcus_width=0.5, mesh_size=0.1,
+                         refinement_factor=1, domain_type="sulcus")
+    V = FunctionSpace(mesh, "P2", vs=2)
+    u = np.zeros(V.ndofs)
+    u[0::2] = 4.0 * V.dof_coords[:, 1] * (1.0 - V.dof_coords[:, 1])
+    sys = build_transport_system(mesh, cuda, u_values=u, u_space=V)
+    rng = np.random.default_rng(12)
+    X = torch.as_tensor(rng.standard_normal((sys.ndofs, 3)), device=cuda)
+    Y = tb.band_apply(sys.Advband, X.float())
+    assert _rel(Y.cpu(), tb.band_apply_plain(sys.Advband, X.float()).cpu()) \
+        < 1e-5
+    blk = sys.Adv
+    Ye = te.element_apply(blk.A64, blk.dofs, blk.scatter, X)
+    Yp = te.element_apply_plain(blk.A64, blk.dofs, blk.scatter, X)
+    assert _rel(Ye.cpu(), Yp.cpu()) < 1e-12
