@@ -11,7 +11,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    fenics_eff_uptake_tpu_torch/ops/csrc into build/kernels/.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the mu sweep gives it (h = 0.02, B = 20), with the stated
-   tolerance; prints errors and median times from CUDA events.
+   tolerance; prints errors and median times from CUDA events, beside the
+   time of the one library call that computes the same function (kernels
+   A and B: the cuBLAS bmm of the plain version on windows built before
+   the timing; kernel C: a cuSPARSE CSR product of the assembled matrix,
+   coef folded into X before the timing) and the least time the card
+   could take (the larger of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s in
+   f32, 34 TFLOP/s in f64): for A and B both over the whole band (dense)
+   and over the column spans these inputs need (span), with the share of
+   the span bound that the kernel reaches.
    The flow path's cases follow (``phase_kernels_flow``, on the solved
    Stokes velocity): kernel A on the advection band at B = 3 and on the
    Stokes velocity band at B = 2; kernel B on the fine restriction and
@@ -59,6 +67,7 @@ import pstats
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -88,6 +97,10 @@ NU_REL_COLUMNS = ("Total Mass", "Avg Concentration",
 NU_NET_COLUMNS = ("Mouth_Flux_Total", "Inlet-Outlet Flux")
 PALLAS = "fenics_eff_uptake_tpu/ops/pallas_kernels.py"
 CSRC = "fenics_eff_uptake_tpu_torch/ops/csrc"
+# the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s, and
+# FLOP/s outside the tensor cores by element size
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {4: 67e12, 8: 34e12}
 
 
 def phase_device():
@@ -123,8 +136,43 @@ def median_ms(fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
-def compare(label, kernel, plain, rtol):
-    """Kernel vs plain on the same inputs: errors + median times."""
+def bound_ms(nbytes, flops, elem_size):
+    """(least ms the card could take, "bytes" or "operations")."""
+    tb = nbytes / HBM_BYTES_S * 1e3
+    tf = flops / PEAK_FLOPS[elem_size] * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def span_elements(band, spans):
+    """Band elements inside the column spans (what these inputs need)."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.ops.banded import SPAN_COLS, SPAN_ROWS
+    T, R, W = band.shape
+    nb = spans.shape[1]
+    rows = torch.clamp(R - SPAN_ROWS * torch.arange(nb, device=band.device),
+                       max=SPAN_ROWS)
+    cols = (torch.clamp(spans[..., 1] * SPAN_COLS, max=W)
+            - spans[..., 0] * SPAN_COLS).clamp(min=0)
+    return int((cols * rows).sum())
+
+
+def band_bounds(band, spans, n_in, n_out, B, extra_bytes=0):
+    """Dense and span bounds of a band apply: the band (whole, or its
+    spans' elements) read once, X (n_in, B) read once, Y (n_out, B)
+    written once, 2 * B FLOPs per band element."""
+    io = 4 * B * (n_in + n_out) + extra_bytes
+    dense = band.numel()
+    sp = span_elements(band, spans)
+    return {"dense": bound_ms(4 * dense + io, 2 * B * dense, 4),
+            "span": bound_ms(4 * sp + io + spans.numel() * 4, 2 * B * sp,
+                             4),
+            "span_fill": sp / dense}
+
+
+def compare(label, kernel, plain, rtol, library=None, bounds=None):
+    """Kernel vs plain on the same inputs: errors, median times, the
+    library call's median time, and the bounds (``bounds``: "span" and,
+    for the band kernels, "dense" (ms, what binds) pairs)."""
     import torch
     yk = kernel()
     yp = plain()
@@ -136,22 +184,97 @@ def compare(label, kernel, plain, rtol):
     rel = abs_err / scale if scale > 0 else abs_err
     ms = median_ms(kernel)
     plain_ms = median_ms(plain)
-    print(f"[kernels] {label}: max_abs_err {abs_err:.3e} max_rel_err "
-          f"{rel:.3e} (tol {rtol:.0e}) kernel {ms:.4f} ms plain "
-          f"{plain_ms:.4f} ms", flush=True)
+    lib_ms = None if library is None else median_ms(library)
+    span, by = bounds["span"]
+    out = {"case": label, "max_abs_err": abs_err, "max_rel_err": rel,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": span, "bound_by": by, "share": span / ms}
+    text = (f"[kernels] {label}: max_abs_err {abs_err:.3e} max_rel_err "
+            f"{rel:.3e} (tol {rtol:.0e}) kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms library "
+            + ("none" if lib_ms is None else f"{lib_ms:.4f} ms"))
+    if "dense" in bounds:
+        d, dby = bounds["dense"]
+        out.update(dense_bound_ms=d, dense_bound_by=dby,
+                   span_fill=bounds["span_fill"])
+        text += (f"; bound dense {d:.4f} ms ({dby}), span {span:.4f} ms "
+                 f"({by}, {100 * bounds['span_fill']:.1f}% of the band)")
+    else:
+        text += f"; bound {span:.4f} ms ({by})"
+    print(f"{text}; share of the bound {span / ms:.3f}", flush=True)
     if not rel <= rtol:
         raise AssertionError(f"{label}: relative error {rel:.3e} > {rtol}")
-    return {"case": label, "max_abs_err": abs_err, "max_rel_err": rel,
-            "ms": ms, "plain_ms": plain_ms}
+    return out
+
+
+def band_case(label, band, spans, X, coef, rtol=1e-5):
+    """Kernel A on one band: kernel, plain, and the plain version's one
+    cuBLAS call (bmm on the windows, built before the timing)."""
+    import torch
+    import torch.nn.functional as F
+    from fenics_eff_uptake_tpu_torch.ops.banded import (band_apply,
+                                                        band_apply_plain)
+    T, R, W = band.shape
+    halo = (W // R - 1) // 2
+    win = F.pad(X, (0, 0, halo * R, halo * R)).unfold(0, W, R).contiguous()
+    n, B = X.shape
+    return compare(
+        label, lambda: band_apply(band, X, coef, spans=spans),
+        lambda: band_apply_plain(band, X, coef), rtol,
+        library=lambda: torch.bmm(band, win.transpose(1, 2)),
+        bounds=band_bounds(band, spans, n, n, B,
+                           0 if coef is None else 4 * B))
+
+
+def rect_case(label, band, offs, spans, Xq, rtol=1e-5):
+    """Kernel B on one transfer band: kernel, plain, and the plain
+    version's one cuBLAS call (bmm on the gathered windows, the gather
+    before the timing)."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.ops.banded import (
+        rect_band_apply, rect_band_apply_plain)
+    T, R, W = band.shape
+    idx = offs.long()[:, None] + torch.arange(W, device=Xq.device)
+    win = Xq[idx].contiguous()
+    return compare(
+        label, lambda: rect_band_apply(band, offs, Xq, spans),
+        lambda: rect_band_apply_plain(band, offs, Xq), rtol,
+        library=lambda: torch.bmm(band, win),
+        bounds=band_bounds(band, spans, Xq.shape[0], T * R, Xq.shape[1],
+                           4 * T))
+
+
+def element_case(label, A, blk, X, coef, rtol):
+    """Kernel C on one element block: kernel, plain, and one cuSPARSE CSR
+    product of the assembled matrix (built, and coef folded into X, before
+    the timing)."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.ops.elemspmv import (
+        element_apply, element_apply_plain)
+    N, nd, _ = A.shape
+    n, B = X.shape
+    dofs = blk.dofs.long()
+    rows = dofs[:, :, None].expand(N, nd, nd).reshape(-1)
+    cols = dofs[:, None, :].expand(N, nd, nd).reshape(-1)
+    with warnings.catch_warnings():     # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore")
+        csr = torch.sparse_coo_tensor(
+            torch.stack([rows, cols]), A.reshape(-1), (n, n),
+            check_invariants=False).coalesce().to_sparse_csr()
+    Xc = X if coef is None else X * coef
+    ds = A.element_size()
+    nbytes = (A.numel() * ds + 4 * (2 * N * nd + n + 1) + 2 * n * B * ds
+              + (0 if coef is None else B * ds))
+    return compare(
+        label, lambda: element_apply(A, blk.dofs, blk.scatter, X, coef),
+        lambda: element_apply_plain(A, blk.dofs, blk.scatter, X, coef),
+        rtol, library=lambda: torch.sparse.mm(csr, Xc),
+        bounds={"span": bound_ms(nbytes, 2 * N * nd * nd * B, ds)})
 
 
 def phase_kernels(dev):
     """Each kernel against its plain version at the sweep's own shapes."""
     import torch
-    from fenics_eff_uptake_tpu_torch.ops.banded import (
-        band_apply, band_apply_plain, rect_band_apply, rect_band_apply_plain)
-    from fenics_eff_uptake_tpu_torch.ops.elemspmv import (
-        element_apply, element_apply_plain)
     from fenics_eff_uptake_tpu_torch.parallel.sweep import (
         build_transport_system)
     from fenics_eff_uptake_tpu_torch.solvers.multilevel import (
@@ -175,22 +298,21 @@ def phase_kernels(dev):
     out = {"band_apply": [], "rect_band_apply": [], "element_apply": []}
     # A: the fine operator band and the first mid-level band (f32 accumulate
     # over up to W terms in another order than cuBLAS: 1e-5 of max |Y|)
-    for label, band in (("fine", sys_.Kband),
-                        ("mid", ml.levels[1].sys.Kband)):
+    for label, s in (("fine", sys_), ("mid", ml.levels[1].sys)):
+        band = s.Kband
         X = rnd(band.shape[0] * band.shape[1], torch.float32)
-        out["band_apply"].append(compare(
-            f"A {label} band {tuple(band.shape)} B={B_SWEEP}",
-            lambda: band_apply(band, X, coef32),
-            lambda: band_apply_plain(band, X, coef32), 1e-5))
+        out["band_apply"].append(band_case(
+            f"A {label} band {tuple(band.shape)} B={B_SWEEP}", band,
+            s.Kspans, X, coef32))
     # B: the fine level's restriction and prolongation bands
     tb = ml.levels[0].bands
-    for label, band, offs, rows in (("restrict", tb.r, tb.ro, tb.pad_r),
-                                    ("prolong", tb.p, tb.po, tb.pad_p)):
+    for label, band, offs, spans, rows in (
+            ("restrict", tb.r, tb.ro, tb.rs, tb.pad_r),
+            ("prolong", tb.p, tb.po, tb.ps, tb.pad_p)):
         Xq = rnd(rows, torch.float32)
-        out["rect_band_apply"].append(compare(
-            f"B fine {label} {tuple(band.shape)} B={B_SWEEP}",
-            lambda: rect_band_apply(band, offs, Xq),
-            lambda: rect_band_apply_plain(band, offs, Xq), 1e-5))
+        out["rect_band_apply"].append(rect_case(
+            f"B fine {label} {tuple(band.shape)} B={B_SWEEP}", band, offs,
+            spans, Xq))
     # C: f64 K and Robin (P2 cells, nd=6), f32 Robin, and the mid level's
     # P1 Robin (nd=3); 1e-12 in f64, 2e-5 in f32 (summation order)
     for label, blk, dtype, rtol in (
@@ -200,12 +322,9 @@ def phase_kernels(dev):
             ("f32 mid R", ml.levels[1].sys.R, torch.float32, 2e-5)):
         A = blk.A64 if dtype == torch.float64 else blk.A32
         X = rnd(blk.ndofs, dtype)
-        coef = coef32.to(dtype)
-        out["element_apply"].append(compare(
-            f"C {label} A{tuple(A.shape)} B={B_SWEEP}",
-            lambda: element_apply(A, blk.dofs, blk.scatter, X, coef),
-            lambda: element_apply_plain(A, blk.dofs, blk.scatter, X, coef),
-            rtol))
+        out["element_apply"].append(element_case(
+            f"C {label} A{tuple(A.shape)} B={B_SWEEP}", A, blk, X,
+            coef32.to(dtype), rtol))
     del sys_, ml
     torch.cuda.empty_cache()
     return out
@@ -220,10 +339,6 @@ def phase_kernels_flow(dev):
     import torch
     from fenics_eff_uptake_tpu_torch.models.stokes_flow import (
         VELOCITY_DIRICHLET)
-    from fenics_eff_uptake_tpu_torch.ops.banded import (
-        band_apply, band_apply_plain, rect_band_apply, rect_band_apply_plain)
-    from fenics_eff_uptake_tpu_torch.ops.elemspmv import (
-        element_apply, element_apply_plain)
     from fenics_eff_uptake_tpu_torch.parallel.sweep import (
         build_transport_system)
     from fenics_eff_uptake_tpu_torch.solvers.multilevel import (
@@ -252,35 +367,32 @@ def phase_kernels_flow(dev):
 
     out = {"band_apply": [], "rect_band_apply": [], "element_apply": []}
     # A: 1e-5 of max |Y| (f32 sums in another order than cuBLAS)
-    for label, band, B, coef in (
-            ("Adv band", adv.Advband, 3, None),
-            ("velocity band", vel.Kband, 2, torch.ones(2, device=dev)),
-            ("velocity band", vel.Kband, 96,
+    for label, band, spans, B, coef in (
+            ("Adv band", adv.Advband, adv.Advspans, 3, None),
+            ("velocity band", vel.Kband, vel.Kspans, 2,
+             torch.ones(2, device=dev)),
+            ("velocity band", vel.Kband, vel.Kspans, 96,
              torch.rand(96, generator=g, device=dev) + 0.5)):
         X = rnd(band.shape[0] * band.shape[1], B)
-        out["band_apply"].append(compare(
-            f"A {label} {tuple(band.shape)} B={B}",
-            lambda: band_apply(band, X, coef),
-            lambda: band_apply_plain(band, X, coef), 1e-5))
+        out["band_apply"].append(band_case(
+            f"A {label} {tuple(band.shape)} B={B}", band, spans, X, coef))
     # B: each hierarchy's fine restriction and prolongation at the widths
     # the path gives them (transport cycles, Stokes cycles, deflation)
     for label, tb, B in (("transport", aml.levels[0].bands, 3),
                          ("velocity", vml.levels[0].bands, 2),
                          ("velocity", vml.levels[0].bands, 96)):
-        for way, band, offs, rows in (("restrict", tb.r, tb.ro, tb.pad_r),
-                                      ("prolong", tb.p, tb.po, tb.pad_p)):
+        for way, band, offs, spans, rows in (
+                ("restrict", tb.r, tb.ro, tb.rs, tb.pad_r),
+                ("prolong", tb.p, tb.po, tb.ps, tb.pad_p)):
             Xq = rnd(rows, B)
-            out["rect_band_apply"].append(compare(
-                f"B {label} {way} {tuple(band.shape)} B={B}",
-                lambda: rect_band_apply(band, offs, Xq),
-                lambda: rect_band_apply_plain(band, offs, Xq), 1e-5))
+            out["rect_band_apply"].append(rect_case(
+                f"B {label} {way} {tuple(band.shape)} B={B}", band, offs,
+                spans, Xq))
     # C: f64, 1e-12 (summation order)
     blk = adv.Adv
     X = rnd(blk.ndofs, 3, torch.float64)
-    out["element_apply"].append(compare(
-        f"C f64 Adv A{tuple(blk.A64.shape)} B=3",
-        lambda: element_apply(blk.A64, blk.dofs, blk.scatter, X),
-        lambda: element_apply_plain(blk.A64, blk.dofs, blk.scatter, X),
+    out["element_apply"].append(element_case(
+        f"C f64 Adv A{tuple(blk.A64.shape)} B=3", blk.A64, blk, X, None,
         1e-12))
     del adv, aml, vel, vml
     torch.cuda.empty_cache()
@@ -635,7 +747,8 @@ def main(argv=None):
                                  "no_uptake": nu_launches[name]},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "max_rel_err": max(c["max_rel_err"] for c in cs),
-            "ms": cs[0]["ms"], "plain_ms": cs[0]["plain_ms"],
+            **{k: cs[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
             "cases": cs})
     summary = {"card": card, "build_s": build_s, "kernels": kernels,
                "first": stats, "steady": stats2, "golden_worst": worst,

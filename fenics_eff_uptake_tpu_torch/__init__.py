@@ -24,10 +24,11 @@ for Hopper (``ops/csrc``), built with nvcc at first use
 (``ops/_build.py``).  Each has a plain PyTorch version beside it that runs
 on CPU tensors and serves as the kernel's oracle.
 
-Host-only modules of the JAX package that never load jax (``params``,
-``meshing``, ``fem.elements``, ``fem.quadrature``, ``fem.dofmap``,
-``fem.space``) are imported, not copied.  This package imports ``torch``
-and never ``jax``.
+The host layers it needs are its own copies of the JAX package's
+(``params``, ``meshing`` with a binding that builds the C++ mesher from
+``native/meshkernel.cpp``, its only mesher, ``fem.elements``, ``fem.quadrature``,
+``fem.dofmap``, ``fem.space``), under the same names.  This package imports
+``torch`` and never ``jax``, and nothing of the JAX package.
 """
 
 __version__ = "0.1.0"

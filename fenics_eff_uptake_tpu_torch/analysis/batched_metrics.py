@@ -21,12 +21,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fenics_eff_uptake_tpu.fem.elements import tabulate
-from fenics_eff_uptake_tpu.fem.quadrature import triangle_rule
-from fenics_eff_uptake_tpu.fem.space import FunctionSpace
-from fenics_eff_uptake_tpu.meshing.mesh_data import MARKERS, MeshData
-
 from ..fem.assembly import cell_geometry
+from ..fem.elements import tabulate
+from ..fem.quadrature import triangle_rule
+from ..fem.space import FunctionSpace
+from ..meshing.mesh_data import MARKERS, MeshData
 from .flux import boundary_quad, mouth_quad
 from .mu_eff import compute_mu_eff_arc, compute_mu_eff_enh
 

@@ -10,10 +10,9 @@ from typing import NamedTuple
 
 import numpy as np
 
-from fenics_eff_uptake_tpu.fem.elements import (_EDGE_VERTS, _REF_VERTS,
-                                                tabulate, tabulate_grad)
-from fenics_eff_uptake_tpu.fem.quadrature import interval_rule
-from fenics_eff_uptake_tpu.fem.space import FunctionSpace
+from ..fem.elements import _EDGE_VERTS, _REF_VERTS, tabulate, tabulate_grad
+from ..fem.quadrature import interval_rule
+from ..fem.space import FunctionSpace
 
 __all__ = ["FacetQuad", "build_facet_quad"]
 

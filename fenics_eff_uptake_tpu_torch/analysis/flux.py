@@ -8,8 +8,7 @@ from typing import Optional
 
 import numpy as np
 
-from fenics_eff_uptake_tpu.fem.space import FunctionSpace
-
+from ..fem.space import FunctionSpace
 from .facets import FacetQuad, build_facet_quad
 
 __all__ = ["boundary_quad", "mouth_quad"]

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from fenics_eff_uptake_tpu.fem.quadrature import gauss_legendre_01
+from ..fem.quadrature import gauss_legendre_01
 
 __all__ = ["sulcus_arc_length", "compute_mu_eff_arc", "compute_mu_eff_enh"]
 

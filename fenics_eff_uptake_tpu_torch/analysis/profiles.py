@@ -13,8 +13,7 @@ from typing import Optional
 
 import numpy as np
 
-from fenics_eff_uptake_tpu.fem.elements import tabulate
-
+from ..fem.elements import tabulate
 from .locate import PointLocator
 
 __all__ = ["eval_function", "compute_velocity_metrics"]

@@ -1,9 +1,11 @@
 """State carried across from the JAX package.
 
-Both functions take plain numpy arrays, as the JAX package exports them,
-and return the port's structures on ``device``.  The tests use them to hold
-each operator of the port against JAX on identical arrays, independently of
-the port's own assembly.
+Every function takes what the JAX package gives, as plain numpy arrays or
+duck-typed fields (a ``MeshData``, a ``FunctionSpace``), and returns the
+port's own structures, on ``device`` where they hold tensors.  Nothing of
+the JAX package is imported.  The tests use them to hold each operator of
+the port against JAX on identical arrays, independently of the port's own
+assembly.
 """
 
 from __future__ import annotations
@@ -13,15 +15,40 @@ from typing import List
 import numpy as np
 import torch
 
-from fenics_eff_uptake_tpu.fem.space import Function, FunctionSpace
-
+from .fem.space import Function, FunctionSpace
+from .meshing.generator import _mesh_from_arrays, _mesh_to_arrays
+from .meshing.geometry import SulcusGeometry
+from .meshing.mesh_data import MeshData
+from .ops.banded import band_spans
 from .ops.elemspmv import Scatter
 from .parallel.sweep import TransportSystem, _Block
 from .solvers.multilevel import (Level, MultilevelData, Transfer,
                                  TransferBands)
 
-__all__ = ["transport_system_from_arrays", "multilevel_from_arrays",
-           "velocity_from_values"]
+__all__ = ["mesh_from", "space_from", "transport_system_from_arrays",
+           "multilevel_from_arrays", "velocity_from_values"]
+
+
+def mesh_from(md) -> MeshData:
+    """The port's MeshData from a mesh with the JAX package's fields (its
+    arrays copied as numpy); a port MeshData is returned as it is."""
+    if isinstance(md, MeshData):
+        return md
+    g = md.geom
+    geom = None if g is None else SulcusGeometry(
+        width=g.width, height=g.height, sulcus_width=g.sulcus_width,
+        sulcus_depth=g.sulcus_depth, mesh_size=g.mesh_size,
+        refinement_factor=int(g.refinement_factor))
+    arrays = {k: np.array(v) for k, v in _mesh_to_arrays(md).items()}
+    return _mesh_from_arrays(arrays, geom, md.domain_type)
+
+
+def space_from(sp, mesh=None) -> FunctionSpace:
+    """The port's FunctionSpace of the same element and value size as
+    ``sp`` (a JAX package FunctionSpace), on ``mesh`` (default:
+    ``mesh_from(sp.mesh)``)."""
+    return FunctionSpace(mesh_from(sp.mesh) if mesh is None else mesh,
+                         sp.element, sp.vs)
 
 
 def _i32(a, device):
@@ -56,15 +83,18 @@ def transport_system_from_arrays(d, mesh, element, device) -> TransportSystem:
 
     perm = d.get("perm")
     iperm = d.get("iperm")
+    Kband, Advband = band("Kband"), band("Advband")
     return TransportSystem(
         K=_block(d, "K", device), R=_block(d, "R", device),
-        Adv=_block(d, "Adv", device), Advband=band("Advband"),
+        Adv=_block(d, "Adv", device), Advband=Advband,
+        Advspans=None if Advband is None else band_spans(Advband),
         free=torch.tensor(np.asarray(d["free"], dtype=bool),
                           device=device),
         bc_values=torch.tensor(np.asarray(d["bc_values"]),
                                dtype=torch.float64, device=device),
-        ndofs=int(d["ndofs"]), space=FunctionSpace(mesh, element),
-        Kband=band("Kband"),
+        ndofs=int(d["ndofs"]),
+        space=FunctionSpace(mesh_from(mesh), element),
+        Kband=Kband, Kspans=None if Kband is None else band_spans(Kband),
         perm=None if perm is None else np.asarray(perm),
         iperm=None if iperm is None else np.asarray(iperm))
 
@@ -72,7 +102,7 @@ def transport_system_from_arrays(d, mesh, element, device) -> TransportSystem:
 def velocity_from_values(values, mesh) -> Function:
     """The port's velocity field (a Function on the P2 vector space with
     numpy values) from a JAX velocity Function's interleaved values."""
-    return Function(FunctionSpace(mesh, "P2", vs=2),
+    return Function(FunctionSpace(mesh_from(mesh), "P2", vs=2),
                     np.asarray(values, dtype=np.float64))
 
 
@@ -102,10 +132,12 @@ def multilevel_from_arrays(levels: List[dict], Ainv, free_c, omega, D_vec,
         tr = Transfer(cols=np.asarray(lv["t_cols"]),
                       weights=np.asarray(lv["t_w"]),
                       n_coarse=int(lv["n_coarse"]))
-        bands = TransferBands(p=f32(lv["tb_p"]), po=_i32(lv["tb_po"], device),
-                              r=f32(lv["tb_r"]), ro=_i32(lv["tb_ro"], device),
+        p, r = f32(lv["tb_p"]), f32(lv["tb_r"])
+        bands = TransferBands(p=p, po=_i32(lv["tb_po"], device),
+                              r=r, ro=_i32(lv["tb_ro"], device),
                               sig=idx(lv["tb_sig"]), isig=idx(lv["tb_isig"]),
-                              pad_p=int(lv["pad_p"]), pad_r=int(lv["pad_r"]))
+                              pad_p=int(lv["pad_p"]), pad_r=int(lv["pad_r"]),
+                              ps=band_spans(p), rs=band_spans(r))
         out.append(Level(sys=sys_l, dinv=f32(lv["dinv"]), free=sys_l.free,
                          transfer=tr, bands=bands))
     return MultilevelData(

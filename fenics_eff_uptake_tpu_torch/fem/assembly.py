@@ -23,10 +23,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fenics_eff_uptake_tpu.fem.elements import (_EDGE_VERTS, _REF_VERTS,
-                                                tabulate, tabulate_grad)
-from fenics_eff_uptake_tpu.fem.quadrature import interval_rule, triangle_rule
-from fenics_eff_uptake_tpu.fem.space import FunctionSpace
+from .elements import _EDGE_VERTS, _REF_VERTS, tabulate, tabulate_grad
+from .quadrature import interval_rule, triangle_rule
+from .space import FunctionSpace
 
 __all__ = ["cell_geometry", "stiffness_block", "mass_block",
            "advection_block", "divergence_block", "robin_facet_block",

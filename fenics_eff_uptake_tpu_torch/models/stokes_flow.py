@@ -33,10 +33,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fenics_eff_uptake_tpu.fem.space import Function, FunctionSpace
-from fenics_eff_uptake_tpu.meshing.mesh_data import MARKERS, MeshData
-
 from ..fem.assembly import divergence_block, mass_block
+from ..fem.space import Function, FunctionSpace
+from ..meshing.mesh_data import MARKERS, MeshData
 from ..ops.elemspmv import (SegmentPlan, make_segment_plan,
                             planned_segment_sum)
 from ..parallel.sweep import (apply_operator, build_transport_system,

@@ -1,12 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``ops/csrc``.
 
-All ``csrc/*.cu`` files compile with nvcc into one shared library with a
-plain C interface, for Hopper only (``sm_90a``), loaded with ctypes.  The
-library lands in ``build/kernels/`` at the repository root, named by a hash
-of the sources and flags, so an edited source rebuilds at its next use and
-an unchanged one loads in milliseconds.  nvcc's ``-Xptxas -v`` report
-(registers, shared memory, spills per kernel) is kept beside the library as
-``<name>.log``.
+Each ``csrc/*.cu`` file compiles with its own nvcc, all started together,
+and the objects link into one shared library with a plain C interface, for
+Hopper only (``sm_90a``), loaded with ctypes.  The library lands in
+``build/kernels/`` at the repository root, named by a hash of the sources
+and flags, so an edited source rebuilds at its next use and an unchanged
+one loads in milliseconds.  nvcc's ``-Xptxas -v`` report (registers, shared
+memory, spills per kernel) is kept beside the library as ``<name>.log``.
 
 Nothing here runs when the module is imported: the first CUDA launch calls
 :func:`library`.  Kernels launch on PyTorch's current stream; every entry
@@ -28,14 +28,14 @@ __all__ = ["BUILD_DIR", "build", "library", "check", "stream_of"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "feu_band_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "feu_rect_band_apply": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong,
-                            _I, _P],
+    "feu_band_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "feu_rect_band_apply": [_P, _P, _P, _P, _P, _I, _I, _I,
+                            ctypes.c_longlong, _I, _P],
     "feu_element_apply": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
@@ -69,18 +69,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    tmp = out.with_name(f"{out.name}.{os.getpid()}")
+    nvcc = _nvcc()
+    objs = {s: f"{tmp}.{s.stem}.o" for s in _sources() if s.suffix == ".cu"}
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+            for s, o in objs.items()]
+    cmds.append([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                 *objs.values()])
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=1200)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds[:-1]]
+    text = [p.communicate(timeout=1200)[0] for p in procs]
+    if all(p.returncode == 0 for p in procs):
+        procs.append(subprocess.run(cmds[-1], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True,
+                                    timeout=600))
+        text.append(procs[-1].stdout)
+    for o in objs.values():
+        Path(o).unlink(missing_ok=True)
+    text = "".join(" ".join(c) + "\n" + t for c, t in zip(cmds, text))
     log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr
-                   + f"\nbuild seconds: {time.time() - t0:.1f}\n")
-    if proc.returncode != 0:
+    log.write_text(f"{text}\nbuild seconds: {time.time() - t0:.1f}\n")
+    if len(procs) < len(cmds) or procs[-1].returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}; "
-                           f"see {log}\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc failed; see {log}\n{text[-4000:]}")
     os.replace(tmp, out)
     return out
 

@@ -38,13 +38,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from fenics_eff_uptake_tpu.fem.space import FunctionSpace
-from fenics_eff_uptake_tpu.meshing.mesh_data import MARKERS, MeshData
-
 from ..fem.assembly import (advection_block, make_bc, robin_facet_block,
                             stiffness_block)
+from ..fem.space import FunctionSpace
+from ..meshing.mesh_data import MARKERS, MeshData
 from ..ops.band_plans import best_bandwidth_permutation, build_band_plan
-from ..ops.banded import band_apply, band_from_elements
+from ..ops.banded import band_apply, band_from_elements, band_spans
 from ..ops.elemspmv import (Scatter, element_apply, make_scatter,
                             make_segment_plan, planned_segment_sum)
 
@@ -121,6 +120,8 @@ class TransportSystem(NamedTuple):
     iperm: Optional[np.ndarray] = None     # old2new
     Adv: Optional[_Block] = None           # advection (nonsymmetric)
     Advband: Optional[torch.Tensor] = None  # its band, on K's plan
+    Kspans: Optional[torch.Tensor] = None   # band_spans of each band
+    Advspans: Optional[torch.Tensor] = None
 
 
 def _to(x, device):
@@ -132,7 +133,8 @@ def system_to(sys: TransportSystem, device) -> TransportSystem:
     return sys._replace(
         K=sys.K.to(device), R=_to(sys.R, device), Adv=_to(sys.Adv, device),
         free=sys.free.to(device), bc_values=sys.bc_values.to(device),
-        Kband=_to(sys.Kband, device), Advband=_to(sys.Advband, device))
+        Kband=_to(sys.Kband, device), Advband=_to(sys.Advband, device),
+        Kspans=_to(sys.Kspans, device), Advspans=_to(sys.Advspans, device))
 
 
 def unpermute_columns(sys: TransportSystem, Xcols):
@@ -154,7 +156,8 @@ def build_transport_system(mesh: MeshData, device, element="P2",
     wall, unless ``with_robin`` is False), the Dirichlet lift (``dirichlet``
     (marker, value) pairs; default c = 1 left, c = 0 right), pad to the
     band tile, reorder for the smallest bandwidth, and build the f32 bands
-    of K and Adv on K's plan (Adv has K's dofs).
+    of K and Adv on K's plan (Adv has K's dofs), each with its
+    ``band_spans``.
 
     Padding dofs are constrained identity rows with zero right-hand side."""
     device = torch.device(device)
@@ -174,11 +177,13 @@ def build_transport_system(mesh: MeshData, device, element="P2",
     K_dofs = iperm[K_dofs]
     K = _Block.build(K_e, K_dofs, ndofs)
     plan = build_band_plan(K_dofs, ndofs, tile=BAND_TILE)
-    Adv = Advband = None
+    Adv = Advband = Advspans = None
     if u_values is not None:
         Adv_e, _ = advection_block(space, u_values, u_space, device)
         Adv = _Block.build(Adv_e, K_dofs, ndofs)
         Advband = band_from_elements(Adv.A32, plan)
+        Advspans = band_spans(Advband)
+    Kband = band_from_elements(K.A32, plan)
     R = None
     if with_robin and bottom.any():
         R_e, R_dofs = robin_facet_block(space, bottom, device)
@@ -188,8 +193,8 @@ def build_transport_system(mesh: MeshData, device, element="P2",
         free=torch.as_tensor(free[perm], device=device),
         bc_values=torch.as_tensor(bc_values[perm], dtype=torch.float64,
                                   device=device),
-        ndofs=ndofs, space=space, Kband=band_from_elements(K.A32, plan),
-        perm=perm, iperm=iperm, Adv=Adv, Advband=Advband)
+        ndofs=ndofs, space=space, Kband=Kband, Kspans=band_spans(Kband),
+        perm=perm, iperm=iperm, Adv=Adv, Advband=Advband, Advspans=Advspans)
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +208,8 @@ class OperatorArgs(NamedTuple):
     R: Optional[_Block]
     Kband: Optional[torch.Tensor]   # the bands: f32 view only
     Advband: Optional[torch.Tensor]
+    Kspans: Optional[torch.Tensor]  # and their spans
+    Advspans: Optional[torch.Tensor]
     free: torch.Tensor
     D_vec: torch.Tensor             # (B,) in the view's dtype
     mu_vec: torch.Tensor
@@ -213,7 +220,9 @@ def operator_args(sys: TransportSystem, D_vec, mu_vec, f32: bool):
     dev = sys.free.device
     return OperatorArgs(
         K=sys.K, Adv=sys.Adv, R=sys.R, Kband=sys.Kband if f32 else None,
-        Advband=sys.Advband if f32 else None, free=sys.free,
+        Advband=sys.Advband if f32 else None,
+        Kspans=sys.Kspans if f32 else None,
+        Advspans=sys.Advspans if f32 else None, free=sys.free,
         D_vec=torch.as_tensor(D_vec, device=dev).to(dt),
         mu_vec=torch.as_tensor(mu_vec, device=dev).to(dt))
 
@@ -221,12 +230,12 @@ def operator_args(sys: TransportSystem, D_vec, mu_vec, f32: bool):
 def _apply_raw(a: OperatorArgs, X):
     # summation order K, Adv, R as in the JAX programs
     if a.Kband is not None:
-        Y = band_apply(a.Kband, X, coef=a.D_vec)
+        Y = band_apply(a.Kband, X, coef=a.D_vec, spans=a.Kspans)
     else:
         Y = a.K.apply_batched(X, coef=a.D_vec)
     if a.Adv is not None:
-        Y = Y + (band_apply(a.Advband, X) if a.Advband is not None
-                 else a.Adv.apply_batched(X))
+        Y = Y + (band_apply(a.Advband, X, spans=a.Advspans)
+                 if a.Advband is not None else a.Adv.apply_batched(X))
     if a.R is not None:
         Y = Y + a.R.apply_batched(X, coef=a.mu_vec)
     return Y

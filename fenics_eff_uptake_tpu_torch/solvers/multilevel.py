@@ -35,8 +35,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..fem.space import FunctionSpace
+from ..meshing.generator import generate_mesh
 from ..ops.band_plans import aligned_transfer_plans
-from ..ops.banded import band_apply, rect_band_apply, rect_band_values
+from ..ops.banded import (band_apply, band_spans, rect_band_apply,
+                          rect_band_values)
 from ..parallel.sweep import (TransportSystem, build_transport_system,
                               fine_dinv, system_to)
 
@@ -67,6 +70,8 @@ class TransferBands(NamedTuple):
     isig: torch.Tensor        # its inverse
     pad_p: int                # prolongation input rows (zero-padded)
     pad_r: int                # restriction input rows
+    ps: torch.Tensor          # band_spans of p
+    rs: torch.Tensor          # band_spans of r
 
 
 class Level(NamedTuple):
@@ -91,7 +96,6 @@ class MultilevelData(NamedTuple):
 def level_meshes_for(mesh):
     """The fine mesh itself (nested P1 level) followed by coarser meshes of
     the same geometry at h * LEVEL_FACTORS, capped at LEVEL_CAP * height."""
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
     g = mesh.geom
     out = [mesh]
     for f in LEVEL_FACTORS:
@@ -253,14 +257,14 @@ def build_multilevel(sys: TransportSystem, level_meshes, D_values,
                              "the windowed-band form does not apply")
         p_p, p_r, sig, isig = plans
         w = torch.as_tensor(tr.weights, device=dev)
+        p, r = rect_band_values(p_p, w), rect_band_values(p_r, w)
         bands = TransferBands(
-            p=rect_band_values(p_p, w), po=torch.as_tensor(p_p.offs,
-                                                           device=dev),
-            r=rect_band_values(p_r, w), ro=torch.as_tensor(p_r.offs,
-                                                           device=dev),
+            p=p, po=torch.as_tensor(p_p.offs, device=dev),
+            r=r, ro=torch.as_tensor(p_r.offs, device=dev),
             sig=torch.as_tensor(sig, dtype=torch.long, device=dev),
             isig=torch.as_tensor(isig, dtype=torch.long, device=dev),
-            pad_p=p_p.n_cols_pad, pad_r=p_r.n_cols_pad)
+            pad_p=p_p.n_cols_pad, pad_r=p_r.n_cols_pad,
+            ps=band_spans(p), rs=band_spans(r))
         levels.append(Level(sys=level_sys[l], dinv=dinvs[l],
                             free=level_sys[l].free, transfer=tr,
                             bands=bands))
@@ -276,8 +280,6 @@ def level_velocities(u_fine, level_meshes):
     the same-mesh level reuses the fine field, the others interpolate it
     at their dof coordinates (zero where a point falls outside the fine
     mesh).  Returns a list of (interleaved values, vector space)."""
-    from fenics_eff_uptake_tpu.fem.space import FunctionSpace
-
     from ..analysis.profiles import eval_function
     out = []
     for m in level_meshes:
@@ -324,9 +326,9 @@ def make_ml_preconditioner(ml: MultilevelData, cycle="hybrid"):
         # A_l on free rows, zero on constrained ones
         free = la.free[:, None]
         Xm = torch.where(free, X, 0.0)
-        Y = band_apply(la.sys.Kband, Xm, coef=D32)
+        Y = band_apply(la.sys.Kband, Xm, coef=D32, spans=la.sys.Kspans)
         if la.sys.Advband is not None:
-            Y = Y + band_apply(la.sys.Advband, Xm)
+            Y = Y + band_apply(la.sys.Advband, Xm, spans=la.sys.Advspans)
         if la.sys.R is not None:
             Y = Y + la.sys.R.apply_batched(Xm, coef=mu32)
         return torch.where(free, Y, Xm)
@@ -334,14 +336,14 @@ def make_ml_preconditioner(ml: MultilevelData, cycle="hybrid"):
     def restrict(la: Level, R):
         tb = la.bands
         Xq = F.pad(R, (0, 0, 0, tb.pad_r - R.shape[0]))
-        Ys = rect_band_apply(tb.r, tb.ro, Xq)[:la.transfer.n_coarse]
+        Ys = rect_band_apply(tb.r, tb.ro, Xq, tb.rs)[:la.transfer.n_coarse]
         return Ys[tb.isig]
 
     def prolong(la: Level, Xc):
         tb = la.bands
         Xs = Xc[tb.sig]
         Xq = F.pad(Xs, (0, 0, 0, tb.pad_p - Xs.shape[0]))
-        return rect_band_apply(tb.p, tb.po, Xq)[:la.free.shape[0]]
+        return rect_band_apply(tb.p, tb.po, Xq, tb.ps)[:la.free.shape[0]]
 
     def coarse(rc):
         rc = torch.where(ml.free_c[:, None], rc, 0.0)

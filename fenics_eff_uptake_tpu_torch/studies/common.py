@@ -19,13 +19,12 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from fenics_eff_uptake_tpu.fem.space import Function
-from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-from fenics_eff_uptake_tpu.params import Parameters
-
 from ..analysis.batched_metrics import build_sweep_metrics, metrics_to_dicts
 from ..device import setup
+from ..fem.space import Function
+from ..meshing.generator import generate_mesh
 from ..models.stokes_flow import stokes_solve_mg
+from ..params import Parameters
 from ..parallel.sweep import build_transport_system, solve_sweep
 from ..solvers.multilevel import build_multilevel_for
 

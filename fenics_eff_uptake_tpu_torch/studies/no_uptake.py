@@ -22,11 +22,9 @@ import time
 
 import numpy as np
 
-from fenics_eff_uptake_tpu.params import (Parameters,
-                                          create_geometry_variations)
-
 from ..analysis.batched_metrics import build_sweep_metrics, metrics_to_dicts
 from ..analysis.profiles import compute_velocity_metrics
+from ..params import Parameters, create_geometry_variations
 from .common import (_sync, create_study_dir, make_mesh, save_csv,
                      save_metadata, stokes_for_study, transport_batch)
 

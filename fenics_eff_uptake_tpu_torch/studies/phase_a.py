@@ -16,8 +16,7 @@ import argparse
 import os
 import time
 
-from fenics_eff_uptake_tpu.params import Parameters
-
+from ..params import Parameters
 from .common import (create_study_dir, make_no_adv_params, no_adv_batch,
                      save_csv, save_metadata)
 

@@ -40,7 +40,8 @@ from fenics_eff_uptake_tpu.parallel import sweep as jsw
 from fenics_eff_uptake_tpu.solvers import multilevel as jml
 from fenics_eff_uptake_tpu.studies.no_uptake import \
     _make_params as j_make_params
-from fenics_eff_uptake_tpu_torch.convert import (multilevel_from_arrays,
+from fenics_eff_uptake_tpu_torch.convert import (mesh_from,
+                                                 multilevel_from_arrays,
                                                  transport_system_from_arrays,
                                                  velocity_from_values)
 from fenics_eff_uptake_tpu_torch.parallel import sweep as tsw
@@ -111,15 +112,19 @@ def _jax_sweep(mesh, levels, u, V, band):
 
 
 def _port_sweep(mesh, levels, u):
-    uf = velocity_from_values(u, mesh)
+    """The port's sweep on the same meshes, carried over by
+    ``convert.mesh_from``; returns its level meshes too."""
+    tmesh = mesh_from(mesh)
+    tlevels = [tmesh] + [mesh_from(m) for m in levels[1:]]
+    uf = velocity_from_values(u, tmesh)
     D = 1.0 / PES
     mus = np.zeros(3)
-    psys = tsw.build_transport_system(mesh, "cpu", u_values=uf.values,
+    psys = tsw.build_transport_system(tmesh, "cpu", u_values=uf.values,
                                       u_space=uf.space)
-    pml = tml.build_multilevel(psys, levels, D, mus,
-                               u_levels=tml.level_velocities(uf, levels))
+    pml = tml.build_multilevel(psys, tlevels, D, mus,
+                               u_levels=tml.level_velocities(uf, tlevels))
     Xp, ip = tsw.solve_sweep(psys, D, mus, rtol=RTOL, multilevel=pml)
-    return uf, psys, pml, Xp.numpy(), ip
+    return uf, psys, pml, Xp.numpy(), ip, tlevels
 
 
 @pytest.fixture(scope="module")
@@ -128,8 +133,9 @@ def run():
     u, V = _velocity(mesh)
     jsys, jm, Xj, ij, M = _jax_sweep(mesh, levels, u, V, band=True)
     ij_elem = _jax_sweep(mesh, levels, u, V, band=False)[3]
-    uf, psys, pml, Xp, ip = _port_sweep(mesh, levels, u)
-    return SimpleNamespace(mesh=mesh, levels=levels, u=uf, D=1.0 / PES,
+    uf, psys, pml, Xp, ip, tlevels = _port_sweep(mesh, levels, u)
+    return SimpleNamespace(mesh=mesh, levels=levels, tlevels=tlevels,
+                           u=uf, D=1.0 / PES,
                            mus=np.zeros(3), jsys=jsys, jml=jm, Xj=Xj, ij=ij,
                            ij_elem=ij_elem, M=M, psys=psys, pml=pml, Xp=Xp,
                            ip=ip)
@@ -142,7 +148,7 @@ def run_fine():
     u, V = _velocity(mesh)
     _, _, Xj, ij, _ = _jax_sweep(mesh, levels, u, V, band=True)
     ij_elem = _jax_sweep(mesh, levels, u, V, band=False)[3]
-    Xp, ip = _port_sweep(mesh, levels, u)[3:]
+    Xp, ip = _port_sweep(mesh, levels, u)[3:5]
     return SimpleNamespace(Xj=Xj, ij=ij, ij_elem=ij_elem, Xp=Xp, ip=ip)
 
 
@@ -223,8 +229,8 @@ def test_advective_coarse_inverse_matches_jax(run):
     port's coarsest system carries JAX's padding rows; with the port's own
     (fewer) padding rows only the shift moves, which shows in the
     advection-dominated Pe = 10 column alone."""
-    uv, us = tml.level_velocities(run.u, run.levels)[-1]
-    csys = tsw.build_transport_system(run.levels[-1], "cpu", element="P1",
+    uv, us = tml.level_velocities(run.u, run.tlevels)[-1]
+    csys = tsw.build_transport_system(run.tlevels[-1], "cpu", element="P1",
                                       u_values=uv, u_space=us)
     jA = np.asarray(run.jml.Ainv)
     nj = jA.shape[1]
@@ -289,12 +295,15 @@ def test_advective_metrics_match_jax(run):
     from fenics_eff_uptake_tpu.analysis import batched_metrics as jbm
     from fenics_eff_uptake_tpu_torch.analysis import batched_metrics as tbm
     mus = [0.5, 1.0, 0.0]
+    from fenics_eff_uptake_tpu_torch.studies.no_uptake import _make_params
     params = [j_make_params(pe, 0.25, 0.25) for pe in PES]
-    sm_p = tbm.build_sweep_metrics(run.psys.space, run.mesh, 1.0, "cpu",
-                                   u=run.u)
-    got = tbm.metrics_to_dicts(sm_p, run.mesh, torch.tensor(run.Xj), mus,
-                               params, D_values=run.D)
-    uj = Function(run.u.space, jnp.asarray(run.u.values))
+    sm_p = tbm.build_sweep_metrics(run.psys.space, run.tlevels[0], 1.0,
+                                   "cpu", u=run.u)
+    got = tbm.metrics_to_dicts(sm_p, run.tlevels[0], torch.tensor(run.Xj),
+                               mus, [_make_params(pe, 0.25, 0.25)
+                                     for pe in PES], D_values=run.D)
+    uj = Function(FunctionSpace(run.mesh, "P2", vs=2),
+                  jnp.asarray(run.u.values))
     sm_j = jbm.build_sweep_metrics(run.jsys.space, run.mesh, D=1.0, u=uj)
     ref = jbm.metrics_to_dicts(sm_j, run.mesh, jnp.asarray(run.Xj), mus,
                                1.0, params, D_values=run.D)

@@ -1,5 +1,6 @@
 """The PyTorch port imports neither jax, pandas nor triton (the card's
-machine has no jax and no pandas)."""
+machine has no jax and no pandas), and nothing of the JAX package: it
+carries its own copies of the host layers it uses."""
 
 # Each check runs in a fresh interpreter: this test process has jax loaded
 # already (tests/conftest.py).
@@ -41,13 +42,26 @@ def test_port_modules_load_no_jax_or_triton():
     assert proc.stdout.strip() == "ok"
 
 
-def test_chip_smoke_loads_no_jax():
-    proc = _run("import sys, chip_smoke\n"
-                "assert 'jax' not in sys.modules\n"
-                "print('ok')\n")
+_NO_JAX_PACKAGE = (
+    "bad = sorted(k for k in sys.modules if k == 'fenics_eff_uptake_tpu' "
+    "or k.startswith('fenics_eff_uptake_tpu.'))\n"
+    "assert not bad, bad\n")
+
+
+def test_port_modules_load_nothing_of_the_jax_package():
+    mods = _port_modules()
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            + _NO_JAX_PACKAGE + "print('ok')\n")
+    proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
-    # imports inside functions only run on a card: read them from the source
+
+
+def _chip_smoke_imports():
+    """Every module chip_smoke.py imports, at top level or inside its
+    functions (which only run on a card)."""
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     names = []
     for node in ast.walk(tree):
@@ -55,6 +69,30 @@ def test_chip_smoke_loads_no_jax():
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
             names.append(node.module or "")
+    return names
+
+
+def test_chip_smoke_imports_load_nothing_of_the_jax_package():
+    names = [n for n in _chip_smoke_imports()
+             if n.startswith("fenics_eff_uptake_tpu_torch")]
+    assert len(names) > 5, names
+    code = ("import importlib, sys\nimport chip_smoke\n"
+            f"for m in {sorted(set(names))!r}:\n"
+            "    importlib.import_module(m)\n"
+            + _NO_JAX_PACKAGE + "print('ok')\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_chip_smoke_loads_no_jax():
+    proc = _run("import sys, chip_smoke\n"
+                "assert 'jax' not in sys.modules\n"
+                "print('ok')\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+    # imports inside functions only run on a card: read them from the source
+    names = _chip_smoke_imports()
     assert "fenics_eff_uptake_tpu_torch.studies.phase_a" in names, names
     assert "fenics_eff_uptake_tpu_torch.studies.no_uptake" in names, names
     bad = [n for n in names

@@ -12,9 +12,17 @@
 * Wrapper guards: CPU tensors take the plain version and count no launch;
   input the CUDA kernels do not take raises in the argument checkers.  The
   band kernels take any batch width (B = 33 and 96 on the card).
+* Column spans (``band_spans``): they cover every nonzero and are tight on
+  random banded matrices and on the real K, Adv and transfer bands at
+  h = 0.15; a block without nonzeros gets an empty span; masking a band
+  outside its spans changes nothing; malformed spans are refused.
 * Kernel against plain on the card (marker ``cuda``; skipped without one),
   including the no-uptake path's cases: wide batches (B = 33, 96) and the
-  nonsymmetric advection band and element block.
+  nonsymmetric advection band and element block; a span launch equals a
+  full-span launch bit for bit, a B = 96 launch's columns equal a B = 3
+  launch's, empty-span blocks and padding tiles give zero rows, kernel B
+  with unaligned window starts and spans past ``n_cols`` matches plain, and
+  a launch without spans raises.
 
 The JAX side is imported inside a fixture, so the file also runs where jax
 is absent: ``python -m pytest tests/test_torch_kernels.py -m cuda
@@ -85,6 +93,59 @@ def _rect_case(offs, seed=11, R=8, W=24, B=4):
     Xp = rng.standard_normal((int(offs.max()) + W + 3, B)).astype(
         np.float32)
     return band, Xp
+
+
+def _sparse_band(rng, T, R, W, empty_tiles=(), empty_blocks=()):
+    """A (T, R, W) f32 band whose rows hold nonzeros only in a random
+    window of columns (as an assembled operator's do), with the given
+    tiles and (tile, 64-row block) pairs all zero."""
+    band = np.zeros((T, R, W), np.float32)
+    for t in range(T):
+        for r in range(R):
+            a = int(rng.integers(0, W))
+            b = min(W, a + 1 + int(rng.integers(0, W // 3 + 1)))
+            band[t, r, a:b] = rng.standard_normal(b - a)
+            band[t, r, a:b][rng.random(b - a) < 0.5] = 0.0
+    for t in empty_tiles:
+        band[t] = 0.0
+    for t, k in empty_blocks:
+        band[t, k * tb.SPAN_ROWS:(k + 1) * tb.SPAN_ROWS] = 0.0
+    return band
+
+
+def _full_spans(band):
+    T, R, W = band.shape
+    sp = torch.zeros((T, -(-R // tb.SPAN_ROWS), 2), dtype=torch.int32,
+                     device=band.device)
+    sp[..., 1] = -(-W // tb.SPAN_COLS)
+    return sp
+
+
+def _assert_spans_tight(band, spans):
+    """Every nonzero of each row block lies in its span's chunks, the
+    span's first and last chunk hold one, and empty blocks get [0, 0)."""
+    band, spans = np.asarray(band), np.asarray(spans)
+    T, R, W = band.shape
+    SR, SC = tb.SPAN_ROWS, tb.SPAN_COLS
+    assert spans.shape == (T, -(-R // SR), 2) and spans.dtype == np.int32
+    for t in range(T):
+        for k in range(spans.shape[1]):
+            cols = np.flatnonzero(band[t, k * SR:(k + 1) * SR].any(0))
+            lo, hi = spans[t, k]
+            if len(cols) == 0:
+                assert (lo, hi) == (0, 0)
+                continue
+            assert (lo, hi) == (cols[0] // SC, cols[-1] // SC + 1)
+
+
+def _mask_outside(band, spans):
+    """The band with every entry outside its blocks' spans set to zero."""
+    T, R, W = band.shape
+    w = torch.arange(W) // tb.SPAN_COLS
+    rows = torch.arange(R) // tb.SPAN_ROWS
+    lo = spans[:, rows, 0][..., None]
+    hi = spans[:, rows, 1][..., None]
+    return torch.where((w >= lo) & (w < hi), band, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -301,6 +362,96 @@ def test_checkers_refuse_unsupported_input():
         te.check_element_apply_args(At, dt, sc, Xt)
 
 
+# ---------------------------------------------------------------------------
+# column spans (CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T,R,W", [(5, 256, 768), (3, 8, 24), (4, 100, 196)])
+def test_band_spans_cover_and_are_tight(T, R, W):
+    rng = np.random.default_rng(T * R + W)
+    band = torch.as_tensor(_sparse_band(rng, T, R, W, empty_tiles=[T - 1]))
+    spans = tb.band_spans(band)
+    _assert_spans_tight(band, spans)
+    assert torch.equal(_mask_outside(band, spans), band)
+    # the plain versions ignore spans
+    X = torch.as_tensor(rng.standard_normal((T * R, 3)).astype(np.float32))
+    if (W // R) % 2 == 1 and W % R == 0:
+        assert torch.equal(tb.band_apply(band, X, spans=spans),
+                           tb.band_apply_plain(band, X))
+
+
+def test_band_spans_of_empty_blocks():
+    """A 64-row block without a nonzero (a padding tile, or padding rows)
+    gets the empty span [0, 0); a block with one nonzero a one-chunk
+    span."""
+    band = torch.zeros((3, 256, 768))
+    band[0, 70, 100] = 1.0           # block 1 of tile 0, chunk 3
+    band[2, 255, 767] = -2.0         # last block and chunk of tile 2
+    spans = tb.band_spans(band)
+    want = np.zeros((3, 4, 2), np.int32)
+    want[0, 1] = (3, 4)
+    want[2, 3] = (23, 24)
+    np.testing.assert_array_equal(spans.numpy(), want)
+    assert spans.dtype == torch.int32 and spans.is_contiguous()
+
+
+@pytest.fixture(scope="module")
+def real_bands():
+    """The port's K and Adv bands and fine transfer bands at h = 0.15 (the
+    reference sulcus, a Poiseuille-like velocity)."""
+    from fenics_eff_uptake_tpu_torch.fem.space import FunctionSpace
+    from fenics_eff_uptake_tpu_torch.meshing.generator import generate_mesh
+    from fenics_eff_uptake_tpu_torch.parallel.sweep import \
+        build_transport_system
+    from fenics_eff_uptake_tpu_torch.solvers.multilevel import (
+        build_multilevel, level_meshes_for)
+    mesh = generate_mesh(width=10.0, height=1.0, sulcus_depth=1.0,
+                         sulcus_width=0.5, mesh_size=0.15,
+                         refinement_factor=1, domain_type="sulcus")
+    V = FunctionSpace(mesh, "P2", vs=2)
+    u = np.zeros(V.ndofs)
+    u[0::2] = 4.0 * V.dof_coords[:, 1] * (1.0 - V.dof_coords[:, 1])
+    sys = build_transport_system(mesh, "cpu", u_values=u, u_space=V)
+    ml = build_multilevel(sys, level_meshes_for(mesh), np.ones(2),
+                          np.zeros(2))
+    out = [("K", sys.Kband, sys.Kspans), ("Adv", sys.Advband, sys.Advspans)]
+    for i, la in enumerate(ml.levels):
+        tbs = la.bands
+        out += [(f"level {i} K", la.sys.Kband, la.sys.Kspans),
+                (f"level {i} p", tbs.p, tbs.ps),
+                (f"level {i} r", tbs.r, tbs.rs)]
+    return out
+
+
+def test_band_spans_of_real_bands(real_bands):
+    """The spans carried beside every band of a system and hierarchy cover
+    its nonzeros tightly, and masking outside them changes nothing."""
+    assert len(real_bands) >= 5
+    for name, band, spans in real_bands:
+        assert torch.equal(spans, tb.band_spans(band)), name
+        _assert_spans_tight(band, spans)
+        assert torch.equal(_mask_outside(band, spans), band), name
+        # the spans skip something: less than the full width on average
+        full = -(-band.shape[2] // tb.SPAN_COLS)
+        assert float((spans[..., 1] - spans[..., 0]).float().mean()) < full
+
+
+def test_malformed_spans_are_refused():
+    band = torch.zeros((3, 256, 768))
+    dev = torch.device("cpu")
+    good = tb.band_spans(band)
+    tb._check_spans("band_apply", band, good, dev)
+    with pytest.raises(ValueError, match="needs the band's spans"):
+        tb._check_spans("band_apply", band, None, dev)
+    with pytest.raises(ValueError, match="int32"):
+        tb._check_spans("band_apply", band, good.long(), dev)
+    with pytest.raises(ValueError, match=r"\(3, 4, 2\)"):
+        tb._check_spans("band_apply", band, good[:, :3].contiguous(), dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tb._check_spans("rect_band_apply", band, good,
+                        torch.device("meta"))
+
+
 @pytest.mark.parametrize("presorted", [False, True])
 def test_sorted_segment_sum_is_sequential(presorted):
     """The deterministic segment sum adds each segment in entry order,
@@ -337,38 +488,43 @@ def test_band_apply_kernel_matches_plain(cuda, halo, with_coef, B):
                      for a in _band_case(halo, T=40, R=256, B=B))
     c = coef if with_coef else None
     n0 = tb.band_apply.launches
-    Y = tb.band_apply(band, X, c)
+    Y = tb.band_apply(band, X, c, spans=tb.band_spans(band))
     assert tb.band_apply.launches == n0 + 1
     assert _rel(Y.cpu(), tb.band_apply_plain(band, X, c).cpu()) < 1e-5
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [33, 96])
+@pytest.mark.parametrize("B", [33, 96, 200])
 def test_band_apply_kernel_wide_batch(cuda, B):
-    """Above 32 columns the kernel walks column blocks in one launch; each
-    column equals the plain version's and a narrow launch's."""
+    """Wide batches take one band pass (one column block up to 96, blocks
+    of 96 above); each column equals the plain version's and a narrow
+    (B = 3) launch's bit for bit, across the 96-column block boundaries and
+    in the last, partial block too."""
     band, X, coef = (torch.as_tensor(a, device=cuda)
                      for a in _band_case(2, T=40, R=256, B=B))
+    spans = tb.band_spans(band)
     n0 = tb.band_apply.launches
-    Y = tb.band_apply(band, X, coef)
+    Y = tb.band_apply(band, X, coef, spans=spans)
     assert tb.band_apply.launches == n0 + 1
     assert _rel(Y.cpu(), tb.band_apply_plain(band, X, coef).cpu()) < 1e-5
-    narrow = tb.band_apply(band, X[:, 32:35].contiguous(),
-                           coef[32:35].contiguous())
-    assert torch.equal(Y[:, 32:35], narrow)
+    starts = [30] + ([95, 190, B - 3] if B > 96 else [])
+    for c in starts:
+        narrow = tb.band_apply(band, X[:, c:c + 3].contiguous(),
+                               coef[c:c + 3].contiguous(), spans=spans)
+        assert torch.equal(Y[:, c:c + 3], narrow), c
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,W,B", [(256, 1536, 20), (8, 24, 3), (256, 1536, 2),
                                    (256, 1536, 3), (256, 256, 33),
-                                   (256, 1536, 96)])
+                                   (256, 1536, 96), (256, 384, 200)])
 def test_rect_band_apply_kernel_matches_plain(cuda, R, W, B):
     offs = np.array([5, 77, 300, 301, 999], np.int32)
     band, Xp = _rect_case(offs, R=R, W=W, B=B)
     band, offs, Xp = (torch.as_tensor(a, device=cuda)
                       for a in (band, offs, Xp))
     n0 = tb.rect_band_apply.launches
-    Y = tb.rect_band_apply(band, offs, Xp)
+    Y = tb.rect_band_apply(band, offs, Xp, tb.band_spans(band))
     assert tb.rect_band_apply.launches == n0 + 1
     assert _rel(Y.cpu(), tb.rect_band_apply_plain(band, offs, Xp).cpu()) \
         < 1e-5
@@ -415,8 +571,8 @@ def test_advection_kernels_match_plain(cuda):
     """Kernels A and C on a real nonsymmetric advection operator: the Adv
     band at B = 3 (f32, 1e-5) and the f64 Adv element block at B = 3
     (1e-12), as the no-uptake transport solve applies them."""
-    from fenics_eff_uptake_tpu.fem.space import FunctionSpace
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
+    from fenics_eff_uptake_tpu_torch.fem.space import FunctionSpace
+    from fenics_eff_uptake_tpu_torch.meshing.generator import generate_mesh
     from fenics_eff_uptake_tpu_torch.parallel.sweep import \
         build_transport_system
     mesh = generate_mesh(width=10.0, height=1.0, sulcus_depth=1.0,
@@ -428,10 +584,80 @@ def test_advection_kernels_match_plain(cuda):
     sys = build_transport_system(mesh, cuda, u_values=u, u_space=V)
     rng = np.random.default_rng(12)
     X = torch.as_tensor(rng.standard_normal((sys.ndofs, 3)), device=cuda)
-    Y = tb.band_apply(sys.Advband, X.float())
+    Y = tb.band_apply(sys.Advband, X.float(), spans=sys.Advspans)
     assert _rel(Y.cpu(), tb.band_apply_plain(sys.Advband, X.float()).cpu()) \
         < 1e-5
     blk = sys.Adv
     Ye = te.element_apply(blk.A64, blk.dofs, blk.scatter, X)
     Yp = te.element_apply_plain(blk.A64, blk.dofs, blk.scatter, X)
     assert _rel(Ye.cpu(), Yp.cpu()) < 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [3, 20, 96])
+def test_span_launch_equals_full_span_launch(cuda, B):
+    """Streaming only the spans' chunks changes no bit against streaming
+    every chunk, on a sparse band with empty tiles and empty blocks, whose
+    rows in those blocks come out zero (coef applied)."""
+    rng = np.random.default_rng(B)
+    band = torch.as_tensor(_sparse_band(rng, 12, 256, 1280,
+                                        empty_tiles=[0, 11],
+                                        empty_blocks=[(4, 1), (5, 3)]),
+                           device=cuda)
+    X = torch.as_tensor(rng.standard_normal((12 * 256, B)).astype(
+        np.float32), device=cuda)
+    coef = torch.as_tensor(rng.random(B).astype(np.float32) + 0.5,
+                           device=cuda)
+    spans = tb.band_spans(band)
+    Y = tb.band_apply(band, X, coef, spans=spans)
+    assert torch.equal(Y, tb.band_apply(band, X, coef,
+                                        spans=_full_spans(band)))
+    assert _rel(Y.cpu(), tb.band_apply_plain(band, X, coef).cpu()) < 1e-5
+    Yc = Y.cpu().reshape(12, 256, B)
+    for t, rows in ((0, slice(None)), (11, slice(None)),
+                    (4, slice(64, 128)), (5, slice(192, 256))):
+        assert not Yc[t, rows].any()
+    if B >= 3:
+        narrow = tb.band_apply(band, X[:, :3].contiguous(),
+                               coef[:3].contiguous(), spans=spans)
+        assert torch.equal(Y[:, :3], narrow)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 3, 20, 96])
+def test_rect_span_launch_unaligned_past_n_cols(cuda, B):
+    """Kernel B with unaligned window starts, windows and spans reaching
+    past the last row of Xp: matches plain (which reads zeros there), and
+    equals the full-span launch bit for bit."""
+    rng = np.random.default_rng(40 + B)
+    T, R, W = 6, 256, 384
+    band = torch.as_tensor(_sparse_band(rng, T, R, W, empty_tiles=[2]),
+                           device=cuda)
+    offs = torch.tensor([0, 3, 97, 301, 555, 700], dtype=torch.int32,
+                        device=cuda)
+    n_cols = 800                     # offs[-1] + W = 1084 > n_cols
+    Xp = torch.as_tensor(rng.standard_normal((n_cols, B)).astype(
+        np.float32), device=cuda)
+    spans = tb.band_spans(band)
+    Y = tb.rect_band_apply(band, offs, Xp, spans)
+    Xpad = torch.cat([Xp, torch.zeros((W, B), device=cuda)])
+    ref = tb.rect_band_apply_plain(band, offs, Xpad)
+    assert _rel(Y.cpu(), ref.cpu()) < 1e-5
+    assert torch.equal(Y, tb.rect_band_apply(band, offs, Xp,
+                                             _full_spans(band)))
+    assert not Y.reshape(T, R, B)[2].any()
+
+
+@pytest.mark.cuda
+def test_launch_without_spans_raises(cuda):
+    band, X, coef = (torch.as_tensor(a, device=cuda)
+                     for a in _band_case(1, T=4, R=256, B=3))
+    n0 = (tb.band_apply.launches, tb.rect_band_apply.launches)
+    with pytest.raises(ValueError, match="spans"):
+        tb.band_apply(band, X, coef)
+    with pytest.raises(ValueError, match="spans"):
+        tb.band_apply(band, X, coef, spans=tb.band_spans(band).cpu())
+    offs = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="spans"):
+        tb.rect_band_apply(band, offs, X)
+    assert (tb.band_apply.launches, tb.rect_band_apply.launches) == n0

@@ -28,7 +28,8 @@ from fenics_eff_uptake_tpu.parallel import sweep as jsw
 from fenics_eff_uptake_tpu.solvers import multilevel as jml
 from fenics_eff_uptake_tpu.studies.common import \
     make_no_adv_params as j_make_params
-from fenics_eff_uptake_tpu_torch.convert import multilevel_from_arrays
+from fenics_eff_uptake_tpu_torch.convert import (mesh_from,
+                                                 multilevel_from_arrays)
 from fenics_eff_uptake_tpu_torch.parallel import sweep as tsw
 from fenics_eff_uptake_tpu_torch.solvers import multilevel as tml
 
@@ -56,10 +57,12 @@ def _run_both(h, mids, mus):
         Xj, ij = jsw.solve_sweep(jsys, D, mu_values=mus, rtol=RTOL,
                                  precision="mixed", multilevel=jm)
         M_fn, m_args = jml.make_ml_preconditioner(jm, f32=True)
-    psys = tsw.build_transport_system(mesh, "cpu")
-    pml = tml.build_multilevel(psys, levels, D, mus)
+    tlevels = [mesh_from(m) for m in levels]
+    psys = tsw.build_transport_system(tlevels[0], "cpu")
+    pml = tml.build_multilevel(psys, tlevels, D, mus)
     Xp, ip = tsw.solve_sweep(psys, D, mus, rtol=RTOL, multilevel=pml)
-    return SimpleNamespace(mesh=mesh, levels=levels, D=D, mus=mus,
+    return SimpleNamespace(mesh=mesh, levels=levels, tlevels=tlevels, D=D,
+                           mus=mus,
                            jsys=jsys, jml=jm, Xj=np.asarray(Xj), ij=ij,
                            M=(M_fn, m_args), psys=psys, pml=pml,
                            Xp=Xp.numpy(), ip=ip)
@@ -97,7 +100,7 @@ def test_hierarchy_matches_jax(run):
         assert float(np.abs(d_p - d_j).max() / np.abs(d_j).max()) < 1e-6
         assert pl.transfer.n_coarse <= jl.transfer.n_coarse
     nc = run.pml.free_c.shape[0]
-    n_true_c = tsw.build_transport_system(run.levels[-1], "cpu",
+    n_true_c = tsw.build_transport_system(run.tlevels[-1], "cpu",
                                           element="P1").space.ndofs
     assert nc >= n_true_c
     np.testing.assert_array_equal(run.pml.free_c.numpy()[:n_true_c],
@@ -158,12 +161,16 @@ def _metrics_close(got, ref, rtol, atol):
 
 
 def _metrics(run, X, port):
-    params = [j_make_params(m) for m in (0.1, 1.0, 10.0)]
     if port:
         from fenics_eff_uptake_tpu_torch.analysis import batched_metrics as bm
-        sm = bm.build_sweep_metrics(run.psys.space, run.mesh, 1.0, "cpu")
-        return bm.metrics_to_dicts(sm, run.mesh, torch.tensor(X),
-                                   run.mus, params)
+        from fenics_eff_uptake_tpu_torch.studies.common import \
+            make_no_adv_params
+        sm = bm.build_sweep_metrics(run.psys.space, run.tlevels[0], 1.0,
+                                    "cpu")
+        return bm.metrics_to_dicts(
+            sm, run.tlevels[0], torch.tensor(X), run.mus,
+            [make_no_adv_params(m) for m in (0.1, 1.0, 10.0)])
+    params = [j_make_params(m) for m in (0.1, 1.0, 10.0)]
     from fenics_eff_uptake_tpu.analysis import batched_metrics as bm
     sm = bm.build_sweep_metrics(run.jsys.space, run.mesh, D=1.0)
     return bm.metrics_to_dicts(sm, run.mesh, jnp.asarray(X), run.mus, 1.0,

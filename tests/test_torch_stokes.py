@@ -23,11 +23,13 @@ import torch
 
 import jax.numpy as jnp
 
-from fenics_eff_uptake_tpu.meshing.generator import (generate_mesh,
-                                                     structured_rectangle)
+from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
 from fenics_eff_uptake_tpu.models.stokes_flow import \
     stokes_solve_mg as j_stokes
 from fenics_eff_uptake_tpu.solvers.minres import minres_tree as j_minres
+from fenics_eff_uptake_tpu_torch.convert import mesh_from
+from fenics_eff_uptake_tpu_torch.meshing.generator import \
+    structured_rectangle
 from fenics_eff_uptake_tpu_torch.models.stokes_flow import \
     stokes_solve_mg as t_stokes
 from fenics_eff_uptake_tpu_torch.solvers.minres import \
@@ -91,7 +93,7 @@ def test_stokes_mixed_matches_jax():
         mp.delenv("FEU_ML_CYCLE", raising=False)
         uj, pj = j_stokes(mesh, 1.0, rtol=1e-9, precision="mixed",
                           pad_shapes=True)
-    up, pp = t_stokes(mesh, 1.0, "cpu")
+    up, pp = t_stokes(mesh_from(mesh), 1.0, "cpu")
     info = up.solver_info
     assert info["converged"] and info["rel_resnorm"] <= 1e-9
     assert info["passes"] == 2          # JAX's pass count on this mesh

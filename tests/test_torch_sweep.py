@@ -19,7 +19,8 @@ import jax.numpy as jnp
 from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
 from fenics_eff_uptake_tpu.parallel import sweep as jsw
 from fenics_eff_uptake_tpu.solvers.multilevel import _fine_dinv
-from fenics_eff_uptake_tpu_torch.convert import transport_system_from_arrays
+from fenics_eff_uptake_tpu_torch.convert import (mesh_from,
+                                                 transport_system_from_arrays)
 from fenics_eff_uptake_tpu_torch.ops.banded import band_apply
 from fenics_eff_uptake_tpu_torch.parallel import sweep as tsw
 
@@ -50,7 +51,7 @@ def carried(mesh, jsys):
 
 @pytest.fixture(scope="module")
 def mine(mesh):
-    return tsw.build_transport_system(mesh, "cpu")
+    return tsw.build_transport_system(mesh_from(mesh), "cpu")
 
 
 def _rel(a, b):
