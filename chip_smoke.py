@@ -11,25 +11,34 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    fenics_eff_uptake_tpu_torch/ops/csrc into build/kernels/.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the mu sweep gives it (h = 0.02, B = 20), with the stated
-   tolerance; prints errors and median times from CUDA events, beside the
-   time of the one library call that computes the same function (kernels
-   A and B: the cuBLAS bmm of the plain version on windows built before
-   the timing; kernel C: a cuSPARSE CSR product of the assembled matrix,
-   coef folded into X before the timing) and the least time the card
-   could take (the larger of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s in
-   f32, 34 TFLOP/s in f64): for A and B both over the whole band (dense)
-   and over the column spans these inputs need (span), with the share of
-   the span bound that the kernel reaches.
+   tolerance.  Times are device times per call, from torch.profiler's CUDA
+   records (every kernel, copy and fill one call puts on the card, summed
+   over 20 calls after 3 warm-up calls, divided by 20): the kernel's
+   (``ms``), the plain version's and that of the one library call that
+   computes the same function (kernels A and B: the cuBLAS bmm of the
+   plain version on windows built before the timing; kernel C: a cuSPARSE
+   CSR product of the assembled matrix, coef folded into X before the
+   timing, ``addmm`` onto ``out`` in the out= form).  Beside them the
+   per-call time (``call_ms``: median over 20 calls of a CUDA event
+   interval around the Python call, which includes the wrapper's host
+   work before the launch), and the least time the card could take (the
+   larger of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s in f32, 34 TFLOP/s
+   in f64): for A and B both over the whole band (dense) and over the
+   column spans these inputs need (span), with the share of the span
+   bound that the kernel's device time reaches.  Kernel C runs in both
+   forms: the full output (f64 K, the defect residual's) and out=, added
+   into the Robin block's own rows (every Robin apply of both paths).
    The flow path's cases follow (``phase_kernels_flow``, on the solved
    Stokes velocity): kernel A on the advection band at B = 3 and on the
    Stokes velocity band at B = 2; kernel B on the fine restriction and
    prolongation of the advective hierarchy at B = 3 and of the velocity
    hierarchy at B = 2; kernels A and B at B = 96 (the coarse-pressure
    deflation's one wide apply); kernel C in f64 on the nonsymmetric
-   advection block at B = 3.
+   advection block at B = 3, and in the out= form on the fine and first
+   mid-level Robin blocks at B = 3, the path's most launched C call.
 4. slice: the 20-point Phase-A mu sweep at h = 0.02 through
    studies.phase_a.run_mu_sweep, twice (first and steady run).  Checks that
-   every kernel was launched by the first run, the true f64 relative
+   every kernel (C in both forms) was launched by the first run, the true f64 relative
    residuals (<= 1e-11), the inner iterations (<= 40 per column), and the
    CSV columns against the committed JAX artifact
    examples/phase_a_tpu_h0.02 (1e-6 relative).
@@ -37,8 +46,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    d = 1.0 mm) and the rectangle at h = 0.02, Pe = 0.1, 1, 10, through
    studies.no_uptake.run_geometry_study, twice (first and steady run):
    Stokes MINRES+MG, then one batched BiCGStab over the three Pe.  Prints
-   the seconds of every stage; checks that kernels A, B and C were launched
-   by the first run, the true f64 relative residuals (Stokes <= 1e-9,
+   the seconds of every stage; checks that kernels A, B and C (C in both
+   forms) were launched by the first run, the true f64 relative residuals (Stokes <= 1e-9,
    transport <= 1e-11 in every column), the iteration bounds, the six CSV
    rows against the committed JAX artifact examples/no_uptake_tpu_h0.02
    (1e-6 relative; the signed net fluxes 1e-6 |Mouth Q_in| absolute), and
@@ -52,7 +61,8 @@ device's idle share against the unprofiled solve's wall time).  Full
 reports go to build/chip_smoke/profile_*.txt and *_trace.json.
 
 Then prints one JSON line of per-kernel results and, last, the device line.
-Imports nothing of JAX.
+Imports nothing of JAX.  Run alone, without the repository around it, it
+exits 1 before touching the card.
 """
 
 import argparse
@@ -120,6 +130,27 @@ def phase_device():
     return card
 
 
+def device_ms(fn, calls=20, warmup=3):
+    """Device time of one call of fn: the durations of the CUDA records
+    (kernels, copies, fills) that torch.profiler takes over ``calls``
+    calls, summed, over the calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if str(e.device_type).endswith("CUDA"))
+    if not us > 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / calls / 1e3
+
+
 def median_ms(fn, reps=20, warmup=3):
     import torch
     for _ in range(warmup):
@@ -169,30 +200,35 @@ def band_bounds(band, spans, n_in, n_out, B, extra_bytes=0):
             "span_fill": sp / dense}
 
 
-def compare(label, kernel, plain, rtol, library=None, bounds=None):
-    """Kernel vs plain on the same inputs: errors, median times, the
-    library call's median time, and the bounds (``bounds``: "span" and,
-    for the band kernels, "dense" (ms, what binds) pairs)."""
+def compare(label, kernel, plain, rtol, library=None, bounds=None,
+            check=None):
+    """Kernel vs plain on the same inputs: errors, device times per call
+    of the kernel, the plain version and the library call, the kernel's
+    per-call time, and the bounds (``bounds``: "span" and, for the band
+    kernels, "dense" (ms, what binds) pairs).  ``check``, where given,
+    makes the two outputs compared (the out= form's calls accumulate)."""
     import torch
-    yk = kernel()
-    yp = plain()
+    yk, yp = check() if check is not None else (kernel(), plain())
     torch.cuda.synchronize()
     if not bool(torch.isfinite(yk).all()):
         raise AssertionError(f"{label}: kernel output is not finite")
     abs_err = float((yk - yp).abs().max())
     scale = float(yp.abs().max())
     rel = abs_err / scale if scale > 0 else abs_err
-    ms = median_ms(kernel)
-    plain_ms = median_ms(plain)
-    lib_ms = None if library is None else median_ms(library)
+    ms = device_ms(kernel)
+    call_ms = median_ms(kernel)
+    plain_ms = device_ms(plain)
+    lib_ms = None if library is None else device_ms(library)
     span, by = bounds["span"]
     out = {"case": label, "max_abs_err": abs_err, "max_rel_err": rel,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": span, "bound_by": by, "share": span / ms}
+           "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": span, "bound_by": by,
+           "share": span / ms}
     text = (f"[kernels] {label}: max_abs_err {abs_err:.3e} max_rel_err "
-            f"{rel:.3e} (tol {rtol:.0e}) kernel {ms:.4f} ms plain "
+            f"{rel:.3e} (tol {rtol:.0e}) device: kernel {ms:.4f} ms plain "
             f"{plain_ms:.4f} ms library "
-            + ("none" if lib_ms is None else f"{lib_ms:.4f} ms"))
+            + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
+            + f"; per call {call_ms:.4f} ms")
     if "dense" in bounds:
         d, dby = bounds["dense"]
         out.update(dense_bound_ms=d, dense_bound_by=dby,
@@ -244,13 +280,20 @@ def rect_case(label, band, offs, spans, Xq, rtol=1e-5):
                            4 * T))
 
 
-def element_case(label, A, blk, X, coef, rtol):
-    """Kernel C on one element block: kernel, plain, and one cuSPARSE CSR
-    product of the assembled matrix (built, and coef folded into X, before
-    the timing)."""
+def element_case(label, blk, X, coef, rtol, form="full"):
+    """Kernel C on one element block in X's dtype, through the block's
+    bound kernel, in the full or the out= form: kernel, plain, and one
+    cuSPARSE CSR product of the assembled matrix (built, and coef folded
+    into X, before the timing; ``addmm`` onto out in the out= form).  The
+    bound counts what the function needs: A, dofs, the X rows the block
+    reads (its touched rows), coef, and the rows of Y: all of them written
+    in the full form, the touched rows read and written in the out= form;
+    not the plans derived from dofs.  The out= form starts from a random
+    out: the rows the block does not touch must keep its bits, and the
+    block's part (the result less out) is held to rtol of its own size."""
     import torch
-    from fenics_eff_uptake_tpu_torch.ops.elemspmv import (
-        element_apply, element_apply_plain)
+    from fenics_eff_uptake_tpu_torch.ops.elemspmv import element_apply_plain
+    A = blk.A64 if X.dtype == torch.float64 else blk.A32
     N, nd, _ = A.shape
     n, B = X.shape
     dofs = blk.dofs.long()
@@ -263,13 +306,40 @@ def element_case(label, A, blk, X, coef, rtol):
             check_invariants=False).coalesce().to_sparse_csr()
     Xc = X if coef is None else X * coef
     ds = A.element_size()
-    nbytes = (A.numel() * ds + 4 * (2 * N * nd + n + 1) + 2 * n * B * ds
-              + (0 if coef is None else B * ds))
-    return compare(
-        label, lambda: element_apply(A, blk.dofs, blk.scatter, X, coef),
-        lambda: element_apply_plain(A, blk.dofs, blk.scatter, X, coef),
-        rtol, library=lambda: torch.sparse.mm(csr, Xc),
-        bounds={"span": bound_ms(nbytes, 2 * N * nd * nd * B, ds)})
+    touched = blk.scatter.tiles.rows.numel()
+    nbytes = (A.numel() * ds + 4 * N * nd
+              + touched * B * ds + (0 if coef is None else B * ds)
+              + (n if form == "full" else 2 * touched) * B * ds)
+    bounds = {"span": bound_ms(nbytes, 2 * N * nd * nd * B, ds)}
+    label = f"C {label} A{tuple(A.shape)} B={B} {form}"
+    if form == "full":
+        return compare(
+            label, lambda: blk.apply_batched(X, coef),
+            lambda: element_apply_plain(A, blk.dofs, blk.scatter, X, coef),
+            rtol, library=lambda: torch.sparse.mm(csr, Xc), bounds=bounds)
+    g = torch.Generator(device=X.device).manual_seed(n + B)
+    out0 = torch.rand((n, B), generator=g, device=X.device, dtype=X.dtype)
+    ok, op, ol = out0.clone(), out0.clone(), out0.clone()
+    untouched = torch.ones(n, dtype=torch.bool, device=X.device)
+    untouched[blk.scatter.tiles.rows.long()] = False
+
+    def check():
+        yk = blk.apply_batched(X, coef, out=out0.clone())
+        yp = element_apply_plain(A, blk.dofs, blk.scatter, X, coef,
+                                 out=out0.clone())
+        if not torch.equal(yk[untouched], out0[untouched]):
+            raise AssertionError(f"{label}: rows the block does not touch "
+                                 "changed")
+        return yk - out0, yp - out0
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return compare(
+            label, lambda: blk.apply_batched(X, coef, out=ok),
+            lambda: element_apply_plain(A, blk.dofs, blk.scatter, X, coef,
+                                        out=op),
+            rtol, library=lambda: torch.addmm(ol, csr, Xc), bounds=bounds,
+            check=check)
 
 
 def phase_kernels(dev):
@@ -313,18 +383,20 @@ def phase_kernels(dev):
         out["rect_band_apply"].append(rect_case(
             f"B fine {label} {tuple(band.shape)} B={B_SWEEP}", band, offs,
             spans, Xq))
-    # C: f64 K and Robin (P2 cells, nd=6), f32 Robin, and the mid level's
-    # P1 Robin (nd=3); 1e-12 in f64, 2e-5 in f32 (summation order)
-    for label, blk, dtype, rtol in (
-            ("f64 K", sys_.K, torch.float64, 1e-12),
-            ("f64 R", sys_.R, torch.float64, 1e-12),
-            ("f32 R", sys_.R, torch.float32, 2e-5),
-            ("f32 mid R", ml.levels[1].sys.R, torch.float32, 2e-5)):
-        A = blk.A64 if dtype == torch.float64 else blk.A32
-        X = rnd(blk.ndofs, dtype)
+    # C: f64 K in the full form (the defect residual's), the Robin blocks
+    # (P2 facets carrying their cells' dofs, nd=6; the mid level's P1,
+    # nd=3) in the out= form, as the sweep applies them, and f32 Robin in
+    # the full form too; 1e-12 in f64, 2e-5 in f32 (summation order)
+    mid_R = ml.levels[1].sys.R
+    for label, blk, dtype, rtol, form in (
+            ("f64 K", sys_.K, torch.float64, 1e-12, "full"),
+            ("f64 R", sys_.R, torch.float64, 1e-12, "out"),
+            ("f32 R", sys_.R, torch.float32, 2e-5, "full"),
+            ("f32 R", sys_.R, torch.float32, 2e-5, "out"),
+            ("f32 mid R", mid_R, torch.float32, 2e-5, "out")):
         out["element_apply"].append(element_case(
-            f"C {label} A{tuple(A.shape)} B={B_SWEEP}", A, blk, X,
-            coef32.to(dtype), rtol))
+            label, blk, rnd(blk.ndofs, dtype), coef32.to(dtype), rtol,
+            form))
     del sys_, ml
     torch.cuda.empty_cache()
     return out
@@ -388,12 +460,15 @@ def phase_kernels_flow(dev):
             out["rect_band_apply"].append(rect_case(
                 f"B {label} {way} {tuple(band.shape)} B={B}", band, offs,
                 spans, Xq))
-    # C: f64, 1e-12 (summation order)
-    blk = adv.Adv
-    X = rnd(blk.ndofs, 3, torch.float64)
+    # C: the f64 Adv block in the full form (1e-12), and the f32 fine and
+    # mid Robin blocks in the out= form (2e-5), every cycle's Robin apply
+    # (the study's mu is 0; a random coef here, as the time is the same)
     out["element_apply"].append(element_case(
-        f"C f64 Adv A{tuple(blk.A64.shape)} B=3", blk.A64, blk, X, None,
-        1e-12))
+        "f64 Adv", adv.Adv, rnd(adv.ndofs, 3, torch.float64), None, 1e-12))
+    for label, blk in (("f32 R", adv.R), ("f32 mid R", aml.levels[1].sys.R)):
+        out["element_apply"].append(element_case(
+            label, blk, rnd(blk.ndofs, 3),
+            torch.rand(3, generator=g, device=dev) + 0.5, 2e-5, "out"))
     del adv, aml, vel, vml
     torch.cuda.empty_cache()
     return out
@@ -432,19 +507,34 @@ def check_against_golden(rows, stats):
     return worst
 
 
+def zero_launches(kernels):
+    for k in kernels.values():
+        k.launches = 0
+    kernels["element_apply"].launches_out = 0
+
+
+def read_launches(kernels):
+    """Launch counts by kernel; kernel C's split by form too (the keys
+    ``element_apply full`` and ``element_apply out``)."""
+    out = {name: k.launches for name, k in kernels.items()}
+    c = kernels["element_apply"]
+    out["element_apply full"] = c.launches - c.launches_out
+    out["element_apply out"] = c.launches_out
+    return out
+
+
 def phase_slice(dev):
     from fenics_eff_uptake_tpu_torch.ops.banded import (band_apply,
                                                         rect_band_apply)
-    from fenics_eff_uptake_tpu_torch.ops.elemspmv import element_apply
+    from fenics_eff_uptake_tpu_torch.ops.elemspmv import ElementKernel
     from fenics_eff_uptake_tpu_torch.studies.phase_a import run_mu_sweep
 
     kernels = {"band_apply": band_apply, "rect_band_apply": rect_band_apply,
-               "element_apply": element_apply}
-    for k in kernels.values():
-        k.launches = 0
+               "element_apply": ElementKernel}
+    zero_launches(kernels)
     rows, stats = run_mu_sweep(dev, 0.02, base_dir=str(OUT_DIR / "first"),
                                verbose=True)
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = read_launches(kernels)
     print(f"[slice] launches in the first run: {launches}", flush=True)
     rows2, stats2 = run_mu_sweep(dev, 0.02,
                                  base_dir=str(OUT_DIR / "steady"),
@@ -526,18 +616,17 @@ def check_no_uptake_golden(rows):
 def phase_no_uptake(dev):
     from fenics_eff_uptake_tpu_torch.ops.banded import (band_apply,
                                                         rect_band_apply)
-    from fenics_eff_uptake_tpu_torch.ops.elemspmv import element_apply
+    from fenics_eff_uptake_tpu_torch.ops.elemspmv import ElementKernel
     from fenics_eff_uptake_tpu_torch.studies.no_uptake import \
         run_geometry_study
 
     kernels = {"band_apply": band_apply, "rect_band_apply": rect_band_apply,
-               "element_apply": element_apply}
-    for k in kernels.values():
-        k.launches = 0
+               "element_apply": ElementKernel}
+    zero_launches(kernels)
     rows, stats = run_geometry_study(["reference"], PECLET, 0.02,
                                      base_dir=str(OUT_DIR / "nu_first"),
                                      device=dev)
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = read_launches(kernels)
     print(f"[no_uptake] launches in the first run: {launches}", flush=True)
     rows2, stats2 = run_geometry_study(["reference"], PECLET, 0.02,
                                        base_dir=str(OUT_DIR / "nu_steady"),
@@ -709,6 +798,10 @@ def main(argv=None):
                     help="also profile both paths (host and device)")
     args = ap.parse_args(argv)
     t_start = time.time()
+    if not (ROOT / "fenics_eff_uptake_tpu_torch").is_dir():
+        raise SystemExit("chip_smoke: fenics_eff_uptake_tpu_torch/ is not "
+                         f"beside this script in {ROOT}; run it from a "
+                         "checkout of the repository")
     card = phase_device()
     os.environ.setdefault("FEU_CACHE_DIR", str(ROOT / "build" / "cache"))
     sys.path.insert(0, str(ROOT))
@@ -745,9 +838,13 @@ def main(argv=None):
             "launches": launches[name] + nu_launches[name],
             "launches_by_path": {"mu_sweep": launches[name],
                                  "no_uptake": nu_launches[name]},
+            **({"launches_by_form": {
+                form: launches[f"{name} {form}"]
+                + nu_launches[f"{name} {form}"] for form in ("full", "out")}}
+               if name == "element_apply" else {}),
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "max_rel_err": max(c["max_rel_err"] for c in cs),
-            **{k: cs[0][k] for k in ("ms", "plain_ms", "bound_ms",
+            **{k: cs[0][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
             "cases": cs})
     summary = {"card": card, "build_s": build_s, "kernels": kernels,

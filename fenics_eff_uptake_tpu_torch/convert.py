@@ -20,7 +20,7 @@ from .meshing.generator import _mesh_from_arrays, _mesh_to_arrays
 from .meshing.geometry import SulcusGeometry
 from .meshing.mesh_data import MeshData
 from .ops.banded import band_spans
-from .ops.elemspmv import Scatter
+from .ops.elemspmv import Scatter, make_tiles
 from .parallel.sweep import TransportSystem, _Block
 from .solvers.multilevel import (Level, MultilevelData, Transfer,
                                  TransferBands)
@@ -61,13 +61,15 @@ def _block(d, name, device):
     A64 = torch.tensor(np.asarray(d[f"{name}_A64"]), dtype=torch.float64,
                        device=device)
     ids = np.asarray(d[f"{name}_ids"])
+    perm = np.asarray(d[f"{name}_perm"])
     ndofs = int(d[f"{name}_ndofs"])
     rowptr = np.searchsorted(ids, np.arange(ndofs + 1))
-    return _Block(A64=A64, A32=A64.float(),
-                  dofs=_i32(d[f"{name}_dofs"], device),
-                  scatter=Scatter(perm=_i32(d[f"{name}_perm"], device),
-                                  ids_sorted=_i32(ids, device),
-                                  rowptr=_i32(rowptr, device), ndofs=ndofs))
+    dofs = _i32(d[f"{name}_dofs"], device)
+    return _Block.of(A64, A64.float(), dofs, Scatter(
+        perm=_i32(perm, device), ids_sorted=_i32(ids, device),
+        rowptr=_i32(rowptr, device), ndofs=ndofs,
+        tiles=make_tiles(np.asarray(d[f"{name}_dofs"]), perm, rowptr,
+                         device)))
 
 
 def transport_system_from_arrays(d, mesh, element, device) -> TransportSystem:

@@ -23,7 +23,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "build", "library", "check", "stream_of"]
+__all__ = ["BUILD_DIR", "build", "library", "check", "raw_stream"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -36,7 +36,7 @@ _SIGNATURES = {
     "feu_band_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "feu_rect_band_apply": [_P, _P, _P, _P, _P, _I, _I, _I,
                             ctypes.c_longlong, _I, _P],
-    "feu_element_apply": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "feu_element_apply": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 _loaded = {}
@@ -122,7 +122,8 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-def stream_of(t) -> int:
-    """Raw handle of PyTorch's current stream on ``t``'s device."""
+def raw_stream(index: int) -> int:
+    """Raw handle of PyTorch's current stream on CUDA device ``index``, in
+    one call into PyTorch's C++ (what its own kernel launchers use)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -157,7 +157,7 @@ def band_apply(band, X, coef=None, spans=None):
     err = _build.library().feu_band_apply(
         band.data_ptr(), spans.data_ptr(), X.data_ptr(),
         None if coef is None else coef.data_ptr(), Y.data_ptr(),
-        T, R, W, X.shape[1], _build.stream_of(X))
+        T, R, W, X.shape[1], _build.raw_stream(X.device.index))
     _build.check(err, "band_apply")
     band_apply.launches += 1
     return Y
@@ -207,7 +207,7 @@ def rect_band_apply(band, offs, Xp, spans=None):
     err = _build.library().feu_rect_band_apply(
         band.data_ptr(), spans.data_ptr(), offs.data_ptr(), Xp.data_ptr(),
         Y.data_ptr(), T, R, W, Xp.shape[0], Xp.shape[1],
-        _build.stream_of(Xp))
+        _build.raw_stream(Xp.device.index))
     _build.check(err, "rect_band_apply")
     rect_band_apply.launches += 1
     return Y

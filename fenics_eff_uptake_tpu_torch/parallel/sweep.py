@@ -24,6 +24,9 @@ Operator applies by precision:
   f32 (inner Krylov)                        K and Adv through kernel A (the
                                             bands), R through kernel C
 
+R is added last, in place, into the rows it touches (kernel C's ``out=``
+form), with the rounding of the separate apply and add.
+
 Convergence of the inner iteration is tested on the host once per
 iteration (``any(|r_b| > tol_b)``), one device sync each; the ``active``
 masks make any extra iteration a no-op for converged columns, as in the
@@ -44,8 +47,9 @@ from ..fem.space import FunctionSpace
 from ..meshing.mesh_data import MARKERS, MeshData
 from ..ops.band_plans import best_bandwidth_permutation, build_band_plan
 from ..ops.banded import band_apply, band_from_elements, band_spans
-from ..ops.elemspmv import (Scatter, element_apply, make_scatter,
-                            make_segment_plan, planned_segment_sum)
+from ..ops.elemspmv import (ElementKernel, Scatter, element_apply_plain,
+                            make_scatter, make_segment_plan,
+                            planned_segment_sum)
 
 __all__ = ["TransportSystem", "build_transport_system", "system_to",
            "unpermute_columns", "OperatorArgs", "operator_args",
@@ -66,11 +70,24 @@ CHEAP_PASSES = 1
 
 
 class _Block(NamedTuple):
-    """One element block: f64 and f32 entity matrices + scatter plan."""
+    """One element block: f64 and f32 entity matrices + scatter and tile
+    plans; on a CUDA device also kernel C bound to each precision (its
+    fixed tensors checked once, where the block is made)."""
     A64: torch.Tensor
     A32: torch.Tensor
     dofs: torch.Tensor        # (N, nd) int32
     scatter: Scatter
+    kernels: Optional[tuple] = None   # (f64, f32) ElementKernel on CUDA
+
+    @classmethod
+    def of(cls, A64, A32, dofs, scatter: Scatter):
+        """The block of these tensors, with its kernels where they lie on
+        a CUDA device."""
+        kernels = None
+        if A64.device.type == "cuda":
+            kernels = (ElementKernel(A64, dofs, scatter),
+                       ElementKernel(A32, dofs, scatter))
+        return cls(A64, A32, dofs, scatter, kernels)
 
     @classmethod
     def build(cls, A64, dofs, ndofs: int):
@@ -78,19 +95,26 @@ class _Block(NamedTuple):
         dof map in the system's numbering of ``ndofs`` rows."""
         dev = A64.device
         A64 = A64.contiguous()     # einsum outputs may be strided views
-        return cls(A64=A64, A32=A64.float(),
-                   dofs=torch.as_tensor(np.asarray(dofs), dtype=torch.int32,
-                                        device=dev),
-                   scatter=make_scatter(dofs, ndofs, dev))
+        return cls.of(A64, A64.float(),
+                      torch.as_tensor(np.asarray(dofs), dtype=torch.int32,
+                                      device=dev),
+                      make_scatter(dofs, ndofs, dev))
 
     @property
     def ndofs(self):
         return self.scatter.ndofs
 
-    def apply_batched(self, X, coef=None):
-        """(n, B) -> (n, B) in X's dtype, ``coef`` (B,) fused per column."""
-        A = self.A64 if X.dtype == torch.float64 else self.A32
-        return element_apply(A, self.dofs, self.scatter, X, coef)
+    def apply_batched(self, X, coef=None, out=None):
+        """(n, B) -> (n, B) in X's dtype, ``coef`` (B,) fused per column;
+        with ``out``, adds that into ``out`` in place and returns it (on
+        the card only the rows the block touches are read and written)."""
+        if X.device.type == "cpu":
+            A = self.A64 if X.dtype == torch.float64 else self.A32
+            return element_apply_plain(A, self.dofs, self.scatter, X, coef,
+                                       out)
+        if self.kernels is None:
+            raise ValueError("kernel C needs every tensor on X's CUDA device")
+        return self.kernels[X.dtype != torch.float64](X, coef, out)
 
     def diagonal(self):
         de = torch.diagonal(self.A64, dim1=1, dim2=2).reshape(-1)
@@ -101,11 +125,8 @@ class _Block(NamedTuple):
         return planned_segment_sum(de, seg)
 
     def to(self, device):
-        return _Block(A64=self.A64.to(device), A32=self.A32.to(device),
-                      dofs=self.dofs.to(device),
-                      scatter=Scatter(*[x.to(device) for x in
-                                        self.scatter[:3]],
-                                      self.scatter.ndofs))
+        return _Block.of(self.A64.to(device), self.A32.to(device),
+                         self.dofs.to(device), self.scatter.to(device))
 
 
 class TransportSystem(NamedTuple):
@@ -228,7 +249,8 @@ def operator_args(sys: TransportSystem, D_vec, mu_vec, f32: bool):
 
 
 def _apply_raw(a: OperatorArgs, X):
-    # summation order K, Adv, R as in the JAX programs
+    # summation order K, Adv, R as in the JAX programs; R adds into Y's
+    # boundary rows in place (Y is this function's own)
     if a.Kband is not None:
         Y = band_apply(a.Kband, X, coef=a.D_vec, spans=a.Kspans)
     else:
@@ -237,7 +259,7 @@ def _apply_raw(a: OperatorArgs, X):
         Y = Y + (band_apply(a.Advband, X, spans=a.Advspans)
                  if a.Advband is not None else a.Adv.apply_batched(X))
     if a.R is not None:
-        Y = Y + a.R.apply_batched(X, coef=a.mu_vec)
+        Y = a.R.apply_batched(X, coef=a.mu_vec, out=Y)
     return Y
 
 

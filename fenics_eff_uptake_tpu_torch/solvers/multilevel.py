@@ -330,7 +330,7 @@ def make_ml_preconditioner(ml: MultilevelData, cycle="hybrid"):
         if la.sys.Advband is not None:
             Y = Y + band_apply(la.sys.Advband, Xm, spans=la.sys.Advspans)
         if la.sys.R is not None:
-            Y = Y + la.sys.R.apply_batched(Xm, coef=mu32)
+            Y = la.sys.R.apply_batched(Xm, coef=mu32, out=Y)
         return torch.where(free, Y, Xm)
 
     def restrict(la: Level, R):

@@ -161,10 +161,9 @@ def test_element_apply_plain_matches_jax(jx, dtype, nd, with_coef):
     n, B = X.shape
     c = coef if with_coef else None
     sc = te.make_scatter(dofs, n, "cpu")
-    Y = te.element_apply(torch.as_tensor(A),
-                         torch.as_tensor(dofs, dtype=torch.int32), sc,
-                         torch.as_tensor(X),
-                         None if c is None else torch.as_tensor(c)).numpy()
+    Y = te.element_apply_plain(
+        torch.as_tensor(A), torch.as_tensor(dofs, dtype=torch.int32), sc,
+        torch.as_tensor(X), None if c is None else torch.as_tensor(c)).numpy()
     perm = np.argsort(dofs.ravel(), kind="stable")
     ids = dofs.ravel()[perm]
     blk = jx.Block(A64=jnp.asarray(A), A32=jnp.asarray(A),
@@ -299,8 +298,9 @@ def test_bandwidth_permutation_matches_jax(jx):
 # ---------------------------------------------------------------------------
 
 def test_cpu_tensors_take_plain_and_count_no_launch():
+    from fenics_eff_uptake_tpu_torch.parallel.sweep import _Block
     before = (tb.band_apply.launches, tb.rect_band_apply.launches,
-              te.element_apply.launches)
+              te.ElementKernel.launches)
     band, X, coef = _band_case(1)
     bt, Xt, ct = map(torch.as_tensor, (band, X, coef))
     assert torch.equal(tb.band_apply(bt, Xt, ct),
@@ -314,10 +314,12 @@ def test_cpu_tensors_take_plain_and_count_no_launch():
     sc = te.make_scatter(dofs, Xe.shape[0], "cpu")
     eargs = (torch.as_tensor(A), torch.as_tensor(dofs, dtype=torch.int32),
              sc, torch.as_tensor(Xe), torch.as_tensor(c))
-    assert torch.equal(te.element_apply(*eargs),
+    blk = _Block.build(eargs[0], dofs, Xe.shape[0])
+    assert blk.kernels is None
+    assert torch.equal(blk.apply_batched(*eargs[3:]),
                        te.element_apply_plain(*eargs))
     after = (tb.band_apply.launches, tb.rect_band_apply.launches,
-             te.element_apply.launches)
+             te.ElementKernel.launches)
     assert after == before
 
 
@@ -349,17 +351,16 @@ def test_checkers_refuse_unsupported_input():
     dt = torch.as_tensor(dofs, dtype=torch.int32)
     sc = te.make_scatter(dofs, Xe.shape[0], "cpu")
     Xt = torch.as_tensor(Xe)
+    # kernel C checks a block where it binds it (ElementKernel)
     with pytest.raises(NotImplementedError, match="per-sample"):
-        te.check_element_apply_args(At[None].expand(5, -1, -1, -1), dt, sc,
-                                    Xt)
+        te.ElementKernel(At[None].expand(5, -1, -1, -1), dt, sc)
     with pytest.raises(TypeError):
-        te.check_element_apply_args(At.double(), dt, sc, Xt)
+        te._check_block(At.double(), dt, sc, Xt.dtype)
     with pytest.raises(ValueError, match="nd=4"):
-        te.check_element_apply_args(torch.zeros((7, 4, 4)),
-                                    torch.zeros((7, 4), dtype=torch.int32),
-                                    sc, Xt)
+        te.ElementKernel(torch.zeros((7, 4, 4)),
+                         torch.zeros((7, 4), dtype=torch.int32), sc)
     with pytest.raises(ValueError, match="CUDA device"):
-        te.check_element_apply_args(At, dt, sc, Xt)
+        te.ElementKernel(At, dt, sc)
 
 
 # ---------------------------------------------------------------------------
@@ -540,13 +541,14 @@ def test_element_apply_kernel_matches_plain(cuda, dtype, nd):
             torch.as_tensor(dofs, dtype=torch.int32, device=cuda), sc,
             torch.as_tensor(X, device=cuda), torch.as_tensor(coef,
                                                              device=cuda))
-    n0 = te.element_apply.launches
-    Y = te.element_apply(*args)
-    assert te.element_apply.launches == n0 + 1
+    k = te.ElementKernel(*args[:3])
+    n0 = te.ElementKernel.launches
+    Y = k(*args[3:])
+    assert te.ElementKernel.launches == n0 + 1
     tol = 1e-12 if dtype == np.float64 else 2e-5
     assert _rel(Y.cpu(), te.element_apply_plain(*args).cpu()) < tol
     # no atomics: two launches agree bit for bit
-    assert torch.equal(Y, te.element_apply(*args))
+    assert torch.equal(Y, k(*args[3:]))
 
 
 @pytest.mark.cuda
@@ -588,7 +590,7 @@ def test_advection_kernels_match_plain(cuda):
     assert _rel(Y.cpu(), tb.band_apply_plain(sys.Advband, X.float()).cpu()) \
         < 1e-5
     blk = sys.Adv
-    Ye = te.element_apply(blk.A64, blk.dofs, blk.scatter, X)
+    Ye = blk.apply_batched(X)
     Yp = te.element_apply_plain(blk.A64, blk.dofs, blk.scatter, X)
     assert _rel(Ye.cpu(), Yp.cpu()) < 1e-12
 
