@@ -36,6 +36,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    deflation's one wide apply); kernel C in f64 on the nonsymmetric
    advection block at B = 3, and in the out= form on the fine and first
    mid-level Robin blocks at B = 3, the path's most launched C call.
+   Last the adv-diff path's cases (``phase_kernels_advdiff``, on the
+   rectangle's system and step-mu hierarchy at h = 0.02, B = 9): kernel
+   C's per-sample form (one Robin matrix set per column, no coef) in f64
+   on the fine block in both forms, in f32 on the fine block and on both
+   mid levels' blocks in the out= form; the library call is one cuSPARSE
+   CSR product too, of the columns' matrices stacked into one matrix of
+   n B rows, applied to the batch-minor X seen as one long column.
 4. slice: the 20-point Phase-A mu sweep at h = 0.02 through
    studies.phase_a.run_mu_sweep, twice (first and steady run).  Checks that
    every kernel (C in both forms) was launched by the first run, the true f64 relative
@@ -53,10 +60,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (1e-6 relative; the signed net fluxes 1e-6 |Mouth Q_in| absolute), and
    that the steady run's rows equal the first run's.
 
-With ``--profile``, a last phase profiles both paths once more: cProfile of
+6. adv_diff: the adv-diff step-mu validation at h = 0.02 on the full
+   3 x 3 Pe x mu grid through studies.adv_diff.run_advdiff_step_validation,
+   twice (first and steady run): per domain one Stokes solve; the 9 sulcus
+   columns as one batched BiCGStab with mu per column; the 9 rectangular
+   surrogates as a second one with per-column Robin matrices.  Checks the
+   true f64 relative residuals (Stokes <= 1e-9, both batches <= 1e-11),
+   the iteration bounds, that kernels A and B were launched by both
+   batches and C's per-sample form by the rectangle batch (and by it
+   alone), and the 18 rows against the committed JAX artifact
+   examples/advdiff_tpu_h0.02 (1e-6 relative; the rectangle's
+   advective_flux 1e-6 |total_flux| and flux_error_pct 1e-4 absolute).
+7. no_adv_studies: Phase-A's mu_eff study (0.5 x 1.0 mm sulcus, 3 mu)
+   against the 3 rows of examples/phase_a_tpu_h0.02, and Phase-B on the
+   ``reference`` and ``square_medium`` geometries (sulcus and rectangle,
+   mu factors 0.1, 0.5, 1.0) against their 6 rows of
+   examples/phase_b_tpu_h0.02: 1e-6 relative (flux_error_pct 1e-4
+   absolute), CG <= 40 per column, residuals <= 1e-11.
+
+With ``--profile``, a last phase profiles the paths once more: cProfile of
 one steady ``no_adv_batch`` and one steady no-uptake study (where the host
 setup goes), and ``torch.profiler`` of one mu-sweep CG solve, one Stokes
-saddle solve and one BiCGStab solve (device busy time by kernel, and the
+saddle solve, one BiCGStab solve of the no-uptake study and one of the
+adv-diff study's rectangle batch (device busy time by kernel, and the
 device's idle share against the unprofiled solve's wall time).  Full
 reports go to build/chip_smoke/profile_*.txt and *_trace.json.
 
@@ -67,8 +93,6 @@ exits 1 before touching the card.
 
 import argparse
 import cProfile
-
-
 import csv
 import io
 import json
@@ -89,15 +113,38 @@ GOLDEN_CSV = (ROOT / "examples" / "phase_a_tpu_h0.02"
 GOLDEN_NU_CSV = (ROOT / "examples" / "no_uptake_tpu_h0.02"
                  / "Geometry Comparison Analysis"
                  / "geometry_comparison_results.csv")
+GOLDEN_AD_CSV = (ROOT / "examples" / "advdiff_tpu_h0.02" / "Results Data"
+                 / "advdiff_validation_step_pe_x_mu.csv")
+GOLDEN_MUEFF_CSV = (ROOT / "examples" / "phase_a_tpu_h0.02"
+                    / "Mu_Eff Spatial Analysis Analysis"
+                    / "mu_eff_analysis_results.csv")
+GOLDEN_PB_CSV = (ROOT / "examples" / "phase_b_tpu_h0.02"
+                 / "no_adv_mu_sweep_results.csv")
 OUT_DIR = ROOT / "build" / "chip_smoke"
 B_SWEEP = 20
 BENCH_CELLS = 50647
 PECLET = [0.1, 1.0, 10.0]
-# iteration bounds of the no-uptake phase, twice the port's CPU runs of the
-# same path (reference geometry, h = 0.035, the finest run on the CPU):
-# MINRES 130 over 2 passes; BiCGStab per Pe column 16, 29, 158
+# iteration bounds of the no-uptake phase: twice an early CPU run of the
+# port's path (reference geometry, h = 0.035, the finest run on the CPU:
+# MINRES 130 over 2 passes; BiCGStab per Pe column 16, 29, 158), kept as
+# they were set.  Today
+#   python -m fenics_eff_uptake_tpu_torch.studies.no_uptake \
+#       --geometries reference --mesh-size 0.035 --device cpu
+# prints MINRES 132 (sulcus) and 123 (rectangle), BiCGStab [16, 29, 166]
+# and [16, 29, 226]
 MINRES_BOUND = 260
 BICGSTAB_BOUND = [32, 58, 316]
+# iteration bounds of the adv-diff phase: twice what
+#   python -m fenics_eff_uptake_tpu_torch.studies.adv_diff \
+#       --mesh-size 0.035 --device cpu
+# prints for the full 3 x 3 grid (columns Pe-major: Pe 0.1, 1, 10, each with
+# mu factors 0.1, 1, 10): MINRES 132 (sulcus) and 123 (rectangle), within
+# MINRES_BOUND; BiCGStab, 4 passes each,
+# sulcus [16, 15, 16, 25, 19, 16, 106, 67, 64] and
+# rectangle [15, 15, 14, 24, 19, 16, 108, 72, 66]
+AD_BICGSTAB_BOUND = {
+    "sulcus": [32, 30, 32, 50, 38, 32, 212, 134, 128],
+    "rectangular": [30, 30, 28, 48, 38, 32, 216, 144, 132]}
 # CSV columns held to 1e-6 relative, and the signed net fluxes held to
 # 1e-6 |Mouth Q_in| absolute (differences of much larger fluxes)
 NU_REL_COLUMNS = ("Total Mass", "Avg Concentration",
@@ -105,7 +152,21 @@ NU_REL_COLUMNS = ("Total Mass", "Avg Concentration",
                   "Max_Ux_mid_channel", "Avg_Ux_mid_channel",
                   "Concentration_Ratio")
 NU_NET_COLUMNS = ("Mouth_Flux_Total", "Inlet-Outlet Flux")
+# adv-diff CSV columns held to 1e-6 relative; the rectangle's advective
+# flux (0 but for rounding) is held to 1e-6 |total_flux|, flux_error_pct (a
+# difference of fluxes, in percent) to 1e-4 absolute
+AD_REL_COLUMNS = ("total_flux", "diffusive_flux", "uptake_flux",
+                  "mu_eff_arc", "mu_eff_sim", "mu_eff_open", "avg_conc",
+                  "CR", "flux_ratio")
+MUEFF_COLUMNS = ("Mu_Value", "Mu_base_nondim", "Mu_Eff_Simulation",
+                 "Mu_Eff_Analytical", "Mu_Eff_Enhanced", "Mu_Eff_Opening",
+                 "Ratio_Sim", "Ratio_Opening", "Mu_Mean_Bottom")
+PB_COLUMNS = ("avg_conc_sulc", "avg_conc_rect", "flux_sulc_y0",
+              "flux_rect_bottom", "CR", "flux_ratio")
+PB_GEOMETRIES = ["reference", "square_medium"]
+CG_BOUND = 40
 PALLAS = "fenics_eff_uptake_tpu/ops/pallas_kernels.py"
+JAX_SWEEP = "fenics_eff_uptake_tpu/parallel/sweep.py"
 CSRC = "fenics_eff_uptake_tpu_torch/ops/csrc"
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s, and
 # FLOP/s outside the tensor cores by element size
@@ -284,39 +345,58 @@ def element_case(label, blk, X, coef, rtol, form="full"):
     """Kernel C on one element block in X's dtype, through the block's
     bound kernel, in the full or the out= form: kernel, plain, and one
     cuSPARSE CSR product of the assembled matrix (built, and coef folded
-    into X, before the timing; ``addmm`` onto out in the out= form).  The
-    bound counts what the function needs: A, dofs, the X rows the block
-    reads (its touched rows), coef, and the rows of Y: all of them written
-    in the full form, the touched rows read and written in the out= form;
-    not the plans derived from dofs.  The out= form starts from a random
-    out: the rows the block does not touch must keep its bits, and the
-    block's part (the result less out) is held to rtol of its own size."""
+    into X, before the timing; ``addmm`` onto out in the out= form).  For a
+    per-sample block (``_Block.per_sample``: one matrix set per column, no
+    coef) that matrix stacks the columns' matrices into one CSR of n B
+    rows, M[d B + b, c B + b] = A_b[d, c], applied to the batch-minor X
+    seen as one column of n B entries (a view).
+    The bound counts what the function needs: A (every column's set), dofs,
+    the X rows the block reads (its touched rows), coef, and the rows of
+    Y: all of them written in the full form, the touched rows read and
+    written in the out= form; not the plans derived from dofs.  The out=
+    form starts from a random out: the rows the block does not touch must
+    keep its bits, and the block's part (the result less out) is held to
+    rtol of its own size."""
     import torch
     from fenics_eff_uptake_tpu_torch.ops.elemspmv import element_apply_plain
     A = blk.A64 if X.dtype == torch.float64 else blk.A32
-    N, nd, _ = A.shape
+    per_sample = A.dim() == 4
+    N, nd, _ = A.shape[-3:]
     n, B = X.shape
     dofs = blk.dofs.long()
-    rows = dofs[:, :, None].expand(N, nd, nd).reshape(-1)
-    cols = dofs[:, None, :].expand(N, nd, nd).reshape(-1)
-    with warnings.catch_warnings():     # "sparse CSR support is in beta"
+    rows = dofs[:, :, None].expand(N, nd, nd)
+    cols = dofs[:, None, :].expand(N, nd, nd)
+    Xc = X if coef is None else X * coef
+    size = n
+    if per_sample:
+        b = torch.arange(B, device=X.device)[:, None, None, None]
+        rows, cols, size = rows * B + b, cols * B + b, n * B
+        Xc = Xc.reshape(-1, 1)
+
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
         warnings.simplefilter("ignore")
         csr = torch.sparse_coo_tensor(
-            torch.stack([rows, cols]), A.reshape(-1), (n, n),
+            torch.stack([rows.reshape(-1), cols.reshape(-1)]),
+            A.reshape(-1), (size, size),
             check_invariants=False).coalesce().to_sparse_csr()
-    Xc = X if coef is None else X * coef
+        lib = torch.sparse.mm(csr, Xc).reshape(n, B)
+    ref = element_apply_plain(A, blk.dofs, blk.scatter, X, coef)
+    if not float((lib - ref).abs().max()) <= rtol * float(ref.abs().max()):
+        raise AssertionError(f"{label}: the library call's matrix does not "
+                             "compute the block's product")
     ds = A.element_size()
     touched = blk.scatter.tiles.rows.numel()
     nbytes = (A.numel() * ds + 4 * N * nd
               + touched * B * ds + (0 if coef is None else B * ds)
               + (n if form == "full" else 2 * touched) * B * ds)
     bounds = {"span": bound_ms(nbytes, 2 * N * nd * nd * B, ds)}
-    label = f"C {label} A{tuple(A.shape)} B={B} {form}"
+    label = (f"C per-sample {label} A{tuple(A.shape)} {form}" if per_sample
+             else f"C {label} A{tuple(A.shape)} B={B} {form}")
     if form == "full":
         return compare(
             label, lambda: blk.apply_batched(X, coef),
             lambda: element_apply_plain(A, blk.dofs, blk.scatter, X, coef),
-            rtol, library=lambda: torch.sparse.mm(csr, Xc), bounds=bounds)
+            rtol, bounds=bounds, library=lambda: torch.sparse.mm(csr, Xc))
     g = torch.Generator(device=X.device).manual_seed(n + B)
     out0 = torch.rand((n, B), generator=g, device=X.device, dtype=X.dtype)
     ok, op, ol = out0.clone(), out0.clone(), out0.clone()
@@ -338,8 +418,8 @@ def element_case(label, blk, X, coef, rtol, form="full"):
             label, lambda: blk.apply_batched(X, coef, out=ok),
             lambda: element_apply_plain(A, blk.dofs, blk.scatter, X, coef,
                                         out=op),
-            rtol, library=lambda: torch.addmm(ol, csr, Xc), bounds=bounds,
-            check=check)
+            rtol, bounds=bounds, check=check,
+            library=lambda: torch.addmm(ol.view_as(Xc), csr, Xc))
 
 
 def phase_kernels(dev):
@@ -474,13 +554,117 @@ def phase_kernels_flow(dev):
     return out
 
 
-def read_golden():
-    with open(GOLDEN_CSV, newline="") as f:
+def golden_steps():
+    """The adv-diff grid's cells, diffusivities and step profiles, the
+    steps' mouth values taken from the committed artifact's sulcus rows
+    (as the study takes them from its own sulcus batch)."""
+    from fenics_eff_uptake_tpu_torch.params import StepUptakeOpen
+    from fenics_eff_uptake_tpu_torch.studies.adv_diff import (
+        MU_FACTORS, PE_VALUES, STEP_GAMMA, create_base_parameters)
+    with open(GOLDEN_AD_CSV, newline="") as f:
+        opening = {(float(r["Pe"]), float(r["mu_factor"])):
+                   float(r["mu_eff_open"]) for r in csv.DictReader(f)
+                   if r["domain_type"] == "sulcus"}
+    cells = [(float(pe), float(mf)) for pe in PE_VALUES for mf in MU_FACTORS]
+    p = create_base_parameters(cells[0][0], 1.0, 0.02)
+    steps = [StepUptakeOpen(
+        mu_base=mf, mu_eff_target=opening[(pe, mf)],
+        sulcus_left_x=p.L / 2 - p.sulci_w / 2,
+        sulcus_right_x=p.L / 2 + p.sulci_w / 2, L_c=0.1 * p.sulci_w,
+        Gamma=STEP_GAMMA) for pe, mf in cells]
+    return p, [1.0 / pe for pe, _ in cells], steps
+
+
+def rect_step_setup(dev):
+    """The adv-diff study's rectangle batch, up to the solve: the mesh, its
+    Stokes velocity, the advective system, the 9 columns' fine Robin batch
+    and the step-mu hierarchy.  Returns (sys, ml, robin_matrices, D)."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.parallel.sweep import (
+        build_transport_system, robin_matrices_for_mu)
+    from fenics_eff_uptake_tpu_torch.solvers.multilevel import (
+        build_multilevel_for)
+    from fenics_eff_uptake_tpu_torch.studies.common import (
+        make_mesh, stokes_for_study)
+    p, D, steps = golden_steps()
+    mesh = make_mesh(p, "rectangular")
+    u, _ = stokes_for_study(mesh, p.H, dev)
+    sys_ = build_transport_system(mesh, dev, u_values=u.values,
+                                  u_space=u.space)
+    Rb = torch.stack([robin_matrices_for_mu(sys_, s) for s in steps])
+    ml = build_multilevel_for(sys_, mesh, D, u_fine=u, mu_callables=steps,
+                              robin_matrices_fine=Rb)
+    return sys_, ml, Rb, D
+
+
+def phase_kernels_advdiff(dev):
+    """Kernel C's per-sample form at the adv-diff path's shapes (the
+    rectangle at h = 0.02, B = 9): the fine Robin batch in f64 (the true
+    residuals'; out= and full) and in f32 (every inner apply and fine
+    smoothing), and both mid levels' batches in f32 (their smoothing).
+    f64 1e-12, f32 2e-5 (summation order), as C's other cases."""
+    import torch
+    sys_, ml, Rb, D = rect_step_setup(dev)
+    B = len(D)
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(n, dtype):
+        return torch.rand((n, B), generator=g, device=dev,
+                          dtype=dtype) * 2 - 1
+
+    fine = ml.levels[0].R_batch
+    cases = []
+    for label, blk, dtype, rtol, form in (
+            ("f64 R", fine, torch.float64, 1e-12, "out"),
+            ("f64 R", fine, torch.float64, 1e-12, "full"),
+            ("f32 R", fine, torch.float32, 2e-5, "out"),
+            ("f32 mid R", ml.levels[1].R_batch, torch.float32, 2e-5, "out"),
+            ("f32 mid2 R", ml.levels[2].R_batch, torch.float32, 2e-5,
+             "out")):
+        cases.append(element_case(label, blk, rnd(blk.ndofs, dtype), None,
+                                  rtol, form))
+    del sys_, ml, Rb
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _csv_rows(path):
+    with open(path, newline="") as f:
         return list(csv.DictReader(f))
 
 
+def _worst(tag, got, want, rel_cols, abs_cols=None):
+    """Worst error per column of ``got`` rows (dicts of numbers) against
+    ``want`` (the artifact's rows, text), both keyed alike: ``rel_cols``
+    relative, ``abs_cols`` {column: scale(want row)} absolute over that
+    scale.  Raises on a column above 1e-6."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"rows {sorted(got)} vs golden {sorted(want)}")
+    worst = {c: 0.0 for c in (*rel_cols, *(abs_cols or {}))}
+    for key, r in got.items():
+        gr = want[key]
+        for col in worst:
+            if gr[col] == "":
+                if r.get(col) is not None:
+                    raise AssertionError(f"{key} {col}: {r[col]} where the "
+                                         "artifact has none")
+                continue
+            v, ref = float(r[col]), float(gr[col])
+            if not np.isfinite(v):
+                raise AssertionError(f"{key} {col}: {v}")
+            scale = abs(ref) if col in rel_cols else abs_cols[col](gr)
+            worst[col] = max(worst[col], abs(v - ref) / scale)
+    for col, e in worst.items():
+        print(f"[{tag}] {col}: worst diff vs golden {e:.3e} (tol 1e-6)",
+              flush=True)
+    bad = {k: v for k, v in worst.items() if not v <= 1e-6}
+    if bad:
+        raise AssertionError(f"CSV columns off the golden artifact: {bad}")
+    return worst
+
+
 def check_against_golden(rows, stats):
-    golden = read_golden()
+    golden = _csv_rows(GOLDEN_CSV)
     if len(rows) != len(golden):
         raise AssertionError(f"{len(rows)} rows vs {len(golden)} golden")
     if stats["cells"] != BENCH_CELLS:
@@ -507,34 +691,49 @@ def check_against_golden(rows, stats):
     return worst
 
 
-def zero_launches(kernels):
-    for k in kernels.values():
-        k.launches = 0
-    kernels["element_apply"].launches_out = 0
-
-
-def read_launches(kernels):
-    """Launch counts by kernel; kernel C's split by form too (the keys
-    ``element_apply full`` and ``element_apply out``)."""
-    out = {name: k.launches for name, k in kernels.items()}
-    c = kernels["element_apply"]
-    out["element_apply full"] = c.launches - c.launches_out
-    out["element_apply out"] = c.launches_out
-    return out
-
-
-def phase_slice(dev):
+def zero_launches():
+    """Set every wrapper's launch count to 0."""
     from fenics_eff_uptake_tpu_torch.ops.banded import (band_apply,
                                                         rect_band_apply)
     from fenics_eff_uptake_tpu_torch.ops.elemspmv import ElementKernel
+    band_apply.launches = rect_band_apply.launches = 0
+    ElementKernel.launches = ElementKernel.launches_out = 0
+    ElementKernel.launches_sample = 0
+
+
+PER_SAMPLE = "element_apply per-sample"
+
+
+def read_launches():
+    """Launch counts by kernel; kernel C's split by form too (the keys
+    ``element_apply full`` and ``element_apply out``), and its per-sample
+    launches (of either form) among them."""
+    from fenics_eff_uptake_tpu_torch.ops.banded import (band_apply,
+                                                        rect_band_apply)
+    from fenics_eff_uptake_tpu_torch.ops.elemspmv import ElementKernel
+    return {"band_apply": band_apply.launches,
+            "rect_band_apply": rect_band_apply.launches,
+            "element_apply": ElementKernel.launches,
+            "element_apply out": ElementKernel.launches_out,
+            "element_apply full": (ElementKernel.launches
+                                   - ElementKernel.launches_out),
+            PER_SAMPLE: ElementKernel.launches_sample}
+
+
+def never_launched(launches, per_sample=False):
+    """Names of the kernels a path never launched; C's per-sample form
+    counts only on a path that has per-sample blocks."""
+    return [n for n, c in launches.items()
+            if c <= 0 and (per_sample or n != PER_SAMPLE)]
+
+
+def phase_slice(dev):
     from fenics_eff_uptake_tpu_torch.studies.phase_a import run_mu_sweep
 
-    kernels = {"band_apply": band_apply, "rect_band_apply": rect_band_apply,
-               "element_apply": ElementKernel}
-    zero_launches(kernels)
+    zero_launches()
     rows, stats = run_mu_sweep(dev, 0.02, base_dir=str(OUT_DIR / "first"),
                                verbose=True)
-    launches = read_launches(kernels)
+    launches = read_launches()
     print(f"[slice] launches in the first run: {launches}", flush=True)
     rows2, stats2 = run_mu_sweep(dev, 0.02,
                                  base_dir=str(OUT_DIR / "steady"),
@@ -549,7 +748,7 @@ def phase_slice(dev):
               f"{s['total_s'] / B_SWEEP:.4f} s/point", flush=True)
     print(f"[slice] iters {stats['iters']} passes {stats['passes']} "
           f"max_rel_resnorm {max(stats['rel_resnorm']):.3e}", flush=True)
-    missing = [n for n, c in launches.items() if c <= 0]
+    missing = never_launched(launches)
     if missing:
         raise AssertionError(f"kernels never launched by the sweep: "
                              f"{missing}")
@@ -574,59 +773,33 @@ def phase_slice(dev):
 def check_no_uptake_golden(rows):
     """The six rows (reference sulcus and rectangle, each Pe) against the
     committed artifact's; returns the worst error per column."""
-    with open(GOLDEN_NU_CSV, newline="") as f:
-        golden = [r for r in csv.DictReader(f)
-                  if r["Domain"] == "rectangle"
-                  or (r["Sulcus Width (mm)"], r["Sulcus Depth (mm)"])
-                  == ("0.5", "1.0")]
+    golden = [r for r in _csv_rows(GOLDEN_NU_CSV)
+              if r["Domain"] == "rectangle"
+              or (r["Sulcus Width (mm)"], r["Sulcus Depth (mm)"])
+              == ("0.5", "1.0")]
 
     def key(r):
         return r["Domain"], round(float(r["Peclet"]), 9)
 
-    want = {key(r): r for r in golden}
-    got = {key(r): r for r in rows}
-    if len(want) != 6 or sorted(got) != sorted(want):
-        raise AssertionError(f"rows {sorted(got)} vs golden {sorted(want)}")
-    q_in = {pe: abs(float(r["Mouth Q_in"]))
-            for (dom, pe), r in want.items() if dom == "sulcus"}
-    worst = {c: 0.0 for c in NU_REL_COLUMNS + NU_NET_COLUMNS}
-    for (dom, pe), r in got.items():
-        gr = want[(dom, pe)]
-        for col in worst:
-            if gr[col] == "":
-                if r[col] is not None:
-                    raise AssertionError(f"{dom} Pe={pe} {col}: {r[col]} "
-                                         "where the artifact has none")
-                continue
-            v, ref = float(r[col]), float(gr[col])
-            if not np.isfinite(v):
-                raise AssertionError(f"{dom} Pe={pe} {col}: {v}")
-            scale = q_in[pe] if col in NU_NET_COLUMNS else abs(ref)
-            worst[col] = max(worst[col], abs(v - ref) / scale)
-    for col, e in worst.items():
-        scale = "of |Q_in|" if col in NU_NET_COLUMNS else "rel"
-        print(f"[no_uptake] {col}: worst diff vs golden {e:.3e} "
-              f"({scale}, tol 1e-6)", flush=True)
-    bad = {k: v for k, v in worst.items() if not v <= 1e-6}
-    if bad:
-        raise AssertionError(f"CSV columns off the golden artifact: {bad}")
-    return worst
+    if len(golden) != 6:
+        raise AssertionError(f"{len(golden)} golden rows, not 6")
+    q_in = {key(r)[1]: abs(float(r["Mouth Q_in"]))
+            for r in golden if r["Domain"] == "sulcus"}
+    return _worst("no_uptake", {key(r): r for r in rows},
+                  {key(r): r for r in golden}, NU_REL_COLUMNS,
+                  {col: lambda gr: q_in[key(gr)[1]]
+                   for col in NU_NET_COLUMNS})
 
 
 def phase_no_uptake(dev):
-    from fenics_eff_uptake_tpu_torch.ops.banded import (band_apply,
-                                                        rect_band_apply)
-    from fenics_eff_uptake_tpu_torch.ops.elemspmv import ElementKernel
     from fenics_eff_uptake_tpu_torch.studies.no_uptake import \
         run_geometry_study
 
-    kernels = {"band_apply": band_apply, "rect_band_apply": rect_band_apply,
-               "element_apply": ElementKernel}
-    zero_launches(kernels)
+    zero_launches()
     rows, stats = run_geometry_study(["reference"], PECLET, 0.02,
                                      base_dir=str(OUT_DIR / "nu_first"),
                                      device=dev)
-    launches = read_launches(kernels)
+    launches = read_launches()
     print(f"[no_uptake] launches in the first run: {launches}", flush=True)
     rows2, stats2 = run_geometry_study(["reference"], PECLET, 0.02,
                                        base_dir=str(OUT_DIR / "nu_steady"),
@@ -646,7 +819,7 @@ def phase_no_uptake(dev):
               f"{s['stokes_rel_resnorm']:.3e}; BiCGStab iters {s['iters']} "
               f"in {s['passes']} passes, max rel residual "
               f"{max(s['rel_resnorm']):.3e}", flush=True)
-    missing = [n for n, c in launches.items() if c <= 0]
+    missing = never_launched(launches)
     if missing:
         raise AssertionError(f"kernels never launched by the no-uptake "
                              f"study: {missing}")
@@ -670,6 +843,162 @@ def phase_no_uptake(dev):
     if rows2 != rows:
         raise AssertionError("steady run's rows differ from the first's")
     return launches, stats, stats2, worst
+
+
+def phase_adv_diff(dev):
+    from fenics_eff_uptake_tpu_torch.studies import adv_diff
+
+    # the study's two transport batches (sulcus, then rectangle) are told
+    # apart by reading the counts around each of its transport_batch calls
+    batch_launches = []
+    transport_batch = adv_diff.transport_batch
+
+    def counted(*args, **kwargs):
+        n0 = read_launches()
+        out = transport_batch(*args, **kwargs)
+        batch_launches.append({k: v - n0[k]
+                               for k, v in read_launches().items()})
+        return out
+
+    adv_diff.transport_batch = counted
+    try:
+        zero_launches()
+        rows, stats = adv_diff.run_advdiff_step_validation(
+            str(OUT_DIR / "ad_first"), 0.02, device=dev)
+        launches = read_launches()
+        print(f"[adv_diff] launches in the first run: {launches}",
+              flush=True)
+        rows2, stats2 = adv_diff.run_advdiff_step_validation(
+            str(OUT_DIR / "ad_steady"), 0.02, device=dev, verbose=False)
+    finally:
+        adv_diff.transport_batch = transport_batch
+    if len(batch_launches) != 4:
+        raise AssertionError(f"{len(batch_launches)} transport batches in "
+                             "two runs of the study, not 4")
+    for s, n in zip(stats + stats2, batch_launches):
+        s["launches"] = n
+    for tag, st in (("first", stats), ("steady", stats2)):
+        for s in st:
+            print(f"[adv_diff] {tag} {s['domain']} ({s['cells']} cells, "
+                  f"{s['ndofs']} P2 dofs): mesh {s['mesh_s']:.3f}s "
+                  f"stokes_setup {s['stokes_setup_s']:.3f}s stokes_solve "
+                  f"{s['stokes_solve_s']:.3f}s assembly "
+                  f"{s['assembly_s']:.3f}s ml_setup {s['ml_setup_s']:.3f}s "
+                  f"solve {s['solve_s']:.3f}s metrics {s['metrics_s']:.3f}s "
+                  f"total {s['total_s']:.3f}s", flush=True)
+    for s in stats:
+        print(f"[adv_diff] {s['domain']}: MINRES {s['minres_iters']} iters "
+              f"in {s['minres_passes']} passes, rel residual "
+              f"{s['stokes_rel_resnorm']:.3e}; BiCGStab iters {s['iters']} "
+              f"in {s['passes']} passes, max rel residual "
+              f"{max(s['rel_resnorm']):.3e}; launches {s['launches']}",
+              flush=True)
+    missing = never_launched(launches, per_sample=True)
+    if missing:
+        raise AssertionError(f"kernels never launched by the adv-diff "
+                             f"study: {missing}")
+    for s in stats + stats2:
+        if not s["multilevel"]:
+            raise AssertionError("the transport solve did not use the "
+                                 "multigrid path")
+        if not s["stokes_rel_resnorm"] <= 1e-9:
+            raise AssertionError(f"Stokes rel residual "
+                                 f"{s['stokes_rel_resnorm']:.3e} > 1e-9")
+        if not max(s["rel_resnorm"]) <= 1e-11:
+            raise AssertionError(f"{s['domain']} transport rel residual "
+                                 f"{max(s['rel_resnorm']):.3e} > 1e-11")
+        if not s["minres_iters"] <= MINRES_BOUND:
+            raise AssertionError(f"MINRES iterations {s['minres_iters']} > "
+                                 f"{MINRES_BOUND}")
+        bound = AD_BICGSTAB_BOUND[s["domain"]]
+        if not all(i <= b for i, b in zip(s["iters"], bound)):
+            raise AssertionError(f"{s['domain']} BiCGStab iterations "
+                                 f"{s['iters']} above {bound}")
+        # A and B by both batches; C's per-sample form by the rectangle's,
+        # and by it alone (the sulcus batch shares one Robin block)
+        n = s["launches"]
+        rect = s["domain"] == "rectangular"
+        if (n["band_apply"] <= 0 or n["rect_band_apply"] <= 0
+                or n["element_apply out"] <= 0
+                or (n[PER_SAMPLE] > 0) != rect):
+            raise AssertionError(f"{s['domain']} batch launches: {n}")
+
+    def key(r):
+        return (round(float(r["Pe"]), 9), round(float(r["mu_factor"]), 9),
+                r["domain_type"])
+
+    def flux(gr):
+        return abs(float(gr["total_flux"]))
+
+    golden = _csv_rows(GOLDEN_AD_CSV)
+    if len(rows) != 18 or len(golden) != 18:
+        raise AssertionError(f"{len(rows)} rows vs {len(golden)} golden")
+    worst = _worst("adv_diff", {key(r): r for r in rows},
+                   {key(r): r for r in golden}, AD_REL_COLUMNS,
+                   {"advective_flux": flux,
+                    "flux_error_pct": lambda gr: 100.0})
+    if rows2 != rows:
+        raise AssertionError("steady run's rows differ from the first's")
+    return launches, stats, stats2, worst
+
+
+def phase_no_adv_studies(dev):
+    """Phase-A's mu_eff study and Phase-B on two geometries, against the
+    committed artifacts' rows."""
+    from fenics_eff_uptake_tpu_torch.studies.phase_a import (
+        run_mu_eff_analysis)
+    from fenics_eff_uptake_tpu_torch.studies.phase_b import (
+        run_no_adv_mu_sweep)
+
+    zero_launches()
+    me_rows, me_stats = run_mu_eff_analysis(
+        dev, base_dir=str(OUT_DIR / "mu_eff"), verbose=False)
+    pb_rows, pb_stats = run_no_adv_mu_sweep(
+        dev, str(OUT_DIR / "phase_b"), geometries=PB_GEOMETRIES,
+        verbose=False)
+    launches = read_launches()
+    print(f"[no_adv_studies] launches: {launches}", flush=True)
+    stats = [dict(me_stats, study="mu_eff")] + [
+        dict(s, study=f"phase_b {s['geometry']} {s['domain']}")
+        for s in pb_stats]
+    for s in stats:
+        print(f"[no_adv_studies] {s['study']} ({s['cells']} cells): mesh "
+              f"{s['mesh_s']:.3f}s assembly {s['assembly_s']:.3f}s ml_setup "
+              f"{s['ml_setup_s']:.3f}s solve {s['solve_s']:.3f}s metrics "
+              f"{s['metrics_s']:.3f}s total {s['total_s']:.3f}s; CG iters "
+              f"{s['iters']} in {s['passes']} passes, max rel residual "
+              f"{max(s['rel_resnorm']):.3e}", flush=True)
+        if not s["multilevel"]:
+            raise AssertionError(f"{s['study']} did not use the multigrid "
+                                 "path")
+        if not max(s["rel_resnorm"]) <= 1e-11:
+            raise AssertionError(f"{s['study']}: rel residual "
+                                 f"{max(s['rel_resnorm']):.3e} > 1e-11")
+        if not max(s["iters"]) <= CG_BOUND:
+            raise AssertionError(f"{s['study']}: CG iterations "
+                                 f"{s['iters']} > {CG_BOUND}")
+    missing = never_launched(launches)
+    if missing:
+        raise AssertionError(f"kernels never launched by the no-advection "
+                             f"studies: {missing}")
+    worst = _worst("no_adv_studies mu_eff",
+                   {r["Config"]: r for r in me_rows},
+                   {r["Config"]: r for r in _csv_rows(GOLDEN_MUEFF_CSV)},
+                   MUEFF_COLUMNS)
+
+    def key(r):
+        return r["geometry"], round(float(r["mu_factor"]), 9)
+
+    golden = [r for r in _csv_rows(GOLDEN_PB_CSV)
+              if r["geometry"] in PB_GEOMETRIES]
+    if len(pb_rows) != 6 or len(golden) != 6:
+        raise AssertionError(f"{len(pb_rows)} Phase-B rows vs "
+                             f"{len(golden)} golden")
+    worst.update(_worst("no_adv_studies phase_b",
+                        {key(r): r for r in pb_rows},
+                        {key(r): r for r in golden}, PB_COLUMNS,
+                        {"flux_error_pct": lambda gr: 100.0}))
+    return launches, stats, worst
 
 
 def _cprofile(tag, fn):
@@ -737,8 +1066,9 @@ def _device_profile(tag, fn):
 def phase_profile(dev):
     """Host cProfile of one steady mu sweep and one steady no-uptake study
     (reference geometry and rectangle); device profiles of one steady
-    mu-sweep CG solve, one Stokes saddle solve and one BiCGStab solve of
-    the reference geometry."""
+    mu-sweep CG solve, one Stokes saddle solve, one BiCGStab solve of
+    the reference geometry, and the step-mu BiCGStab solve of the adv-diff
+    study's rectangle batch."""
     import torch
     from fenics_eff_uptake_tpu_torch.models.stokes_flow import (
         saddle_solve, stokes_setup)
@@ -789,6 +1119,11 @@ def phase_profile(dev):
     _device_profile("bicgstab", lambda: solve_sweep(sys_, D, mu0,
                                                     multilevel=ml))
     del sys_, ml
+    # the adv-diff study's rectangle batch: 9 columns, per-sample Robin
+    sys_, ml, Rb, D = rect_step_setup(dev)
+    _device_profile("bicgstab_stepmu", lambda: solve_sweep(
+        sys_, D, multilevel=ml, robin_matrices=Rb))
+    del sys_, ml, Rb
     torch.cuda.empty_cache()
 
 
@@ -819,28 +1154,36 @@ def main(argv=None):
     cases = phase_kernels(dev)
     for name, cs in phase_kernels_flow(dev).items():
         cases[name] += cs
+    cases[PER_SAMPLE] = phase_kernels_advdiff(dev)
     launches, stats, stats2, worst = phase_slice(dev)
     nu_launches, nu_stats, nu_stats2, nu_worst = phase_no_uptake(dev)
+    ad_launches, ad_stats, ad_stats2, ad_worst = phase_adv_diff(dev)
+    na_launches, na_stats, na_worst = phase_no_adv_studies(dev)
     if args.profile:
         phase_profile(dev)
 
+    # the per-sample form is kernel C's source and its own row: the JAX
+    # package has no Pallas kernel for it, only the unrolled multiply-adds
+    # of _Block.apply_batched
     meta = {
         "band_apply": ("band_apply.cu", f"{PALLAS}:155"),
         "rect_band_apply": ("band_apply.cu", f"{PALLAS}:274"),
         "element_apply": ("element_apply.cu", f"{PALLAS}:51"),
+        PER_SAMPLE: ("element_apply.cu", f"{JAX_SWEEP}:104"),
     }
+    by_path = {"mu_sweep": launches, "no_uptake": nu_launches,
+               "adv_diff": ad_launches, "no_adv_studies": na_launches}
     kernels = []
     for name, (src, replaces) in meta.items():
         cs = cases[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"{CSRC}/{src}",
             "replaces": replaces,
-            "launches": launches[name] + nu_launches[name],
-            "launches_by_path": {"mu_sweep": launches[name],
-                                 "no_uptake": nu_launches[name]},
+            "launches": sum(n[name] for n in by_path.values()),
+            "launches_by_path": {k: n[name] for k, n in by_path.items()},
             **({"launches_by_form": {
-                form: launches[f"{name} {form}"]
-                + nu_launches[f"{name} {form}"] for form in ("full", "out")}}
+                form: sum(n[f"{name} {form}"] for n in by_path.values())
+                for form in ("full", "out")}}
                if name == "element_apply" else {}),
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "max_rel_err": max(c["max_rel_err"] for c in cs),
@@ -851,6 +1194,10 @@ def main(argv=None):
                "first": stats, "steady": stats2, "golden_worst": worst,
                "no_uptake_first": nu_stats, "no_uptake_steady": nu_stats2,
                "no_uptake_golden_worst": nu_worst,
+               "adv_diff_first": ad_stats, "adv_diff_steady": ad_stats2,
+               "adv_diff_golden_worst": ad_worst,
+               "no_adv_studies": na_stats,
+               "no_adv_studies_golden_worst": na_worst,
                "wall_s": time.time() - t_start}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))

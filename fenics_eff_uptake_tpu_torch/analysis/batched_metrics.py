@@ -10,8 +10,10 @@ With a velocity ``u`` (shared by the batch: the nondimensional Stokes field
 is Pe-independent) its normal traces u . n are baked into per-facet-set
 (F, Q) tables, and the advective fluxes u.n c fill the ``adv_*`` entries
 (zero without it, as in the JAX package); per-sample diffusivities
-``D_values`` scale the diffusive fluxes of Pe sweeps.  Per-sample mu(x)
-tables (step-mu studies) are not ported yet.
+``D_values`` scale the diffusive fluxes of Pe sweeps.  Per-sample uptake
+profiles ``mu_profiles`` (the step-mu studies) are baked in as (B, F, Q)
+tables of mu_b(x) at the bottom wall's quadrature points; the uptake
+integrals then take them in place of the runtime ``mu_vec``.
 """
 
 from __future__ import annotations
@@ -78,10 +80,11 @@ def _integral(qw, fq: _FQ, density):
 
 
 def build_sweep_metrics(space: FunctionSpace, mesh: MeshData, D,
-                        device, u=None) -> SweepMetrics:
+                        device, u=None, mu_profiles=None) -> SweepMetrics:
     """The all-metrics function of a sweep with default diffusivity ``D``
     and, optionally, the velocity Function ``u`` (numpy values on a P2
-    vector space of the same mesh)."""
+    vector space of the same mesh) and the B columns' uptake profiles
+    ``mu_profiles`` (vectorised callables mu_b(x))."""
     device = torch.device(device)
     raw = {}
     for name in ("left", "right", "top", "bottom"):
@@ -103,6 +106,16 @@ def build_sweep_metrics(space: FunctionSpace, mesh: MeshData, D,
                 un = np.einsum("fqa,fa->fq", fq.eval_vector(u.values, u.space),
                                fq.normal)
                 un_tab[name] = torch.as_tensor(un, device=device)
+    # per-sample mu(x) at the uptake walls' quadrature points, (B, F, Q);
+    # None where the wall has no facets (its uptake is zero)
+    mu_tab = {}
+    if mu_profiles is not None:
+        for name in ["bottom"] + (["bottom_left", "sulcus", "bottom_right"]
+                                  if is_sulcus else []):
+            fq = raw.get(name)
+            mu_tab[name] = None if fq is None else torch.as_tensor(
+                np.stack([np.asarray(m(fq.x[:, :, 0]), dtype=np.float64)
+                          for m in mu_profiles]), device=device)
     qw_f = next(torch.as_tensor(v.qw, dtype=torch.float64, device=device)
                 for v in raw.values() if v is not None)
 
@@ -135,18 +148,23 @@ def build_sweep_metrics(space: FunctionSpace, mesh: MeshData, D,
             return (_integral(qw_f, fq, dd),
                     zeros if ad is None else _integral(qw_f, fq, ad), dd, ad)
 
+        def uptake(name):
+            fq = quads.get(name)
+            if fq is None:
+                return zeros
+            cq = _eval(fq, X)
+            if name in mu_tab:
+                mt = mu_tab[name]
+                return zeros if mt is None else _integral(qw_f, fq, mt * cq)
+            return mu_vec * _integral(qw_f, fq, cq)
+
         for name in ("left", "right", "top", "bottom"):
             out[f"flux_{name}"], out[f"adv_{name}"] = flux(name)[:2]
-        fb = quads.get("bottom")
-        out["uptake_bottom"] = (mu_vec * _integral(qw_f, fb, _eval(fb, X))
-                                if fb is not None else zeros)
+        out["uptake_bottom"] = uptake("bottom")
         if is_sulcus:
             for name in ("bottom_left", "sulcus", "bottom_right"):
-                fq = quads.get(name)
                 out[f"flux_{name}"], out[f"adv_{name}"] = flux(name)[:2]
-                out[f"uptake_{name}"] = (
-                    mu_vec * _integral(qw_f, fq, _eval(fq, X))
-                    if fq is not None else zeros)
+                out[f"uptake_{name}"] = uptake(name)
             fy = quads.get("y0_ext")
             mq = quads.get("mouth")
             out["flux_y0_ext"], out["adv_y0_ext"] = flux("y0_ext")[:2]

@@ -29,6 +29,7 @@ class FacetQuad(NamedTuple):
     qw: np.ndarray            # (Q,)
     cell_dofs: np.ndarray     # (F, nd)
     cells: np.ndarray         # (F,) owner cells
+    x: np.ndarray             # (F, Q, 2) physical quadrature points
 
     def eval_vector(self, values, vspace: FunctionSpace):
         """Interleaved vector field (numpy values on ``vspace``, same mesh)
@@ -77,7 +78,12 @@ def build_facet_quad(space: FunctionSpace, cells_f, local_edges,
     lens = np.linalg.norm(d, axis=1)
     n = np.stack([d[:, 1], -d[:, 0]], axis=1) / np.maximum(
         lens[:, None], 1e-300)
+    ev = np.array([_EDGE_VERTS[i] for i in range(3)])[le]
+    va = mesh.vertices[mesh.cells[cells_f, ev[:, 0]]]
+    vb = mesh.vertices[mesh.cells[cells_f, ev[:, 1]]]
+    x = ((1.0 - t)[None, :, None] * va[:, None, :]
+         + t[None, :, None] * vb[:, None, :])
     return FacetQuad(phi=phi, grad=grad, normal=n, length=lens,
                      qw=np.asarray(w),
                      cell_dofs=np.asarray(space.cell_dofs)[cells_f],
-                     cells=cells_f)
+                     cells=cells_f, x=x)

@@ -1,5 +1,5 @@
-"""Closed-form mu_eff estimators (from the JAX package's
-``analysis/mu_eff.py``, whose module imports jax):
+"""Closed-form mu_eff estimators and the bottom-wall mu(x) sampler (from
+the JAX package's ``analysis/mu_eff.py``, whose module imports jax):
 
   arc : mu * (1 + (L_arc - w) / L), L_arc the sine-curve arc length
   enh : mu * ((L - w)/L + (w/L) / sqrt(1 + kappa mu h^2 / w)), kappa = 10
@@ -11,7 +11,8 @@ import numpy as np
 
 from ..fem.quadrature import gauss_legendre_01
 
-__all__ = ["sulcus_arc_length", "compute_mu_eff_arc", "compute_mu_eff_enh"]
+__all__ = ["sulcus_arc_length", "compute_mu_eff_arc", "compute_mu_eff_enh",
+           "sample_mu_along_bottom"]
 
 
 def sulcus_arc_length(w, h, panels=32, order=10):
@@ -41,3 +42,24 @@ def compute_mu_eff_enh(params, kappa=10.0):
         return None
     f = 1.0 / np.sqrt(1.0 + kappa * mu * h ** 2 / w)
     return float(mu * ((L - w) / L + (w / L) * f))
+
+
+def sample_mu_along_bottom(params, mesh, n_points=500):
+    """mu(x) on ``n_points`` equispaced x over the mesh's extent: a scalar
+    ``params.mu`` repeated, a callable evaluated.  Returns the arrays ``x``
+    and ``mu`` and the scalars ``mu_mean`` (trapezoid rule over the
+    extent), ``mu_min``, ``mu_max``."""
+    mu_obj = params.mu
+    xs = np.linspace(float(mesh.vertices[:, 0].min()),
+                     float(mesh.vertices[:, 0].max()), int(n_points))
+    if np.isscalar(mu_obj):
+        mus = np.full_like(xs, float(mu_obj))
+    else:
+        mus = np.asarray(mu_obj(xs), dtype=np.float64)
+    if len(xs) > 1:
+        mean = float(np.sum(0.5 * (mus[1:] + mus[:-1]) * np.diff(xs))
+                     / (xs[-1] - xs[0]))
+    else:
+        mean = float(mus.mean())
+    return {"x": xs, "mu": mus, "mu_mean": mean,
+            "mu_min": float(mus.min()), "mu_max": float(mus.max())}

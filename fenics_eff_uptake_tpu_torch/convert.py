@@ -26,7 +26,8 @@ from .solvers.multilevel import (Level, MultilevelData, Transfer,
                                  TransferBands)
 
 __all__ = ["mesh_from", "space_from", "transport_system_from_arrays",
-           "multilevel_from_arrays", "velocity_from_values"]
+           "robin_batch_from", "multilevel_from_arrays",
+           "velocity_from_values"]
 
 
 def mesh_from(md) -> MeshData:
@@ -101,6 +102,13 @@ def transport_system_from_arrays(d, mesh, element, device) -> TransportSystem:
         iperm=None if iperm is None else np.asarray(iperm))
 
 
+def robin_batch_from(sys: TransportSystem, R_batch) -> _Block:
+    """The per-sample Robin block of a carried system from a JAX
+    (B, F, nd, nd) batch of Robin matrices on its facets (padded as the
+    carried ``sys.R`` is; f32 values are carried exactly)."""
+    return sys.R.per_sample(np.asarray(R_batch, dtype=np.float64))
+
+
 def velocity_from_values(values, mesh) -> Function:
     """The port's velocity field (a Function on the P2 vector space with
     numpy values) from a JAX velocity Function's interleaved values."""
@@ -117,7 +125,9 @@ def multilevel_from_arrays(levels: List[dict], Ainv, free_c, omega, D_vec,
     the transfer's ``t_cols``, ``t_w`` and ``n_coarse``, and its windowed
     bands ``tb_p``, ``tb_po``, ``pad_p``
     (prolongation band, window starts, input rows), ``tb_r``, ``tb_ro``,
-    ``pad_r`` (restriction), ``tb_sig``, ``tb_isig``."""
+    ``pad_r`` (restriction), ``tb_sig``, ``tb_isig``, and, in a step-mu
+    hierarchy, ``R_batch``: the level's (B, F, nd, nd) per-sample Robin
+    matrices (the JAX hierarchy's ``R_batches`` entry)."""
     device = torch.device(device)
 
     def f32(a):
@@ -140,8 +150,11 @@ def multilevel_from_arrays(levels: List[dict], Ainv, free_c, omega, D_vec,
                               sig=idx(lv["tb_sig"]), isig=idx(lv["tb_isig"]),
                               pad_p=int(lv["pad_p"]), pad_r=int(lv["pad_r"]),
                               ps=band_spans(p), rs=band_spans(r))
+        rb = lv.get("R_batch")
         out.append(Level(sys=sys_l, dinv=f32(lv["dinv"]), free=sys_l.free,
-                         transfer=tr, bands=bands))
+                         transfer=tr, bands=bands,
+                         R_batch=None if rb is None
+                         else robin_batch_from(sys_l, rb)))
     return MultilevelData(
         levels=tuple(out), Ainv=f32(Ainv),
         free_c=torch.tensor(np.asarray(free_c, dtype=bool),

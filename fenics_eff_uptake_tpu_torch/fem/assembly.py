@@ -8,7 +8,8 @@ builds the operator block from the pair):
   stiffness (P2 x P2 grads)         quadrature degree 2
   mass (phi phi)                    degree 4
   advection (u . grad phi_j) phi_i  degree 5, u a P2 vector field
-  Robin facet phi phi               degree 4 (1-D Gauss), unit mu
+  Robin facet mu phi phi            degree 4 (1-D Gauss) for unit mu, at
+                                    least 6 for a callable mu(x)
   divergence -psi_k d_b phi_j       degree 3, rectangular (P1 x vector P2)
 
 Meshes, dof maps, quadrature rules and basis tables come from the JAX
@@ -78,9 +79,11 @@ def _divergence_dev(verts, cells, qw, psi, gref):
     return -Bd.reshape(T, npp, 2 * ndu)
 
 
-def _robin_dev(w, tabs, le, lens):
+def _robin_dev(w, mu_q, tabs, le, lens):
     phi_f = tabs[le]
-    return torch.einsum("q,fqi,fqj,f->fij", w, phi_f, phi_f, lens)
+    if mu_q is None:                                   # unit mu
+        return torch.einsum("q,fqi,fqj,f->fij", w, phi_f, phi_f, lens)
+    return torch.einsum("q,fq,fqi,fqj,f->fij", w, mu_q, phi_f, phi_f, lens)
 
 
 def stiffness_block(space: FunctionSpace, device):
@@ -169,16 +172,27 @@ def _edge_tables(element, t):
     return np.stack(tabs, axis=0)
 
 
-def robin_facet_block(space: FunctionSpace, facet_mask, device):
-    """Unit-mu Robin R_f[i,j] = int_f phi_i phi_j ds (the sweep scales it
-    by mu per column; spatially varying mu(x) is not ported yet).
+def robin_facet_block(space: FunctionSpace, facet_mask, device, mu=None):
+    """Robin R_f[i,j] = int_f mu(x) phi_i phi_j ds.
+
+    ``mu`` is None (unit mu: the block the sweep scales per column) or a
+    vectorised callable of the x-coordinates (e.g. ``StepUptakeOpen``),
+    evaluated at all facet quadrature points at once, clamped at 0, and
+    integrated with degree 6 (unit mu: degree 4).
 
     Returns (A_f (F, nd, nd) f64 tensor, owner-cell dofs (F, nd) numpy)."""
     mesh = space.mesh
-    t, w = interval_rule(4)
+    t, w = interval_rule(4 if mu is None else 6)
     _, cells_f, le, ga, gb = _facet_data(space, facet_mask)
-    lens = np.linalg.norm(mesh.vertices[gb] - mesh.vertices[ga], axis=1)
-    R = _robin_dev(_t(w, device),
+    va, vb = mesh.vertices[ga], mesh.vertices[gb]
+    lens = np.linalg.norm(vb - va, axis=1)
+    mu_q = None
+    if mu is not None:
+        xq = ((1.0 - t)[None, :] * va[:, None, 0]
+              + t[None, :] * vb[:, None, 0])               # (F, Q)
+        mu_q = _t(np.maximum(np.asarray(mu(xq), dtype=np.float64), 0.0),
+                  device)
+    R = _robin_dev(_t(w, device), mu_q,
                    _t(_edge_tables(space.element, t), device),
                    torch.as_tensor(le, dtype=torch.long, device=device),
                    _t(lens, device))

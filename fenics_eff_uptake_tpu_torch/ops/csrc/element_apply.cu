@@ -51,6 +51,19 @@
 // accumulate launch covers only its touched rows (the fine Robin block:
 // 2,570 of 102,656 rows), where the full form wrote every row, and its
 // plan takes tiles small enough to give every SM work.
+//
+// The per-sample form (Plan.batch = B > 0) applies one matrix set per
+// column, without coef:
+//     Y[d, b] = sum_{(n,i): dofs[n,i] = d} sum_j A[b,n,i,j] * X[dofs[n,j], b]
+// The JAX package has no Pallas kernel for it (parallel/sweep.py
+// _Block.apply_batched unrolls it into elementwise multiply-adds); the
+// step-mu Robin blocks of the adv-diff study take it (about 500 facets,
+// B = 9).  It runs on the same plan and the same two passes.  A is bound
+// with the batch innermost, (N*nd, nd, B) in sorted-entry order, and is
+// not staged: pass 1 reads a[k, j, b] from global memory, neighbouring
+// threads (columns) at neighbouring addresses, each value used once.  A
+// chunk's A rows in shared memory would be B times the shared form's; these
+// blocks are a few hundred facets and sit at the launch floor either way.
 
 #include <cuda_runtime.h>
 
@@ -73,6 +86,8 @@ struct Plan {
     const int* gaps;      // (n_gaps,) the rows without entries, ascending
     int is_f64, nd, ndofs, n_rows, n_tiles, rows_per_tile, chunk_slots,
         max_chunk, max_elems, max_tile_chunks, n_gaps;
+    int batch;            // 0: A shared by the columns; B > 0: per-sample A
+                          //   (N*nd, nd, B), bound at exactly B columns
 };
 
 // ints per element record: index, nd dofs, nd slots, padded to 16 bytes
@@ -84,11 +99,13 @@ __host__ __device__ constexpr int meta_ints(int nd)
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 
 // shared memory of a block, in this order: element records, row
-// pointers, rows (ints); the chunk's A rows by slot, padded to 16 bytes;
-// slots and partial sums for a column block of bc
+// pointers, rows (ints); the chunk's A rows by slot, padded to 16 bytes
+// (none in the per-sample form); slots and partial sums for a column block
+// of bc
 template <typename T>
 __host__ __device__ long long a_rows_bytes(const Plan& p)
 {
+    if (p.batch > 0) return 0;
     return ((long long)p.max_chunk * p.nd * sizeof(T) + 15) / 16 * 16;
 }
 
@@ -141,7 +158,7 @@ __device__ __forceinline__ void wait_async()
     asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
 
-template <typename T, int ND>
+template <typename T, int ND, bool PS>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 element_tiles_kernel(const Plan p, const T* __restrict__ X,
                      const T* __restrict__ coef, T* Y, int accumulate, int B,
@@ -195,10 +212,13 @@ element_tiles_kernel(const Plan p, const T* __restrict__ X,
         const int* src = p.meta + (long long)e0 * M;
         for (int i = threadIdx.x; i < ne * (M / 4); i += kThreads)
             copy16_async(meta_s + 4 * i, src + 4 * i);
-        const unsigned char* a_chunk = a_src + (long long)clo * ND * sizeof(T);
-        const int n_pieces = (chi - clo) * ND * (int)sizeof(T) / kPiece;
-        for (int i = threadIdx.x; i < n_pieces; i += kThreads)
-            copy_async<kPiece>(a_raw + i * kPiece, a_chunk + i * kPiece);
+        if constexpr (!PS) {
+            const unsigned char* a_chunk =
+                a_src + (long long)clo * ND * sizeof(T);
+            const int n_pieces = (chi - clo) * ND * (int)sizeof(T) / kPiece;
+            for (int i = threadIdx.x; i < n_pieces; i += kThreads)
+                copy_async<kPiece>(a_raw + i * kPiece, a_chunk + i * kPiece);
+        }
         wait_async();
         __syncthreads();
         // 1. each element of the chunk once, one thread per column
@@ -214,10 +234,21 @@ element_tiles_kernel(const Plan p, const T* __restrict__ X,
             for (int i = 0; i < ND; ++i) {
                 const int k = em[1 + ND + i];
                 if (k < 0) continue;
-                const T* a = a_s + k * ND;
-                T s = a[0] * x[0];
+                T s;
+                if constexpr (PS) {
+                    // this column's own row: a[clo + k, :, c0 + bl]
+                    const T* a = static_cast<const T*>(p.A)
+                                 + (long long)(clo + k) * ND * B + c0 + bl;
+                    s = a[0] * x[0];
 #pragma unroll
-                for (int j = 1; j < ND; ++j) s += a[j] * x[j];
+                    for (int j = 1; j < ND; ++j)
+                        s += a[(long long)j * B] * x[j];
+                } else {
+                    const T* a = a_s + k * ND;
+                    s = a[0] * x[0];
+#pragma unroll
+                    for (int j = 1; j < ND; ++j) s += a[j] * x[j];
+                }
                 slots[k * bc + bl] = s;
             }
         }
@@ -256,7 +287,7 @@ element_tiles_kernel(const Plan p, const T* __restrict__ X,
     }
 }
 
-template <typename T, int ND>
+template <typename T, int ND, bool PS>
 cudaError_t launch(const Plan& p, const void* X, const void* coef, void* Y,
                    int accumulate, int B, cudaStream_t stream)
 {
@@ -271,7 +302,7 @@ cudaError_t launch(const Plan& p, const void* X, const void* coef, void* Y,
     static bool attr_set = false;
     if (!attr_set) {
         const cudaError_t err = cudaFuncSetAttribute(
-            element_tiles_kernel<T, ND>,
+            element_tiles_kernel<T, ND, PS>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
         if (err != cudaSuccess) return err;
         attr_set = true;
@@ -281,11 +312,21 @@ cudaError_t launch(const Plan& p, const void* X, const void* coef, void* Y,
     long long n_blocks = p.n_tiles;
     if (!accumulate) n_blocks += (p.n_gaps + kGapRows - 1) / kGapRows;
     const dim3 grid((unsigned)(n_blocks > 0 ? n_blocks : 1), (unsigned)n_cb);
-    element_tiles_kernel<T, ND><<<grid, kThreads,
-                                  (size_t)smem_bytes<T>(p, (int)bc), stream>>>(
+    element_tiles_kernel<T, ND, PS><<<
+        grid, kThreads, (size_t)smem_bytes<T>(p, (int)bc), stream>>>(
         p, static_cast<const T*>(X), static_cast<const T*>(coef),
         static_cast<T*>(Y), accumulate, B, (int)bc);
     return cudaGetLastError();
+}
+
+// the shared or the per-sample kernel, as the plan says
+template <typename T, int ND>
+cudaError_t launch_nd(const Plan& p, const void* X, const void* coef, void* Y,
+                      int accumulate, int B, cudaStream_t stream)
+{
+    if (p.batch > 0)
+        return launch<T, ND, true>(p, X, coef, Y, accumulate, B, stream);
+    return launch<T, ND, false>(p, X, coef, Y, accumulate, B, stream);
 }
 
 template <typename T>
@@ -293,9 +334,9 @@ cudaError_t dispatch_nd(const Plan& p, const void* X, const void* coef,
                         void* Y, int accumulate, int B, cudaStream_t stream)
 {
     switch (p.nd) {
-        case 2: return launch<T, 2>(p, X, coef, Y, accumulate, B, stream);
-        case 3: return launch<T, 3>(p, X, coef, Y, accumulate, B, stream);
-        case 6: return launch<T, 6>(p, X, coef, Y, accumulate, B, stream);
+        case 2: return launch_nd<T, 2>(p, X, coef, Y, accumulate, B, stream);
+        case 3: return launch_nd<T, 3>(p, X, coef, Y, accumulate, B, stream);
+        case 6: return launch_nd<T, 6>(p, X, coef, Y, accumulate, B, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -308,7 +349,8 @@ extern "C" {
 // in the dtype plan->is_f64 selects for A, X, coef and Y.  X (n_x, B),
 // coef (B,) or null, Y (ndofs, B); all contiguous.  accumulate = 0 writes
 // every row of Y; 1 adds into the rows that hold entries and leaves the
-// others as they are.
+// others as they are.  A per-sample plan (plan->batch > 0) takes exactly
+// B = plan->batch columns and a null coef.
 int feu_element_apply(const void* plan, const void* X, const void* coef,
                       void* Y, int accumulate, int B, void* stream)
 {
@@ -316,7 +358,8 @@ int feu_element_apply(const void* plan, const void* X, const void* coef,
     if (B < 1 || p.ndofs < 0 || p.n_tiles < 0 || p.n_gaps < 0
         || p.rows_per_tile < 1 || p.chunk_slots < 1 || p.max_chunk < 0
         || p.max_chunk > p.chunk_slots || p.max_elems < 0
-        || p.max_tile_chunks < 0)
+        || p.max_tile_chunks < 0 || p.batch < 0
+        || (p.batch > 0 && (B != p.batch || coef != nullptr)))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (p.is_f64)

@@ -9,7 +9,10 @@ plus the entity -> dof map, and applied to a batch-minor ``(n, B)`` array:
 Two forms: the full output ``Y`` (every row), and ``out=``, which adds the
 block's result into ``out`` in place (``out[d, b] += ...``) and returns
 it; on the card that form reads and writes only the rows the block
-touches.
+touches.  A per-sample block carries one matrix set per column,
+``A_e (B, N, nd, nd)``, on the same dof map, and takes no ``coef``:
+
+    Y[d, b] = sum_{(e,i): dofs[e,i] = d} sum_j A_e[b,e,i,j] X[dofs[e,j], b]
 
 A CPU tensor takes the plain PyTorch version, :func:`element_apply_plain`
 (gather, einsum, ``index_add_`` in sorted order).  On a CUDA device an
@@ -253,12 +256,20 @@ def planned_segment_sum(vals, plan: SegmentPlan):
 
 def element_apply_plain(A, dofs, scatter: Scatter, X, coef=None, out=None):
     """Plain PyTorch kernel C: gather, einsum, ``index_add_`` in sorted
-    order; with ``out``, ``out += that`` in place (returns ``out``).  Runs
-    on any device; the CPU path and the tests use it."""
+    order; with ``out``, ``out += that`` in place (returns ``out``).  A is
+    (N, nd, nd), shared by the columns, or per-sample (B, N, nd, nd) (then
+    without ``coef``).  Runs on any device; the CPU path and the tests use
+    it."""
     N, nd = dofs.shape
     B = X.shape[1]
     Xe = X[dofs.long()]                                  # (N, nd, B)
-    Ye = torch.einsum("nij,njb->nib", A.to(X.dtype), Xe)
+    if A.dim() == 4:
+        if coef is not None or A.shape[0] != B:
+            raise ValueError(f"per-sample A {tuple(A.shape)} takes X of "
+                             f"{A.shape[0]} columns and no coef")
+        Ye = torch.einsum("bnij,njb->nib", A.to(X.dtype), Xe)
+    else:
+        Ye = torch.einsum("nij,njb->nib", A.to(X.dtype), Xe)
     if coef is not None:
         Ye = Ye * coef.to(X.dtype)
     Y = torch.zeros((scatter.ndofs, B), dtype=X.dtype, device=X.device)
@@ -270,13 +281,10 @@ def element_apply_plain(A, dofs, scatter: Scatter, X, coef=None, out=None):
 def _check_block(A, dofs, scatter: Scatter, dtype=None):
     """Raise unless kernel C can take this block as it is (and, where
     ``dtype`` is given, X of that dtype)."""
-    if A.dim() == 4:
-        raise NotImplementedError(
-            "per-sample (B, N, nd, nd) element matrices are not supported "
-            "by the CUDA element-apply kernel yet")
-    if A.dim() != 3 or A.shape[1] != A.shape[2]:
-        raise ValueError(f"A must be (N, nd, nd), got {tuple(A.shape)}")
-    N, nd = A.shape[0], A.shape[1]
+    if A.dim() not in (3, 4) or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"A must be (N, nd, nd) or (B, N, nd, nd), got "
+                         f"{tuple(A.shape)}")
+    N, nd = A.shape[-3], A.shape[-1]
     if nd not in KERNEL_ND:
         raise ValueError(f"nd={nd} not in {KERNEL_ND}")
     if A.dtype not in (torch.float32, torch.float64) or (
@@ -305,9 +313,11 @@ def _check_block(A, dofs, scatter: Scatter, dtype=None):
             raise ValueError("kernel C needs contiguous tensors")
 
 
-def _check_call(X, coef, out, dtype, device, ndofs, min_rows):
+def _check_call(X, coef, out, dtype, device, ndofs, min_rows, batch=0):
     """Raise unless X, coef and out fit a block of ``ndofs`` rows in
-    ``dtype`` on ``device`` whose dofs need ``min_rows`` rows of X."""
+    ``dtype`` on ``device`` whose dofs need ``min_rows`` rows of X; a
+    per-sample block bound at ``batch`` > 0 columns takes X of exactly
+    that many and no coef."""
     if X.dtype != dtype:
         raise TypeError(f"A and X must share f32 or f64, got {dtype}, "
                         f"{X.dtype}")
@@ -317,6 +327,10 @@ def _check_call(X, coef, out, dtype, device, ndofs, min_rows):
     if B < 1 or n < min_rows:
         raise ValueError(f"X {tuple(X.shape)} needs B >= 1 and at least "
                          f"{min_rows} rows")
+    if batch and (B != batch or coef is not None):
+        raise ValueError(f"a per-sample block bound at B={batch} takes X of "
+                         f"{batch} columns and no coef, got B={B}"
+                         + ("" if coef is None else " with coef"))
     ts = [X]
     if coef is not None:
         if coef.dtype != dtype or tuple(coef.shape) != (B,):
@@ -344,7 +358,7 @@ class _PlanStruct(ctypes.Structure):
         + [(n, ctypes.c_int) for n in (
             "is_f64", "nd", "ndofs", "n_rows", "n_tiles", "rows_per_tile",
             "chunk_slots", "max_chunk", "max_elems", "max_tile_chunks",
-            "n_gaps")])
+            "n_gaps", "batch")])
 
 
 class ElementKernel:
@@ -358,36 +372,52 @@ class ElementKernel:
     returns the full (ndofs, B) output; ``kernel(X, coef, out=Y)`` adds
     into Y's touched rows and returns Y.
 
+    A per-sample block, A (B, N, nd, nd), is bound with its rows in the
+    same sorted-entry order and the batch innermost, (N*nd, nd, B): the
+    kernel reads them from global memory, neighbouring threads (columns)
+    at neighbouring addresses.  It takes X of exactly B columns and no
+    coef, and raises on anything else.
+
     ``ElementKernel.launches`` counts the launches of every bound block,
-    ``ElementKernel.launches_out`` those of the out= form among them."""
+    ``ElementKernel.launches_out`` those of the out= form among them,
+    ``ElementKernel.launches_sample`` those of per-sample blocks (either
+    form) among them."""
 
     launches = 0
     launches_out = 0
+    launches_sample = 0
     __slots__ = ("A_sorted", "scatter", "device", "dtype", "ndofs",
-                 "min_rows", "_plan", "_addr", "_fn", "_index")
+                 "min_rows", "batch", "_plan", "_addr", "_fn", "_index")
 
     def __init__(self, A, dofs, scatter: Scatter):
         _check_block(A, dofs, scatter)
         tp = scatter.tiles
-        nd = A.shape[1]
-        self.A_sorted = A.reshape(-1, nd)[scatter.perm.long()].contiguous()
+        nd = A.shape[-1]
+        perm = scatter.perm.long()
+        if A.dim() == 4:
+            self.batch = A.shape[0]
+            self.A_sorted = (A.permute(1, 2, 3, 0)
+                             .reshape(-1, nd, self.batch)[perm].contiguous())
+        else:
+            self.batch = 0
+            self.A_sorted = A.reshape(-1, nd)[perm].contiguous()
         self.scatter = scatter
         self.device, self.dtype = A.device, A.dtype
         self.ndofs = scatter.ndofs
         self.min_rows = tp.x_rows
         self._plan = _PlanStruct(
             self.A_sorted.data_ptr(), *[x.data_ptr() for x in tp[:6]],
-            int(A.dtype == torch.float64), A.shape[1], scatter.ndofs,
+            int(A.dtype == torch.float64), nd, scatter.ndofs,
             tp.rows.numel(), tp.n_tiles, tp.rows_per_tile, tp.chunk_slots,
             tp.max_chunk, tp.max_elems, tp.max_tile_chunks,
-            tp.gaps.numel())
+            tp.gaps.numel(), self.batch)
         self._addr = ctypes.addressof(self._plan)
         self._fn = None
         self._index = A.device.index
 
     def __call__(self, X, coef=None, out=None):
         _check_call(X, coef, out, self.dtype, self.device, self.ndofs,
-                    self.min_rows)
+                    self.min_rows, self.batch)
         if self._fn is None:
             self._fn = _build.library().feu_element_apply
         B = X.shape[1]
@@ -402,5 +432,6 @@ class ElementKernel:
         ElementKernel.launches += 1
         if out is not None:
             ElementKernel.launches_out += 1
+        if self.batch:
+            ElementKernel.launches_sample += 1
         return Y
-

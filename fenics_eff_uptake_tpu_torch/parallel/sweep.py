@@ -5,6 +5,9 @@ factored out,
 
     A(D, mu) = D * K + Adv + R(mu),    R(mu) = mu * R_unit,
 
+or, for a spatially varying mu_b(x) per column (the step-mu studies), R_b a
+per-sample batch of Robin facet matrices on R_unit's facets
+(``robin_matrices_for_mu``, ``solve_sweep(robin_matrices=)``);
 with Adv the advection by one fixed velocity field (the nondimensional
 Stokes field is Pe-independent, so one velocity feeds every Pe column), and
 all B sweep columns are solved at once in the batch-minor ``(n, B)`` layout.
@@ -25,7 +28,8 @@ Operator applies by precision:
                                             bands), R through kernel C
 
 R is added last, in place, into the rows it touches (kernel C's ``out=``
-form), with the rounding of the separate apply and add.
+form, shared or per-sample), with the rounding of the separate apply and
+add.
 
 Convergence of the inner iteration is tested on the host once per
 iteration (``any(|r_b| > tol_b)``), one device sync each; the ``active``
@@ -52,9 +56,9 @@ from ..ops.elemspmv import (ElementKernel, Scatter, element_apply_plain,
                             planned_segment_sum)
 
 __all__ = ["TransportSystem", "build_transport_system", "system_to",
-           "unpermute_columns", "OperatorArgs", "operator_args",
-           "apply_operator", "operator_rhs", "fine_dinv", "solve_sweep",
-           "BAND_TILE"]
+           "unpermute_columns", "robin_matrices_for_mu", "OperatorArgs",
+           "operator_args", "apply_operator", "operator_rhs", "fine_dinv",
+           "solve_sweep", "BAND_TILE"]
 
 # rows per band tile; systems are padded to a multiple of it (and to
 # nothing else)
@@ -72,7 +76,9 @@ CHEAP_PASSES = 1
 class _Block(NamedTuple):
     """One element block: f64 and f32 entity matrices + scatter and tile
     plans; on a CUDA device also kernel C bound to each precision (its
-    fixed tensors checked once, where the block is made)."""
+    fixed tensors checked once, where the block is made).  The matrices
+    are (N, nd, nd), shared by the columns, or (B, N, nd, nd), one set per
+    column (``per_sample``)."""
     A64: torch.Tensor
     A32: torch.Tensor
     dofs: torch.Tensor        # (N, nd) int32
@@ -100,14 +106,25 @@ class _Block(NamedTuple):
                                       device=dev),
                       make_scatter(dofs, ndofs, dev))
 
+    def per_sample(self, A_batch):
+        """The block of per-sample matrices ``A_batch`` (B, N, nd, nd) f64
+        (numpy or tensor) on this block's entities, dof map and plans."""
+        A = torch.as_tensor(A_batch, dtype=torch.float64,
+                            device=self.A64.device).contiguous()
+        if A.dim() != 4 or tuple(A.shape[1:]) != tuple(self.A64.shape[-3:]):
+            raise ValueError(f"per-sample matrices {tuple(A.shape)} do not "
+                             f"fit a block of {tuple(self.A64.shape[-3:])}")
+        return _Block.of(A, A.float(), self.dofs, self.scatter)
+
     @property
     def ndofs(self):
         return self.scatter.ndofs
 
     def apply_batched(self, X, coef=None, out=None):
-        """(n, B) -> (n, B) in X's dtype, ``coef`` (B,) fused per column;
-        with ``out``, adds that into ``out`` in place and returns it (on
-        the card only the rows the block touches are read and written)."""
+        """(n, B) -> (n, B) in X's dtype, ``coef`` (B,) fused per column (a
+        per-sample block takes none); with ``out``, adds that into ``out``
+        in place and returns it (on the card only the rows the block
+        touches are read and written)."""
         if X.device.type == "cpu":
             A = self.A64 if X.dtype == torch.float64 else self.A32
             return element_apply_plain(A, self.dofs, self.scatter, X, coef,
@@ -117,7 +134,17 @@ class _Block(NamedTuple):
         return self.kernels[X.dtype != torch.float64](X, coef, out)
 
     def diagonal(self):
-        de = torch.diagonal(self.A64, dim1=1, dim2=2).reshape(-1)
+        """(ndofs,) f64 diagonal of the assembled block; (ndofs, B) of a
+        per-sample block."""
+        return self.diagonal_batched(self.A64)
+
+    def diagonal_batched(self, A):
+        """Diagonal of the block assembled from other matrices on its dof
+        map: (N, nd, nd) -> (ndofs,), per-sample (B, N, nd, nd) ->
+        (ndofs, B); summed in entry order on every device."""
+        de = torch.diagonal(A, dim1=-2, dim2=-1)
+        de = (de.reshape(-1) if A.dim() == 3
+              else de.reshape(A.shape[0], -1).t())
         # the rows of de are the (entity, i) entries of dofs: the scatter
         # plan's perm is their stable argsort by dof
         seg = make_segment_plan(self.scatter.ids_sorted, self.ndofs,
@@ -218,6 +245,14 @@ def build_transport_system(mesh: MeshData, device, element="P2",
         perm=perm, iperm=iperm, Adv=Adv, Advband=Advband, Advspans=Advspans)
 
 
+def robin_matrices_for_mu(sys: TransportSystem, mu):
+    """(F, nd, nd) f64 Robin facet matrices, on the system's device, of a
+    spatially varying ``mu(x)`` callable on the bottom wall, facet for
+    facet those of ``sys.R`` (nothing is padded)."""
+    bottom = sys.space.mesh.bc_marker == MARKERS["bottom"]
+    return robin_facet_block(sys.space, bottom, sys.free.device, mu=mu)[0]
+
+
 # ---------------------------------------------------------------------------
 # the operator A(D_b, mu_b) on (n, B) columns
 # ---------------------------------------------------------------------------
@@ -234,13 +269,19 @@ class OperatorArgs(NamedTuple):
     free: torch.Tensor
     D_vec: torch.Tensor             # (B,) in the view's dtype
     mu_vec: torch.Tensor
+    R_batch: Optional[_Block] = None  # per-sample Robin (step-mu sweeps):
+                                      #   applied in place of mu_vec * R
 
 
-def operator_args(sys: TransportSystem, D_vec, mu_vec, f32: bool):
+def operator_args(sys: TransportSystem, D_vec, mu_vec, f32: bool,
+                  R_batch: Optional[_Block] = None):
+    """``R_batch``: the per-sample Robin block of a step-mu sweep
+    (``sys.R.per_sample``), applied in place of ``mu_vec * sys.R``."""
     dt = torch.float32 if f32 else torch.float64
     dev = sys.free.device
     return OperatorArgs(
-        K=sys.K, Adv=sys.Adv, R=sys.R, Kband=sys.Kband if f32 else None,
+        K=sys.K, Adv=sys.Adv, R=sys.R, R_batch=R_batch,
+        Kband=sys.Kband if f32 else None,
         Advband=sys.Advband if f32 else None,
         Kspans=sys.Kspans if f32 else None,
         Advspans=sys.Advspans if f32 else None, free=sys.free,
@@ -258,7 +299,9 @@ def _apply_raw(a: OperatorArgs, X):
     if a.Adv is not None:
         Y = Y + (band_apply(a.Advband, X, spans=a.Advspans)
                  if a.Advband is not None else a.Adv.apply_batched(X))
-    if a.R is not None:
+    if a.R_batch is not None:
+        Y = a.R_batch.apply_batched(X, out=Y)
+    elif a.R is not None:
         Y = a.R.apply_batched(X, coef=a.mu_vec, out=Y)
     return Y
 
@@ -277,8 +320,10 @@ def operator_rhs(a: OperatorArgs, G):
     return torch.where(a.free[:, None], -_apply_raw(a, G), G)
 
 
-def fine_dinv(sys: TransportSystem, D_vec, mu_vec):
-    """(n, B) f32 inverse diagonal of A(D_b, mu_b); 1 on constrained rows."""
+def fine_dinv(sys: TransportSystem, D_vec, mu_vec, robin_matrices=None):
+    """(n, B) f32 inverse diagonal of A(D_b, mu_b); 1 on constrained rows.
+    ``robin_matrices``: per-sample Robin matrices (B, F, nd, nd) f64 on
+    sys.R's facets, in place of mu_b * R."""
     dev = sys.free.device
     D = torch.as_tensor(D_vec, dtype=torch.float64, device=dev)
     mu = torch.as_tensor(mu_vec, dtype=torch.float64, device=dev)
@@ -286,7 +331,11 @@ def fine_dinv(sys: TransportSystem, D_vec, mu_vec):
     if sys.Adv is not None:
         d = d + sys.Adv.diagonal()[:, None]
     if sys.R is not None:
-        d = d + mu[None, :] * sys.R.diagonal()[:, None]
+        if robin_matrices is None:
+            d = d + mu[None, :] * sys.R.diagonal()[:, None]
+        else:
+            d = d + sys.R.diagonal_batched(torch.as_tensor(
+                robin_matrices, dtype=torch.float64, device=dev))
     ok = sys.free[:, None] & (d != 0)
     return torch.where(ok, 1.0 / torch.where(d != 0, d, 1.0),
                        1.0).float()
@@ -429,25 +478,38 @@ def _bicgstab_solve(a64, a32, M, RHS, X0, tol):
     return X, rn, tot, k
 
 
-def solve_sweep(sys: TransportSystem, D_values, mu_values, rtol=1e-12,
-                multilevel=None):
+def solve_sweep(sys: TransportSystem, D_values, mu_values=None, rtol=1e-12,
+                multilevel=None, robin_matrices=None):
     """Batched mixed-precision transport solve over sweep points: CG
     without advection, BiCGStab with it.
 
-    D_values, mu_values: (B,).  multilevel: a ``solvers.multilevel``
-    hierarchy (hybrid cycle for CG, multiplicative V(1,1) for BiCGStab, the
-    cycles the JAX package runs on a TPU); None preconditions with Jacobi.
+    D_values, mu_values: (B,).  robin_matrices: (B, F, nd, nd) f64
+    per-sample Robin matrices on sys.R's facets (``robin_matrices_for_mu``
+    stacked), in place of mu_values; where the hierarchy's fine level was
+    built from this very tensor, its block is used and none is bound anew.
+    multilevel: a ``solvers.multilevel`` hierarchy (hybrid cycle for CG,
+    multiplicative V(1,1) for BiCGStab, the cycles the JAX package runs on
+    a TPU); None preconditions with Jacobi.
     Returns (X (B, n_true) f64 in FunctionSpace numbering, info) with info
     keys iters (B,), resnorm (B,), rel_resnorm (B,), passes."""
     dev = sys.free.device
     D_vec = torch.as_tensor(np.asarray(D_values, dtype=np.float64),
                             device=dev)
-    mu_vec = torch.as_tensor(np.asarray(mu_values, dtype=np.float64),
-                             device=dev)
     B = int(D_vec.shape[0])
+    mu_vec = torch.as_tensor(
+        np.zeros(B) if mu_values is None
+        else np.asarray(mu_values, dtype=np.float64), device=dev)
     nonsym = sys.Adv is not None
-    a64 = operator_args(sys, D_vec, mu_vec, f32=False)
-    a32 = operator_args(sys, D_vec, mu_vec, f32=True)
+    Rb = None
+    if robin_matrices is not None:
+        Rb = None if multilevel is None else multilevel.levels[0].R_batch
+        if Rb is None or Rb.A64 is not robin_matrices:
+            Rb = sys.R.per_sample(robin_matrices)
+        if Rb.A64.shape[0] != B:
+            raise ValueError(f"{Rb.A64.shape[0]} Robin matrix sets for {B} "
+                             "columns")
+    a64 = operator_args(sys, D_vec, mu_vec, f32=False, R_batch=Rb)
+    a32 = operator_args(sys, D_vec, mu_vec, f32=True, R_batch=Rb)
     G = sys.bc_values[:, None].expand(-1, B).contiguous()
     RHS = operator_rhs(a64, G)
     if multilevel is not None:
@@ -455,7 +517,8 @@ def solve_sweep(sys: TransportSystem, D_values, mu_values, rtol=1e-12,
         M = make_ml_preconditioner(multilevel,
                                    cycle="mult" if nonsym else "hybrid")
     else:
-        dinv = fine_dinv(sys, D_vec, mu_vec)
+        dinv = fine_dinv(sys, D_vec, mu_vec,
+                         None if Rb is None else Rb.A64)
 
         def M(R):
             return dinv * R

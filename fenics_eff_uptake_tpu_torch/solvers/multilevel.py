@@ -6,7 +6,9 @@ Hierarchy for a P2 fine system on mesh h:
     fine P2 (h) -> P1 on the same mesh -> P1 at 3h -> P1 at 9h (dense)
 
 Every level operator is A_l = D * K_l + Adv_l + mu * R_l in the batch-minor
-(n_l, B) layout; Adv_l advects by the fine velocity interpolated onto the
+(n_l, B) layout (in a step-mu sweep R_l is a per-sample batch of Robin
+matrices assembled from the columns' mu_b(x) on the level's own mesh, and
+the coarsest inverses take theirs); Adv_l advects by the fine velocity interpolated onto the
 level mesh (``level_velocities``).  Transfers are barycentric interpolation
 (exact embedding for the nested same-mesh level) stored as windowed bands,
 so restriction and prolongation run through kernel B; the levels' K and
@@ -40,11 +42,14 @@ from ..meshing.generator import generate_mesh
 from ..ops.band_plans import aligned_transfer_plans
 from ..ops.banded import (band_apply, band_spans, rect_band_apply,
                           rect_band_values)
-from ..parallel.sweep import (TransportSystem, build_transport_system,
-                              fine_dinv, system_to)
+from ..fem.assembly import robin_facet_block
+from ..meshing.mesh_data import MARKERS
+from ..parallel.sweep import (TransportSystem, _Block,
+                              build_transport_system, fine_dinv, system_to)
 
 __all__ = ["Transfer", "TransferBands", "Level", "MultilevelData",
-           "level_meshes_for", "level_velocities", "build_multilevel",
+           "level_meshes_for", "level_velocities", "level_robin_matrices",
+           "build_multilevel",
            "build_multilevel_for", "make_ml_preconditioner"]
 
 LEVEL_FACTORS = (3.0, 9.0)   # coarse level mesh sizes, in fine h
@@ -81,6 +86,8 @@ class Level(NamedTuple):
     free: torch.Tensor        # (n_l,) bool
     transfer: Transfer
     bands: TransferBands
+    R_batch: Optional[_Block] = None   # per-sample Robin (step-mu sweeps),
+                                       #   in place of mu * sys.R
 
 
 class MultilevelData(NamedTuple):
@@ -162,17 +169,20 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-def _coarse_inverses(csys: TransportSystem, D_vec, mu_vec):
+def _coarse_inverses(csys: TransportSystem, D_vec, mu_vec,
+                     robin_matrices=None):
     """(B, nc, nc) f32 inverses of the constrained dense coarsest operators
     (host f64 assembly, LAPACK inverse in f32), as the JAX CPU path; the
     advection enters symmetrised, constrain(0.5 (Adv + Adv^T)), and every
-    operator gets a 1e-6 mean-|diagonal| shift, both as in JAX."""
+    operator gets a 1e-6 mean-|diagonal| shift, both as in JAX.
+    robin_matrices: (B, F, nd, nd) numpy per-sample Robin matrices on
+    csys.R's facets, in place of mu_b * R."""
     nc = csys.ndofs
 
-    def dense_of(block):
+    def dense_of(block, Ae=None):
         M = np.zeros((nc, nc))
         dofs = _np(block.dofs)
-        Ae = _np(block.A64)
+        Ae = _np(block.A64) if Ae is None else Ae
         for li in range(dofs.shape[1]):
             rows = dofs[:, li]
             for lj in range(dofs.shape[1]):
@@ -200,15 +210,19 @@ def _coarse_inverses(csys: TransportSystem, D_vec, mu_vec):
         if Adv_c is not None:
             A = A + Adv_c
         if R_c is not None:
-            A = A + mu_vec[b] * R_c
+            if robin_matrices is not None:
+                A = A + constrain(dense_of(csys.R, robin_matrices[b]))
+            else:
+                A = A + mu_vec[b] * R_c
         A = A + 1e-6 * np.abs(np.diag(A)).mean() * np.eye(nc)
         out.append(np.linalg.inv(A.astype(np.float32)))
     return np.stack(out)
 
 
 def build_multilevel(sys: TransportSystem, level_meshes, D_values,
-                     mu_values, u_levels=None, dirichlet=None,
-                     with_robin=True) -> MultilevelData:
+                     mu_values=None, u_levels=None, dirichlet=None,
+                     with_robin=True, robin_matrices_levels=None,
+                     robin_matrices_fine=None) -> MultilevelData:
     """MG hierarchy for a fine TransportSystem sweep.
 
     level_meshes: MeshData list fine -> coarse; the first may be the fine
@@ -216,11 +230,20 @@ def build_multilevel(sys: TransportSystem, level_meshes, D_values,
     one (values, vector space) velocity per level mesh (advective systems,
     ``level_velocities``).  dirichlet / with_robin: the fine system's
     boundary structure, mirrored on every level (e.g. the Stokes velocity
-    Laplacian: Dirichlet walls, no Robin)."""
+    Laplacian: Dirichlet walls, no Robin).  robin_matrices_levels: per
+    level mesh, the (B, F_l, nd, nd) f64 per-sample Robin matrices of a
+    step-mu sweep on that level's bottom facets (numpy), and
+    robin_matrices_fine the fine system's (numpy or tensor); they take the place of
+    mu_values (then zeros) in every level operator, inverse diagonal and
+    coarsest inverse."""
     dev = sys.free.device
     D = np.asarray(D_values, dtype=np.float64)
-    mu = np.asarray(mu_values, dtype=np.float64)
+    mu = (np.zeros(len(D)) if mu_values is None
+          else np.asarray(mu_values, dtype=np.float64))
     n_levels = len(level_meshes)
+    Rb_levels = ([None] * n_levels if robin_matrices_levels is None
+                 else [np.asarray(r, dtype=np.float64)
+                       for r in robin_matrices_levels])
     u_levels = u_levels or [(None, None)] * n_levels
     lsys = [build_transport_system(m, "cpu", element="P1", u_values=uv,
                                    u_space=us, dirichlet=dirichlet,
@@ -247,7 +270,11 @@ def build_multilevel(sys: TransportSystem, level_meshes, D_values,
             lsys[i + 1].ndofs, lsys[i + 1].iperm))
 
     level_sys = [sys] + [system_to(s, dev) for s in lsys[:-1]]
-    dinvs = [fine_dinv(s, D, mu).to(dev) for s in [sys] + lsys[:-1]]
+    # levels[0] smooths with the fine batch, levels[l + 1] with level mesh
+    # l's; the last level mesh's batch enters the coarsest inverses
+    Rb_smooth = [robin_matrices_fine] + Rb_levels[:-1]
+    dinvs = [fine_dinv(s, D, mu, robin_matrices=rb).to(dev)
+             for s, rb in zip([sys] + lsys[:-1], Rb_smooth)]
     levels = []
     for l, tr in enumerate(transfers):
         plans = aligned_transfer_plans(tr.cols, tr.weights,
@@ -265,10 +292,14 @@ def build_multilevel(sys: TransportSystem, level_meshes, D_values,
             isig=torch.as_tensor(isig, dtype=torch.long, device=dev),
             pad_p=p_p.n_cols_pad, pad_r=p_r.n_cols_pad,
             ps=band_spans(p), rs=band_spans(r))
-        levels.append(Level(sys=level_sys[l], dinv=dinvs[l],
-                            free=level_sys[l].free, transfer=tr,
-                            bands=bands))
-    Ainv = torch.as_tensor(_coarse_inverses(lsys[-1], D, mu), device=dev)
+        rb = Rb_smooth[l]
+        levels.append(Level(
+            sys=level_sys[l], dinv=dinvs[l], free=level_sys[l].free,
+            transfer=tr, bands=bands,
+            R_batch=None if rb is None else level_sys[l].R.per_sample(rb)))
+    Ainv = torch.as_tensor(
+        _coarse_inverses(lsys[-1], D, mu, robin_matrices=Rb_levels[-1]),
+        device=dev)
     return MultilevelData(levels=tuple(levels), Ainv=Ainv,
                           free_c=lsys[-1].free.to(dev), omega=OMEGA,
                           D_vec=torch.as_tensor(D, device=dev),
@@ -296,19 +327,40 @@ def level_velocities(u_fine, level_meshes):
     return out
 
 
-def build_multilevel_for(sys, mesh, D_values, mu_values,
-                         u_fine=None) -> Optional[MultilevelData]:
+def level_robin_matrices(level_meshes, mu_callables):
+    """Per level mesh, the (B, F_l, 3, 3) f64 numpy Robin matrices of the
+    columns' mu_b(x) callables on that mesh's P1 bottom facets."""
+    out = []
+    for m in level_meshes:
+        sp = FunctionSpace(m, "P1")
+        bottom = m.bc_marker == MARKERS["bottom"]
+        out.append(np.stack([
+            _np(robin_facet_block(sp, bottom, "cpu", mu=mc)[0])
+            for mc in mu_callables]))
+    return out
+
+
+def build_multilevel_for(sys, mesh, D_values, mu_values=None, u_fine=None,
+                         mu_callables=None, robin_matrices_fine=None
+                         ) -> Optional[MultilevelData]:
     """The study hierarchy, or None when the mesh is coarse enough
     (h >= H_THRESHOLD) that Jacobi alone converges quickly.  u_fine: the
-    fine velocity Function of an advective sweep, carried to every level."""
+    fine velocity Function of an advective sweep, carried to every level.
+    mu_callables: the columns' spatially varying mu_b(x) of a step-mu
+    sweep (the level Robin matrices are assembled from them on each level
+    mesh), with robin_matrices_fine the fine system's batch."""
     g = mesh.geom
     if g is None or g.mesh_size >= H_THRESHOLD:
         return None
     meshes = level_meshes_for(mesh)
     u_levels = (None if u_fine is None
                 else level_velocities(u_fine, meshes))
+    robin_levels = (None if mu_callables is None
+                    else level_robin_matrices(meshes, mu_callables))
     return build_multilevel(sys, meshes, D_values, mu_values,
-                            u_levels=u_levels)
+                            u_levels=u_levels,
+                            robin_matrices_levels=robin_levels,
+                            robin_matrices_fine=robin_matrices_fine)
 
 
 def make_ml_preconditioner(ml: MultilevelData, cycle="hybrid"):
@@ -329,7 +381,9 @@ def make_ml_preconditioner(ml: MultilevelData, cycle="hybrid"):
         Y = band_apply(la.sys.Kband, Xm, coef=D32, spans=la.sys.Kspans)
         if la.sys.Advband is not None:
             Y = Y + band_apply(la.sys.Advband, Xm, spans=la.sys.Advspans)
-        if la.sys.R is not None:
+        if la.R_batch is not None:
+            Y = la.R_batch.apply_batched(Xm, out=Y)
+        elif la.sys.R is not None:
             Y = la.sys.R.apply_batched(Xm, coef=mu32, out=Y)
         return torch.where(free, Y, Xm)
 

@@ -25,12 +25,13 @@ from ..fem.space import Function
 from ..meshing.generator import generate_mesh
 from ..models.stokes_flow import stokes_solve_mg
 from ..params import Parameters
-from ..parallel.sweep import build_transport_system, solve_sweep
+from ..parallel.sweep import (build_transport_system,
+                              robin_matrices_for_mu, solve_sweep)
 from ..solvers.multilevel import build_multilevel_for
 
 __all__ = ["make_no_adv_params", "make_mesh", "sweep_mus", "no_adv_batch",
-           "stokes_for_study", "transport_batch", "create_study_dir",
-           "save_csv", "save_metadata"]
+           "stokes_for_study", "transport_batch",
+           "create_study_dir", "save_csv", "save_metadata"]
 
 
 def make_no_adv_params(mu_factor=1.0, sulci_w_dim=None, sulci_h_dim=None,
@@ -147,11 +148,14 @@ def stokes_for_study(mesh, H, device):
     return stokes_solve_mg(mesh, H, setup(device))
 
 
-def transport_batch(mesh, u, D_batch, mu_batch, device, rtol=1e-12):
-    """One domain's batch of advective transport columns (the ``mu_batch``
-    branch of the JAX ``transport_batch``): the system with advection by
-    ``u``, the hierarchy carrying u to every level, and ONE batched
-    BiCGStab solve.
+def transport_batch(mesh, u, D_batch, mu_batch, device, rtol=1e-12,
+                    steps=None):
+    """One domain's batch of advective transport columns (the unsharded
+    JAX ``transport_batch``): the system with advection by ``u``, the
+    hierarchy carrying u to every level, and ONE batched BiCGStab solve.
+    Either ``mu_batch`` (uniform mu per column) or ``steps`` (one mu_b(x)
+    callable per column, ``mu_batch`` None: per-sample Robin matrices on
+    the fine system and on every level) selects the Robin term.
 
     Returns (X (B, n) f64 on ``device``, info, system, stats) with stats
     the stage seconds (each ending in a device sync) assembly_s,
@@ -160,10 +164,15 @@ def transport_batch(mesh, u, D_batch, mu_batch, device, rtol=1e-12):
     t0 = time.time()
     sys = build_transport_system(mesh, device, u_values=u.values,
                                  u_space=u.space)
+    robin_matrices = None if steps is None else torch.stack(
+        [robin_matrices_for_mu(sys, s) for s in steps])
     t_asm = _sync(device)
-    ml = build_multilevel_for(sys, mesh, D_batch, mu_batch, u_fine=u)
+    ml = build_multilevel_for(sys, mesh, D_batch, mu_batch, u_fine=u,
+                              mu_callables=steps,
+                              robin_matrices_fine=robin_matrices)
     t_ml = _sync(device)
-    X, info = solve_sweep(sys, D_batch, mu_batch, rtol=rtol, multilevel=ml)
+    X, info = solve_sweep(sys, D_batch, mu_batch, rtol=rtol, multilevel=ml,
+                          robin_matrices=robin_matrices)
     t_solve = _sync(device)
     stats = {"assembly_s": t_asm - t0, "ml_setup_s": t_ml - t_asm,
              "solve_s": t_solve - t_ml, "multilevel": ml is not None}
@@ -181,20 +190,26 @@ def _cell(v):
     if v is None:
         return ""
     if isinstance(v, (float, np.floating)):
-        return repr(float(v))
+        return "" if np.isnan(v) else repr(float(v))
     return v
 
 
-def save_csv(rows: List[Dict], path):
-    """Rows -> CSV with the columns of the first row, floats at full
-    precision and None as an empty cell (the JAX package's pandas output)."""
+def save_csv(rows: List[Dict], path, sort_by=None):
+    """Rows -> CSV with the columns of all rows in the order they first
+    appear (before any sorting), floats at full precision, None, NaN and a column a row lacks
+    as an empty cell (the JAX package's pandas output); ``sort_by``: keys
+    to sort the rows by first (stable).  Returns the rows as written."""
+    fields = list(dict.fromkeys(k for r in rows for k in r))
+    if sort_by:
+        rows = sorted(rows, key=lambda r: tuple(r[k] for k in sort_by))
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w", newline="") as f:
-        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w = csv.DictWriter(f, fieldnames=fields, restval="")
         w.writeheader()
         for r in rows:
             w.writerow({k: _cell(v) for k, v in r.items()})
     print(f"  CSV saved: {path} ({len(rows)} rows)")
+    return rows
 
 
 def save_metadata(meta: dict, path: str):

@@ -22,7 +22,11 @@
   h = 0.15 blocks (f64 1e-12, f32 2e-5 relative: summation order); two
   launches agree bit for bit; ``out=`` leaves untouched rows bit-equal;
   chunked and differently tiled plans give the same bits; bound blocks
-  refuse what the kernel does not take.
+  refuse what the kernel does not take.  The per-sample form (A of shape
+  (B, N, nd, nd), no coef) likewise: against plain at the same tolerances
+  for nd 2, 3, 6 and B in {1, 3, 9, 20, 96}, both forms, two launches and
+  every plan bit for bit, equal to the shared form where every column
+  carries the same matrices, and bound at one B it refuses another.
 
 Imports nothing of JAX: on the card, ``python -m pytest
 tests/test_torch_element_tiles.py -m cuda --noconftest``.
@@ -380,6 +384,12 @@ def test_call_checks_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA device"):
         te._check_call(X, None, None, torch.float32, torch.device("meta"),
                        10, 8)
+    # a per-sample block bound at B columns: exactly B, and no coef
+    te._check_call(X, None, torch.zeros((10, 3)), *args, batch=3)
+    with pytest.raises(ValueError, match="bound at B=4"):
+        te._check_call(X, None, None, *args, batch=4)
+    with pytest.raises(ValueError, match="no coef"):
+        te._check_call(X, torch.ones(3), None, *args, batch=3)
 
 
 def test_block_checks_at_binding():
@@ -393,13 +403,45 @@ def test_block_checks_at_binding():
     other = te.make_scatter(dofs, X.shape[0] + 3, "cpu")
     with pytest.raises(ValueError, match="not this block's"):
         te.ElementKernel(A, dofs, sc._replace(tiles=other.tiles))
+    # per-sample matrices are a block like any other: the same checks
+    with pytest.raises(ValueError, match="CUDA device"):
+        te.ElementKernel(torch.stack([A, A]), dofs, sc)
+    with pytest.raises(ValueError, match="nd, nd"):
+        te.ElementKernel(A[None, None], dofs, sc)
+
+
+@pytest.mark.parametrize("nd", [2, 3, 6])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_plain_per_sample_form(dtype, nd):
+    """The plain per-sample apply is, column for column, the shared apply
+    of that column's matrices; ``out=`` is out plus it, bit for bit."""
+    A, dofs, X, _ = _random_block(nd, dtype, gaps=True)
+    rng = np.random.default_rng(nd)
+    Ab = rng.standard_normal((X.shape[1],) + A.shape).astype(dtype)
+    sc = te.make_scatter(dofs, X.shape[0], "cpu")
+    dt, Xt = torch.as_tensor(dofs), torch.as_tensor(X)
+    Y = te.element_apply_plain(torch.as_tensor(Ab), dt, sc, Xt)
+    for b in range(X.shape[1]):
+        col = te.element_apply_plain(torch.as_tensor(Ab[b]), dt, sc,
+                                     Xt[:, b:b + 1].contiguous())
+        assert torch.equal(Y[:, b:b + 1], col)
+    out = torch.as_tensor(rng.standard_normal(X.shape).astype(dtype))
+    got = te.element_apply_plain(torch.as_tensor(Ab), dt, sc, Xt,
+                                 out=out.clone())
+    assert torch.equal(got, out + Y)
+    with pytest.raises(ValueError, match="no coef"):
+        te.element_apply_plain(torch.as_tensor(Ab), dt, sc, Xt,
+                               coef=torch.ones(X.shape[1]))
+    with pytest.raises(ValueError, match="columns"):
+        te.element_apply_plain(torch.as_tensor(Ab[:2]), dt, sc, Xt)
 
 
 def test_plan_struct_matches_the_kernel():
-    """Seven pointers, then eleven ints: the C ``Plan``."""
+    """Seven pointers, then twelve ints: the C ``Plan``."""
     S = te._PlanStruct
     assert S.is_f64.offset == 56 and S.n_gaps.offset == 56 + 10 * 4
-    assert ctypes.sizeof(S) == 104           # padded to 8 bytes, as in C
+    assert S.batch.offset == 56 + 11 * 4
+    assert ctypes.sizeof(S) == 104
 
 
 # ---------------------------------------------------------------------------
@@ -519,3 +561,108 @@ def test_bound_block_refuses_on_the_card(cuda):
     with pytest.raises(ValueError, match="CUDA device"):
         blk.apply_batched(Xt)
     assert blk.to(cuda).kernels is not None
+
+
+def _check_sample_forms(Ab, dt, sc, Xt, tol):
+    """The per-sample kernel, both forms, against plain; two launches bit
+    for bit; out= leaves untouched rows as they were."""
+    k = te.ElementKernel(Ab, dt, sc)
+    n0 = (te.ElementKernel.launches, te.ElementKernel.launches_out,
+          te.ElementKernel.launches_sample)
+    untouched = torch.ones(sc.ndofs, dtype=torch.bool, device=Xt.device)
+    untouched[dt.long().reshape(-1)] = False
+    Y = k(Xt)
+    assert torch.isfinite(Y).all()
+    assert _rel(Y, te.element_apply_plain(Ab, dt, sc, Xt)) < tol
+    assert torch.equal(Y, k(Xt))
+    assert not Y[untouched].any()
+    out = torch.randn(Y.shape, dtype=Y.dtype, device=Y.device)
+    got = k(Xt, out=out.clone())
+    want = te.element_apply_plain(Ab, dt, sc, Xt, out=out.clone())
+    assert _rel(got - out, want - out) < tol
+    assert torch.equal(got[untouched], out[untouched])
+    assert torch.equal(got, k(Xt, out=out.clone()))
+    # product and add rounded apart: out= is the full form added to out
+    assert torch.equal(got, out + Y)
+    assert (te.ElementKernel.launches, te.ElementKernel.launches_out,
+            te.ElementKernel.launches_sample) == (n0[0] + 4, n0[1] + 2,
+                                                  n0[2] + 4)
+    return k, Y
+
+
+def _sample_args(cuda, nd, dtype, B, seed=0):
+    A, dofs, X, _ = _random_block(nd, dtype, seed=seed, N=3000, n=4000, B=B,
+                                  gaps=True)
+    Ab = np.random.default_rng(seed + B).standard_normal(
+        (B,) + A.shape).astype(dtype)
+    At, dt, sc, Xt, _ = _cuda_args(cuda, A, dofs, X, np.ones(B, dtype))
+    return torch.as_tensor(Ab, device=cuda), At, dofs, dt, sc, Xt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 9, 20, 96])
+@pytest.mark.parametrize("nd", [2, 3, 6])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_per_sample_kernel_matches_plain(cuda, dtype, nd, B):
+    Ab, At, _, dt, sc, Xt = _sample_args(cuda, nd, dtype, B)
+    _check_sample_forms(Ab, dt, sc, Xt,
+                        1e-12 if dtype == np.float64 else 2e-5)
+    # every column carrying the same matrices: the shared form's bits
+    same = At[None].expand(B, -1, -1, -1).contiguous()
+    assert torch.equal(te.ElementKernel(same, dt, sc)(Xt),
+                       te.ElementKernel(At, dt, sc)(Xt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [3, 9])
+def test_per_sample_kernel_on_real_blocks(cuda, h015, B):
+    """The h = 0.15 Robin blocks (fine nd 6, first P1 level nd 3) with
+    per-column matrices, through ``_Block.per_sample``."""
+    sys, ml, _, _ = h015
+    rng = np.random.default_rng(B)
+    for blk in (sys.R, ml.levels[1].sys.R):
+        blk = blk.to(cuda)
+        ps = blk.per_sample(rng.standard_normal((B,) + tuple(blk.A64.shape)))
+        assert ps.kernels is not None
+        for A, tol in ((ps.A64, 1e-12), (ps.A32, 2e-5)):
+            X = torch.as_tensor(rng.standard_normal((blk.ndofs, B)),
+                                dtype=A.dtype, device=cuda)
+            _, Y = _check_sample_forms(A, blk.dofs, blk.scatter, X, tol)
+            assert torch.equal(Y, ps.apply_batched(X))
+        with pytest.raises(ValueError, match="no coef"):
+            ps.apply_batched(X, coef=torch.ones(B, dtype=X.dtype,
+                                                device=cuda))
+
+
+@pytest.mark.cuda
+def test_per_sample_plans_give_the_same_bits(cuda):
+    Ab, _, dofs, dt, sc, Xt = _sample_args(cuda, 6, np.float64, 9)
+    ref = te.ElementKernel(Ab, dt, sc)(Xt)
+    out = torch.randn(ref.shape, dtype=ref.dtype, device=cuda)
+    ref_out = te.ElementKernel(Ab, dt, sc)(Xt, out=out.clone())
+    perm, rowptr = sc.perm.cpu().numpy(), sc.rowptr.cpu().numpy()
+    for R, S in ((16, 512), (256, 512), (128, 5), (16, 5), (1, 1)):
+        k2 = te.ElementKernel(Ab, dt, sc._replace(
+            tiles=te.make_tiles(dofs, perm, rowptr, cuda, R, S)))
+        assert torch.equal(k2(Xt), ref)
+        assert torch.equal(k2(Xt, out=out.clone()), ref_out)
+
+
+@pytest.mark.cuda
+def test_per_sample_block_refuses_another_batch(cuda):
+    Ab, _, _, dt, sc, Xt = _sample_args(cuda, 3, np.float32, 9)
+    k = te.ElementKernel(Ab, dt, sc)
+    n0 = te.ElementKernel.launches
+    with pytest.raises(ValueError, match="bound at B=9"):
+        k(Xt[:, :4].contiguous())
+    with pytest.raises(ValueError, match="no coef"):
+        k(Xt, torch.ones(9, device=cuda))
+    assert te.ElementKernel.launches == n0
+    # the entry point itself refuses too, should a caller skip the wrapper
+    from fenics_eff_uptake_tpu_torch.ops import _build
+    X4 = Xt[:, :4].contiguous()
+    Y4 = torch.empty_like(X4)
+    err = _build.library().feu_element_apply(
+        k._addr, X4.data_ptr(), None, Y4.data_ptr(), 0, 4,
+        _build.raw_stream(cuda.index or 0))
+    assert err != 0

@@ -30,6 +30,9 @@ def _run(code):
 def test_port_modules_load_no_jax_or_triton():
     mods = _port_modules()
     assert len(mods) > 15, mods
+    for name in ("studies.adv_diff", "studies.phase_a", "studies.phase_b",
+                 "studies.no_uptake", "convert"):
+        assert f"fenics_eff_uptake_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -95,6 +98,8 @@ def test_chip_smoke_loads_no_jax():
     names = _chip_smoke_imports()
     assert "fenics_eff_uptake_tpu_torch.studies.phase_a" in names, names
     assert "fenics_eff_uptake_tpu_torch.studies.no_uptake" in names, names
+    assert "fenics_eff_uptake_tpu_torch.studies.adv_diff" in names, names
+    assert "fenics_eff_uptake_tpu_torch.studies.phase_b" in names, names
     bad = [n for n in names
            if n.split(".")[0] in ("jax", "jaxlib", "fenics_eff_uptake_tpu",
                                   "pandas")]

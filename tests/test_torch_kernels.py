@@ -352,8 +352,12 @@ def test_checkers_refuse_unsupported_input():
     sc = te.make_scatter(dofs, Xe.shape[0], "cpu")
     Xt = torch.as_tensor(Xe)
     # kernel C checks a block where it binds it (ElementKernel)
-    with pytest.raises(NotImplementedError, match="per-sample"):
-        te.ElementKernel(At[None].expand(5, -1, -1, -1), dt, sc)
+    # a per-sample (B, N, nd, nd) block is taken like a shared one (here
+    # refused only because it lies on the CPU); more dimensions are not
+    with pytest.raises(ValueError, match="CUDA device"):
+        te.ElementKernel(At[None].expand(5, -1, -1, -1).contiguous(), dt, sc)
+    with pytest.raises(ValueError, match="nd, nd"):
+        te.ElementKernel(At[None, None], dt, sc)
     with pytest.raises(TypeError):
         te._check_block(At.double(), dt, sc, Xt.dtype)
     with pytest.raises(ValueError, match="nd=4"):
