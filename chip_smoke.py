@@ -42,7 +42,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    on the fine block in both forms, in f32 on the fine block and on both
    mid levels' blocks in the out= form; the library call is one cuSPARSE
    CSR product too, of the columns' matrices stacked into one matrix of
-   n B rows, applied to the batch-minor X seen as one long column.
+   n B rows, applied to the batch-minor X seen as one long column; and
+   kernel A in f32 on the rectangle's fine advection band at B = 9, two
+   thirds of that batch's solve.
+   The bf16 operand forms run beside them on the same bands and blocks: A
+   (band, X, coef, Y in bf16) on the mid and fine K bands at B = 20 and,
+   at B = 3, on the fine advection band and the first mid level's K and
+   advection bands; B in both forms (bf16 band with f32 X and Y; all bf16)
+   on the fine restriction and prolongation at B = 20 and on the
+   transport hierarchy's at B = 3; C (A, X, coef, out in bf16) in the out=
+   form on the fine Robin block at B = 20, on the fine and mid Robin
+   blocks at B = 3, and in the per-sample form at B = 9: each bf16 form
+   at the largest shapes and at both batch widths at which the configs
+   phase launches it.  Bounds count 2-byte bands and X;
+   the library calls are the cuBLAS bmm on bf16 windows (f32 output where
+   the kernel's is) and, for C, the f32 cuSPARSE call on upcast operands.
+   Tolerances: an f32 output within 1e-5 of the row's sum of |terms|; a
+   bf16 output equal to plain's in >= 99% of the entries and within one
+   bf16 ulp of it (or, where cancellation leaves a result far below its
+   terms, within that f32 bound).
 4. slice: the 20-point Phase-A mu sweep at h = 0.02 through
    studies.phase_a.run_mu_sweep, twice (first and steady run).  Checks that
    every kernel (C in both forms) was launched by the first run, the true f64 relative
@@ -77,6 +95,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    mu factors 0.1, 0.5, 1.0) against their 6 rows of
    examples/phase_b_tpu_h0.02: 1e-6 relative (flux_error_pct 1e-4
    absolute), CG <= 40 per column, residuals <= 1e-11.
+
+8. configs: ``solve_sweep`` on the mu-sweep system (h = 0.02, B = 20,
+   built once) under each configuration the JAX package offers: the
+   default, bf16 transfer bands, the bf16 cycle, the add and mult cycles,
+   the mult cycle in bf16 (its fine band applies inside M), no cheap
+   pass, the f64 solve with the f64 mult cycle, and Newton-Schulz coarsest
+   inverses.  Each is run three times (launch counts; steady seconds;
+   device busy time), is held to a true f64 relative residual <= 1e-11
+   and to max |X - X_default| < 1e-8, and prints its iterations, passes,
+   steady solve seconds, device busy time and idle share, and launches;
+   the bf16 forms must be launched where asked and nowhere else.  Then
+   the no-uptake transport solve (reference geometry, B = 3) with the
+   mult cycle in f32 (held to the gates) and in bf16 (reported: BiCGStab
+   need not converge under a cycle that rounds to bf16).  Before every
+   configuration with a bf16 form, one application of its cycle through
+   the kernels is held against the same cycle through the kernels' plain
+   versions on the card (``cycle_vs_plain``), so that a solve that breaks
+   down cannot be a wrong kernel.  Last the Jacobi branch
+   (``run_mu_sweep`` at h = 0.08, no hierarchy), held to the residual
+   gate.
 
 With ``--profile``, a last phase profiles the paths once more: cProfile of
 one steady ``no_adv_batch`` and one steady no-uptake study (where the host
@@ -124,27 +162,26 @@ OUT_DIR = ROOT / "build" / "chip_smoke"
 B_SWEEP = 20
 BENCH_CELLS = 50647
 PECLET = [0.1, 1.0, 10.0]
-# iteration bounds of the no-uptake phase: twice an early CPU run of the
-# port's path (reference geometry, h = 0.035, the finest run on the CPU:
-# MINRES 130 over 2 passes; BiCGStab per Pe column 16, 29, 158), kept as
-# they were set.  Today
+# MINRES bound of the flow phases: twice a CPU run of the port's path at
+# h = 0.035 (130 over 2 passes; an H100 reads 124 and 112 at h = 0.02).
+MINRES_BOUND = 260
+# BiCGStab bounds: 1.5 times what an H100 read at h = 0.02 in every run so
+# far (no-uptake [15, 28, 171] and [15, 28, 170] per Pe column; adv-diff
+# columns Pe-major, Pe 0.1, 1, 10, each with mu factors 0.1, 1, 10: sulcus
+# [15, 15, 14, 23, 18, 15, 136, 85, 75], rectangle [15, 13, 13, 24, 19, 15,
+# 129, 90, 76]), rounded up.  1.5 is the spread of the f32 summation order
+# alone: the same commit's
 #   python -m fenics_eff_uptake_tpu_torch.studies.no_uptake \
 #       --geometries reference --mesh-size 0.035 --device cpu
-# prints MINRES 132 (sulcus) and 123 (rectangle), BiCGStab [16, 29, 166]
-# and [16, 29, 226]
-MINRES_BOUND = 260
-BICGSTAB_BOUND = [32, 58, 316]
-# iteration bounds of the adv-diff phase: twice what
-#   python -m fenics_eff_uptake_tpu_torch.studies.adv_diff \
-#       --mesh-size 0.035 --device cpu
-# prints for the full 3 x 3 grid (columns Pe-major: Pe 0.1, 1, 10, each with
-# mu factors 0.1, 1, 10): MINRES 132 (sulcus) and 123 (rectangle), within
-# MINRES_BOUND; BiCGStab, 4 passes each,
-# sulcus [16, 15, 16, 25, 19, 16, 106, 67, 64] and
-# rectangle [15, 15, 14, 24, 19, 16, 108, 72, 66]
+# prints, at Pe = 10, 151 / 162 / 166 / 158 (sulcus) and 172 / 168 / 226 /
+# 154 (rectangle) under OMP_NUM_THREADS = 1 / 2 / 4 / 8 (the thread count
+# changes how PyTorch's CPU sums are split;
+# scripts/bicgstab_count_spread.py), while the card's counts, whose sums have
+# one fixed order, have not moved.
+BICGSTAB_BOUND = [23, 42, 257]
 AD_BICGSTAB_BOUND = {
-    "sulcus": [32, 30, 32, 50, 38, 32, 212, 134, 128],
-    "rectangular": [30, 30, 28, 48, 38, 32, 216, 144, 132]}
+    "sulcus": [23, 23, 21, 35, 27, 23, 204, 128, 113],
+    "rectangular": [23, 20, 20, 36, 29, 23, 194, 135, 114]}
 # CSV columns held to 1e-6 relative, and the signed net fluxes held to
 # 1e-6 |Mouth Q_in| absolute (differences of much larger fluxes)
 NU_REL_COLUMNS = ("Total Mass", "Avg Concentration",
@@ -169,9 +206,10 @@ PALLAS = "fenics_eff_uptake_tpu/ops/pallas_kernels.py"
 JAX_SWEEP = "fenics_eff_uptake_tpu/parallel/sweep.py"
 CSRC = "fenics_eff_uptake_tpu_torch/ops/csrc"
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s, and
-# FLOP/s outside the tensor cores by element size
+# FLOP/s by the operands' element size (bf16: the dense tensor-core rate;
+# f32 and f64 outside the tensor cores)
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {4: 67e12, 8: 34e12}
+PEAK_FLOPS = {2: 989e12, 4: 67e12, 8: 34e12}
 
 
 def phase_device():
@@ -191,25 +229,73 @@ def phase_device():
     return card
 
 
+def _profiled_us(fn, cpu=True):
+    """Summed durations (us) of the CUDA records (kernels, copies, fills)
+    that torch.profiler takes while fn() runs, the device synced at the
+    end.  ``cpu`` False leaves the host's operator records out: the same
+    device records (a whole solve's sum within 1%), and a third of the
+    time to take and read the trace of a solve of 100,000 launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=([ProfilerActivity.CPU] if cpu else [])
+                 + [ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if str(e.device_type).endswith("CUDA"))
+
+
 def device_ms(fn, calls=20, warmup=3):
     """Device time of one call of fn: the durations of the CUDA records
     (kernels, copies, fills) that torch.profiler takes over ``calls``
-    calls, summed, over the calls."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    calls, summed, over the calls.
+
+    The profiler now and then returns a trace without any CUDA record; it
+    is taken again, at most twice.  Where it stays empty (the profiler of
+    this process has stopped recording the card) the device time is not
+    measured: None, here and, without a retake, in every later call."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def many():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if str(e.device_type).endswith("CUDA"))
-    if not us > 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / calls / 1e3
+
+    for attempt in range(1 if device_ms.profiler_lost else 3):
+        us = _profiled_us(many)
+        if us > 0:
+            device_ms.profiler_lost = False
+            return us / calls / 1e3
+        print(f"[kernels] profiler trace {attempt + 1} holds no CUDA record",
+              flush=True)
+    if not device_ms.profiler_lost:
+        print("[kernels] FINDING: torch.profiler records no device time in "
+              "this process; device times from here on are not measured "
+              "(ms null), and event_ms gives the CUDA event interval over "
+              "back-to-back calls instead", flush=True)
+    device_ms.profiler_lost = True
+    return None
+
+
+device_ms.profiler_lost = False
+
+
+def back_to_back_ms(fn, calls=20):
+    """The CUDA event interval around ``calls`` calls of fn queued back to
+    back, over the calls: an upper bound of the device time per call (for
+    a kernel of a few microseconds it is the host's launch rate).  Taken
+    only where the profiler gave no device time, under its own key."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
 
 
 def median_ms(fn, reps=20, warmup=3):
@@ -248,31 +334,68 @@ def span_elements(band, spans):
     return int((cols * rows).sum())
 
 
-def band_bounds(band, spans, n_in, n_out, B, extra_bytes=0):
+def band_bounds(band, spans, n_in, n_out, B, extra_bytes=0, x_size=4,
+                y_size=4):
     """Dense and span bounds of a band apply: the band (whole, or its
     spans' elements) read once, X (n_in, B) read once, Y (n_out, B)
-    written once, 2 * B FLOPs per band element."""
-    io = 4 * B * (n_in + n_out) + extra_bytes
+    written once, each at its element size, 2 * B FLOPs per band element at
+    the rate of the band's type."""
+    bs = band.element_size()
+    io = B * (x_size * n_in + y_size * n_out) + extra_bytes
     dense = band.numel()
     sp = span_elements(band, spans)
-    return {"dense": bound_ms(4 * dense + io, 2 * B * dense, 4),
-            "span": bound_ms(4 * sp + io + spans.numel() * 4, 2 * B * sp,
-                             4),
+    return {"dense": bound_ms(bs * dense + io, 2 * B * dense, bs),
+            "span": bound_ms(bs * sp + io + spans.numel() * 4, 2 * B * sp,
+                             bs),
             "span_fill": sp / dense}
 
 
+def bf16_ulps(a, b):
+    """Distance of two bf16 tensors in bf16 steps, elementwise."""
+    import torch
+
+    def key(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(a) - key(b)).abs()
+
+
 def compare(label, kernel, plain, rtol, library=None, bounds=None,
-            check=None):
+            check=None, terms=None):
     """Kernel vs plain on the same inputs: errors, device times per call
     of the kernel, the plain version and the library call, the kernel's
     per-call time, and the bounds (``bounds``: "span" and, for the band
     kernels, "dense" (ms, what binds) pairs).  ``check``, where given,
-    makes the two outputs compared (the out= form's calls accumulate)."""
+    makes the two outputs compared (the out= form's calls accumulate).
+    ``terms`` (the bf16 forms): each output's sum of |terms|; an f32 output
+    is then held to rtol of it elementwise, and a bf16 output to >= 99%
+    equal entries, each within one bf16 ulp of plain's or within rtol of
+    its terms (a result that cancellation left far below them)."""
     import torch
     yk, yp = check() if check is not None else (kernel(), plain())
     torch.cuda.synchronize()
     if not bool(torch.isfinite(yk).all()):
         raise AssertionError(f"{label}: kernel output is not finite")
+    extra = {}
+    if terms is not None:
+        diff = (yk.float() - yp.float()).abs()
+        ok = diff <= rtol * terms
+        if yk.dtype == torch.bfloat16:
+            d = bf16_ulps(yk, yp)
+            ok |= d <= 1
+            extra = {"max_ulps": int(d.max()),
+                     "equal_share": float((d == 0).float().mean())}
+            print(f"[kernels] {label}: bf16 output, {extra['max_ulps']} ulp "
+                  f"at most from plain, {100 * extra['equal_share']:.3f}% "
+                  "of the entries equal", flush=True)
+            if not extra["equal_share"] >= 0.99:
+                raise AssertionError(f"{label}: only "
+                                     f"{extra['equal_share']:.4f} equal")
+        if not bool(ok.all()):
+            raise AssertionError(
+                f"{label}: {int((~ok).sum())} entries off plain by more "
+                f"than one ulp and {rtol} of their terms")
+        yk, yp = yk.float(), yp.float()
     abs_err = float((yk - yp).abs().max())
     scale = float(yp.abs().max())
     rel = abs_err / scale if scale > 0 else abs_err
@@ -280,15 +403,23 @@ def compare(label, kernel, plain, rtol, library=None, bounds=None,
     call_ms = median_ms(kernel)
     plain_ms = device_ms(plain)
     lib_ms = None if library is None else device_ms(library)
+    event_ms = back_to_back_ms(kernel) if ms is None else None
     span, by = bounds["span"]
+    share = None if ms is None else span / ms
+
+    def f(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+
     out = {"case": label, "max_abs_err": abs_err, "max_rel_err": rel,
-           "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-           "library_ms": lib_ms, "bound_ms": span, "bound_by": by,
-           "share": span / ms}
+           "ms": ms, "event_ms": event_ms, "call_ms": call_ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": span,
+           "bound_by": by, "share": share, **extra}
     text = (f"[kernels] {label}: max_abs_err {abs_err:.3e} max_rel_err "
-            f"{rel:.3e} (tol {rtol:.0e}) device: kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms library "
-            + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
+            f"{rel:.3e} (tol {rtol:.0e}) device: kernel {f(ms)}"
+            + ("" if event_ms is None
+               else f" (events, back to back: {event_ms:.4f} ms)")
+            + f" plain {f(plain_ms)} library "
+            + ("none" if library is None else f(lib_ms))
             + f"; per call {call_ms:.4f} ms")
     if "dense" in bounds:
         d, dby = bounds["dense"]
@@ -298,8 +429,9 @@ def compare(label, kernel, plain, rtol, library=None, bounds=None,
                  f"({by}, {100 * bounds['span_fill']:.1f}% of the band)")
     else:
         text += f"; bound {span:.4f} ms ({by})"
-    print(f"{text}; share of the bound {span / ms:.3f}", flush=True)
-    if not rel <= rtol:
+    print(text + "; share of the bound "
+          + ("not measured" if share is None else f"{share:.3f}"), flush=True)
+    if terms is None and not rel <= rtol:
         raise AssertionError(f"{label}: relative error {rel:.3e} > {rtol}")
     return out
 
@@ -315,12 +447,18 @@ def band_case(label, band, spans, X, coef, rtol=1e-5):
     halo = (W // R - 1) // 2
     win = F.pad(X, (0, 0, halo * R, halo * R)).unfold(0, W, R).contiguous()
     n, B = X.shape
+    xs = X.element_size()
+    terms = None
+    if band.dtype == torch.bfloat16:     # bf16 operands, bf16 Y
+        terms = band_apply_plain(band.float().abs(), X.float().abs(),
+                                 None if coef is None else coef.float())
     return compare(
         label, lambda: band_apply(band, X, coef, spans=spans),
         lambda: band_apply_plain(band, X, coef), rtol,
         library=lambda: torch.bmm(band, win.transpose(1, 2)),
         bounds=band_bounds(band, spans, n, n, B,
-                           0 if coef is None else 4 * B))
+                           0 if coef is None else xs * B, xs, xs),
+        terms=terms)
 
 
 def rect_case(label, band, offs, spans, Xq, rtol=1e-5):
@@ -332,13 +470,29 @@ def rect_case(label, band, offs, spans, Xq, rtol=1e-5):
         rect_band_apply, rect_band_apply_plain)
     T, R, W = band.shape
     idx = offs.long()[:, None] + torch.arange(W, device=Xq.device)
-    win = Xq[idx].contiguous()
+    win = Xq.to(band.dtype)[idx].contiguous()
+    xs = Xq.element_size()
+    terms, library = None, lambda: torch.bmm(band, win)
+    if band.dtype == torch.bfloat16:
+        terms = rect_band_apply_plain(band.float().abs(), offs,
+                                      Xq.to(band.dtype).float().abs())
+        if Xq.dtype == torch.float32:    # form 1: f32 out of bf16 operands
+            try:
+                torch.bmm(band, win, out_dtype=torch.float32)
+
+                def library():
+                    return torch.bmm(band, win, out_dtype=torch.float32)
+            except (TypeError, RuntimeError):
+                print(f"[kernels] {label}: this PyTorch's bmm has no f32 "
+                      "output for bf16 operands; library time is the bf16 "
+                      "output's", flush=True)
     return compare(
         label, lambda: rect_band_apply(band, offs, Xq, spans),
         lambda: rect_band_apply_plain(band, offs, Xq), rtol,
-        library=lambda: torch.bmm(band, win),
+        library=library,
         bounds=band_bounds(band, spans, Xq.shape[0], T * R, Xq.shape[1],
-                           4 * T))
+                           4 * T, xs, xs),
+        terms=terms)
 
 
 def element_case(label, blk, X, coef, rtol, form="full"):
@@ -359,6 +513,8 @@ def element_case(label, blk, X, coef, rtol, form="full"):
     rtol of its own size."""
     import torch
     from fenics_eff_uptake_tpu_torch.ops.elemspmv import element_apply_plain
+    if X.dtype == torch.bfloat16:
+        return element_case_bf16(label, blk, X, coef, rtol, form)
     A = blk.A64 if X.dtype == torch.float64 else blk.A32
     per_sample = A.dim() == 4
     N, nd, _ = A.shape[-3:]
@@ -422,6 +578,71 @@ def element_case(label, blk, X, coef, rtol, form="full"):
             library=lambda: torch.addmm(ol.view_as(Xc), csr, Xc))
 
 
+def element_case_bf16(label, blk, X, coef, rtol, form):
+    """Kernel C's bf16 form in the out= form on a block that carries bf16
+    matrices (``_Block.with_bf16``): A, X, coef and out in bf16.  Held to
+    plain by the bf16 criterion of ``compare``; the library call is the f32
+    cuSPARSE ``addmm`` on the upcast operands (per-sample: the columns'
+    matrices stacked, as in ``element_case``); the bound counts 2-byte A,
+    X, coef and out rows."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.ops.elemspmv import element_apply_plain
+    if form != "out":
+        raise ValueError("the bf16 cases run the out= form")
+    A = blk.A16
+    per_sample = A.dim() == 4
+    N, nd, _ = A.shape[-3:]
+    n, B = X.shape
+    dofs = blk.dofs.long()
+    rows = dofs[:, :, None].expand(N, nd, nd)
+    cols = dofs[:, None, :].expand(N, nd, nd)
+    Xc = X.float() if coef is None else X.float() * coef.float()
+    size = n
+    if per_sample:
+        b = torch.arange(B, device=X.device)[:, None, None, None]
+        rows, cols, size = rows * B + b, cols * B + b, n * B
+        Xc = Xc.reshape(-1, 1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        csr = torch.sparse_coo_tensor(
+            torch.stack([rows.reshape(-1), cols.reshape(-1)]),
+            A.float().reshape(-1), (size, size),
+            check_invariants=False).coalesce().to_sparse_csr()
+    touched = blk.scatter.tiles.rows.numel()
+    nbytes = (A.numel() * 2 + 4 * N * nd + touched * B * 2
+              + (0 if coef is None else B * 2) + 2 * touched * B * 2)
+    bounds = {"span": bound_ms(nbytes, 2 * N * nd * nd * B, 2)}
+    label = (f"C bf16 per-sample {label} A{tuple(A.shape)} out" if per_sample
+             else f"C bf16 {label} A{tuple(A.shape)} B={B} out")
+    g = torch.Generator(device=X.device).manual_seed(n + B)
+    out0 = torch.rand((n, B), generator=g,
+                      device=X.device).to(torch.bfloat16)
+    ok, op, ol = out0.clone(), out0.clone(), out0.float()
+    untouched = torch.ones(n, dtype=torch.bool, device=X.device)
+    untouched[blk.scatter.tiles.rows.long()] = False
+    terms = out0.float() + element_apply_plain(
+        A.float().abs(), blk.dofs, blk.scatter, X.float().abs(),
+        None if coef is None else coef.float())
+
+    def check():
+        yk = blk.apply_batched(X, coef, out=out0.clone())
+        yp = element_apply_plain(A, blk.dofs, blk.scatter, X, coef,
+                                 out=out0.clone())
+        if not torch.equal(yk[untouched], out0[untouched]):
+            raise AssertionError(f"{label}: rows the block does not touch "
+                                 "changed")
+        return yk, yp
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return compare(
+            label, lambda: blk.apply_batched(X, coef, out=ok),
+            lambda: element_apply_plain(A, blk.dofs, blk.scatter, X, coef,
+                                        out=op),
+            rtol, bounds=bounds, check=check, terms=terms,
+            library=lambda: torch.addmm(ol.view_as(Xc), csr, Xc))
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at the sweep's own shapes."""
     import torch
@@ -477,6 +698,28 @@ def phase_kernels(dev):
         out["element_apply"].append(element_case(
             label, blk, rnd(blk.ndofs, dtype), coef32.to(dtype), rtol,
             form))
+    # the bf16 operand forms on the same bands and blocks: A on the mid K
+    # band (the hybrid cycle's) and the fine K band (the mult cycle's), B
+    # in both forms on the fine transfers, C on the fine Robin block in
+    # the out= form (tolerances: compare's ``terms``)
+    bf16 = torch.bfloat16
+    out["band_apply bf16"] = [band_case(
+        f"A bf16 {label} band {tuple(s.Kband.shape)} B={B_SWEEP}",
+        s.Kband.to(bf16), s.Kspans,
+        rnd(s.Kband.shape[0] * s.Kband.shape[1], bf16), coef32.to(bf16))
+        for label, s in (("mid", ml.levels[1].sys), ("fine", sys_))]
+    out["rect_band_apply bf16"] = []
+    for label, band, offs, spans, rows in (
+            ("restrict", tb.r, tb.ro, tb.rs, tb.pad_r),
+            ("prolong", tb.p, tb.po, tb.ps, tb.pad_p)):
+        for xd, form in ((torch.float32, "bf16 band, f32 X"),
+                         (bf16, "all bf16")):
+            out["rect_band_apply bf16"].append(rect_case(
+                f"B {form} fine {label} {tuple(band.shape)} B={B_SWEEP}",
+                band.to(bf16), offs, spans, rnd(rows, xd)))
+    out["element_apply bf16"] = [element_case(
+        "R", sys_.R.with_bf16(), rnd(sys_.ndofs, bf16), coef32.to(bf16),
+        1e-5, "out")]
     del sys_, ml
     torch.cuda.empty_cache()
     return out
@@ -549,6 +792,34 @@ def phase_kernels_flow(dev):
         out["element_apply"].append(element_case(
             label, blk, rnd(blk.ndofs, 3),
             torch.rand(3, generator=g, device=dev) + 0.5, 2e-5, "out"))
+    # the bf16 forms at the shapes the mult cycle of this path gives them
+    # at B = 3 (an odd B takes the kernels' scalar stores and plain or
+    # 4-byte X copies): A on the fine advection band and on the first mid
+    # level's K (with coef) and advection bands, B in both forms on the
+    # fine transfers, C on the fine and mid Robin blocks in the out= form
+    bf16 = torch.bfloat16
+    mid = aml.levels[1].sys
+    coef3 = torch.rand(3, generator=g, device=dev) + 0.5
+    out["band_apply bf16"] = [band_case(
+        f"A bf16 {label} {tuple(band.shape)} B=3", band.to(bf16), spans,
+        rnd(band.shape[0] * band.shape[1], 3, bf16),
+        None if coef is None else coef.to(bf16))
+        for label, band, spans, coef in (
+            ("Adv band", adv.Advband, adv.Advspans, None),
+            ("mid K band", mid.Kband, mid.Kspans, coef3),
+            ("mid Adv band", mid.Advband, mid.Advspans, None))]
+    tb = aml.levels[0].bands
+    out["rect_band_apply bf16"] = [rect_case(
+        f"B {form} transport {way} {tuple(band.shape)} B=3", band.to(bf16),
+        offs, spans, rnd(rows, 3, xd))
+        for way, band, offs, spans, rows in (
+            ("restrict", tb.r, tb.ro, tb.rs, tb.pad_r),
+            ("prolong", tb.p, tb.po, tb.ps, tb.pad_p))
+        for xd, form in ((torch.float32, "bf16 band, f32 X"),
+                         (bf16, "all bf16"))]
+    out["element_apply bf16"] = [element_case(
+        label, blk.with_bf16(), rnd(blk.ndofs, 3, bf16), coef3.to(bf16),
+        1e-5, "out") for label, blk in (("R", adv.R), ("mid R", mid.R))]
     del adv, aml, vel, vml
     torch.cuda.empty_cache()
     return out
@@ -602,7 +873,10 @@ def phase_kernels_advdiff(dev):
     rectangle at h = 0.02, B = 9): the fine Robin batch in f64 (the true
     residuals'; out= and full) and in f32 (every inner apply and fine
     smoothing), and both mid levels' batches in f32 (their smoothing).
-    f64 1e-12, f32 2e-5 (summation order), as C's other cases."""
+    f64 1e-12, f32 2e-5 (summation order), as C's other cases.  Then the
+    fine batch in bf16, and kernel A in f32 on the rectangle's fine
+    advection band at B = 9.  Returns (per-sample cases, A's case, C's
+    bf16 case)."""
     import torch
     sys_, ml, Rb, D = rect_step_setup(dev)
     B = len(D)
@@ -623,9 +897,15 @@ def phase_kernels_advdiff(dev):
              "out")):
         cases.append(element_case(label, blk, rnd(blk.ndofs, dtype), None,
                                   rtol, form))
+    c16 = element_case("R", fine.with_bf16(),
+                       rnd(fine.ndofs, torch.bfloat16), None, 1e-5, "out")
+    band = sys_.Advband
+    a9 = band_case(f"A rectangle Adv band {tuple(band.shape)} B={B}", band,
+                   sys_.Advspans,
+                   rnd(band.shape[0] * band.shape[1], torch.float32), None)
     del sys_, ml, Rb
     torch.cuda.empty_cache()
-    return cases
+    return cases, a9, c16
 
 
 def _csv_rows(path):
@@ -697,11 +977,17 @@ def zero_launches():
                                                         rect_band_apply)
     from fenics_eff_uptake_tpu_torch.ops.elemspmv import ElementKernel
     band_apply.launches = rect_band_apply.launches = 0
+    band_apply.launches_bf16 = rect_band_apply.launches_bf16 = 0
+    rect_band_apply.launches_bf16_band = 0
     ElementKernel.launches = ElementKernel.launches_out = 0
-    ElementKernel.launches_sample = 0
+    ElementKernel.launches_sample = ElementKernel.launches_bf16 = 0
 
 
 PER_SAMPLE = "element_apply per-sample"
+# the bf16 forms' counts (among each kernel's launches); B's two forms
+# together, and the bf16-band, f32-X form apart
+BF16_KEYS = ("band_apply bf16", "rect_band_apply bf16",
+             "rect_band_apply bf16 band", "element_apply bf16")
 
 
 def read_launches():
@@ -717,14 +1003,25 @@ def read_launches():
             "element_apply out": ElementKernel.launches_out,
             "element_apply full": (ElementKernel.launches
                                    - ElementKernel.launches_out),
-            PER_SAMPLE: ElementKernel.launches_sample}
+            PER_SAMPLE: ElementKernel.launches_sample,
+            "band_apply bf16": band_apply.launches_bf16,
+            "rect_band_apply bf16": (rect_band_apply.launches_bf16
+                                     + rect_band_apply.launches_bf16_band),
+            "rect_band_apply bf16 band": rect_band_apply.launches_bf16_band,
+            "element_apply bf16": ElementKernel.launches_bf16}
 
 
 def never_launched(launches, per_sample=False):
     """Names of the kernels a path never launched; C's per-sample form
-    counts only on a path that has per-sample blocks."""
+    counts only on a path that has per-sample blocks.  The earlier paths
+    run the default configuration: a bf16 launch there is a fault."""
+    stray = [n for n in BF16_KEYS if launches[n] != 0]
+    if stray:
+        raise AssertionError(f"bf16 forms launched by a default "
+                             f"configuration: {stray} in {launches}")
     return [n for n, c in launches.items()
-            if c <= 0 and (per_sample or n != PER_SAMPLE)]
+            if c <= 0 and n not in BF16_KEYS
+            and (per_sample or n != PER_SAMPLE)]
 
 
 def phase_slice(dev):
@@ -1001,6 +1298,310 @@ def phase_no_adv_studies(dev):
     return launches, stats, worst
 
 
+def _busy_ms(fn):
+    """Device busy time of one fn(): torch.profiler's CUDA records summed
+    (device records only); None where two traces in a row hold none."""
+    us = _profiled_us(fn, cpu=False) or _profiled_us(fn, cpu=False)
+    return us / 1e3 if us > 0 else None
+
+
+def cycle_vs_plain(name, ml, R, **cycle_kw):
+    """One application M(R) of a hierarchy's cycle through the kernels on
+    the card against the same cycle through their plain versions on the
+    card (``band_apply_plain``, ``rect_band_apply_plain``,
+    ``element_apply_plain`` put in the wrappers' places for that one
+    call), so that a solve that does not converge under this cycle cannot
+    be a wrong kernel at these shapes.  Raises unless every entry of the
+    kernels' result is finite and, for a cycle in bf16 (whose result is a
+    bf16 vector upcast), >= 99% of the entries equal plain's and all lie
+    within 4 bf16 steps of max |M r| (2^-6) of it; for an f32 cycle,
+    within 1e-4 of max |M r|."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.ops import banded, elemspmv
+    from fenics_eff_uptake_tpu_torch.parallel import sweep
+    from fenics_eff_uptake_tpu_torch.solvers import multilevel
+
+    M = multilevel.make_ml_preconditioner(ml, **cycle_kw)
+    Mk = M(R)
+
+    def plain_block(self, X, coef=None, out=None):
+        return elemspmv.element_apply_plain(
+            self.matrices(X.dtype), self.dofs, self.scatter, X, coef, out)
+
+    kept = (multilevel.band_apply, multilevel.rect_band_apply,
+            sweep._Block.apply_batched)
+    n0 = read_launches()
+    multilevel.band_apply = (
+        lambda band, X, coef=None, spans=None:
+        banded.band_apply_plain(band, X, coef))
+    multilevel.rect_band_apply = (
+        lambda band, offs, Xq, spans=None:
+        banded.rect_band_apply_plain(band, offs, Xq))
+    sweep._Block.apply_batched = plain_block
+    try:
+        Mp = M(R)
+    finally:
+        (multilevel.band_apply, multilevel.rect_band_apply,
+         sweep._Block.apply_batched) = kept
+    torch.cuda.synchronize()
+    if read_launches() != n0:
+        raise AssertionError(f"{name}: the plain cycle launched a kernel")
+    if not bool(torch.isfinite(Mk).all() and torch.isfinite(Mp).all()):
+        raise AssertionError(f"{name}: M(R) is not finite")
+    scale = float(Mp.abs().max())
+    err = float((Mk - Mp).abs().max()) / scale
+    equal = float((Mk == Mp).float().mean())
+    lowp = cycle_kw.get("dtype") == torch.bfloat16
+    tol = 2.0 ** -6 if lowp else 1e-4
+    print(f"[configs] {name}: one cycle M(R) on {tuple(R.shape)}, kernels "
+          f"against plain on the card: max |diff| / max |M r| {err:.3e} "
+          f"(tol {tol:.1e}), {100 * equal:.3f}% of the entries equal",
+          flush=True)
+    if not err <= tol or (lowp and not equal >= 0.99):
+        raise AssertionError(f"{name}: the cycle through the kernels is "
+                             f"{err:.3e} of max |M r| off the plain cycle, "
+                             f"{equal:.4f} of the entries equal")
+    return {"cycle_vs_plain_err": err, "cycle_vs_plain_equal": equal}
+
+
+def run_config(tag, name, solve, X_ref=None, gate=True):
+    """One configuration of a solve, three times: the first run counts the
+    launches, the second is timed (steady solve seconds, device synced on
+    both sides), the third is profiled (device busy ms; idle share of the
+    steady seconds).  Held to a true f64 relative residual <= 1e-11 and,
+    against ``X_ref``, to max |X - X_ref| < 1e-8.  ``gate`` False: a solve
+    that does not converge is reported as a finding (one run, no times)
+    and not raised."""
+    import torch
+    t_row = time.time()
+    zero_launches()
+    X, info = solve()
+    launches = read_launches()
+    torch.cuda.synchronize()
+    if not gate and not bool(np.all(info["converged"])):
+        row = {"config": name, "iters": np.asarray(info["iters"]).tolist(),
+               "passes": info.get("passes"), "converged": False,
+               "true_rel_resnorm": [float(v) for v in
+                                    info["true_rel_resnorm"]],
+               "launches": launches}
+        print(f"[{tag}] FINDING {name}: did not converge: iters "
+              f"{row['iters']} passes {row['passes']} true rel residuals "
+              f"{row['true_rel_resnorm']} launches {launches}", flush=True)
+        return X, row
+    t0 = time.time()
+    X2, info2 = solve()
+    torch.cuda.synchronize()
+    solve_s = time.time() - t0
+    busy = _busy_ms(solve)
+    if not torch.equal(X, X2):
+        raise AssertionError(f"{name}: two runs of the solve differ")
+    res = float(np.max(info["true_rel_resnorm"]))
+    dx = None if X_ref is None else float((X - X_ref).abs().max())
+    row = {"config": name, "iters": np.asarray(info["iters"]).tolist(),
+           "passes": info.get("passes"), "converged": True,
+           "solve_s": solve_s,
+           "device_busy_ms": busy,
+           "idle_share": None if busy is None else 1 - busy / 1e3 / solve_s,
+           "max_true_rel_resnorm": res, "max_dx": dx, "launches": launches,
+           "row_s": time.time() - t_row}
+    print(f"[{tag}] {name}: iters max {max(row['iters'])} "
+          f"min {min(row['iters'])} passes {row['passes']} steady solve "
+          f"{solve_s:.4f}s "
+          + ("device busy and idle share not measured (no CUDA record) "
+             if busy is None else
+             f"device busy {busy:.2f} ms idle share {row['idle_share']:.3f} ")
+          + f"max true rel residual {res:.3e} "
+          f"max |X - X_default| {dx if dx is None else f'{dx:.3e}'} "
+          f"launches {launches} ({row['row_s']:.1f}s for the row)",
+          flush=True)
+    if not res <= 1e-11:
+        raise AssertionError(f"{name}: true rel residual {res:.3e} > 1e-11")
+    if dx is not None and not dx < 1e-8:
+        raise AssertionError(f"{name}: max |X - X_default| {dx:.3e} >= 1e-8")
+    return X, row
+
+
+def check_bf16_launches(name, launches, transfers=False, cycle=False):
+    """The bf16 forms a configuration must have launched, and no other:
+    ``transfers``: B's bf16-band, f32-X form alone; ``cycle``: A, B (all
+    bf16) and C in bf16, and not the f32-X form."""
+    want = {"band_apply bf16": cycle, "element_apply bf16": cycle,
+            "rect_band_apply bf16 band": transfers,
+            "rect_band_apply bf16": cycle or transfers}
+    bad = {k: launches[k] for k, w in want.items()
+           if (launches[k] > 0) != w}
+    if cycle and launches["rect_band_apply bf16 band"] != 0:
+        bad["rect_band_apply bf16 band"] = launches[
+            "rect_band_apply bf16 band"]
+    if bad:
+        raise AssertionError(f"{name}: bf16 launches {bad} (expected "
+                             f"{want}) in {launches}")
+
+
+def phase_configs(dev):
+    """Every solver configuration on the mu-sweep system at full width,
+    the no-uptake transport solve under the mult cycle in f32 and bf16,
+    and the Jacobi branch.  Returns (rows, summed launches)."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.parallel.sweep import (
+        build_transport_system, operator_args, operator_rhs, solve_sweep)
+    from fenics_eff_uptake_tpu_torch.solvers.multilevel import (
+        build_multilevel_for)
+    from fenics_eff_uptake_tpu_torch.studies.common import (
+        make_mesh, make_no_adv_params, stokes_for_study, sweep_mus)
+    from fenics_eff_uptake_tpu_torch.studies.no_uptake import _make_params
+    from fenics_eff_uptake_tpu_torch.studies.phase_a import (
+        MU_SWEEP_REGIMES, run_mu_sweep)
+
+    bf16 = torch.bfloat16
+
+    def opening_residual(s, D, mu):
+        # the f32 residual that opens the solve's first pass, and a seeded
+        # random vector on the free rows beside it
+        a64 = operator_args(s, D, mu, f32=False)
+        G = s.bc_values[:, None].expand(-1, len(D)).contiguous()
+        R = torch.where(s.free[:, None], operator_rhs(a64, G), 0.0).float()
+        g = torch.Generator(device=dev).manual_seed(len(D))
+        Z = torch.rand(R.shape, generator=g, device=dev) * 2 - 1
+        return R, torch.where(s.free[:, None], Z, 0.0)
+
+    def held_to_plain(name, h, Rs, kw):
+        # every configuration with a bf16 form: its cycle through the
+        # kernels against the cycle through their plain versions
+        ckw = {("dtype" if k == "ml_dtype" else k): v for k, v in kw.items()
+               if k in ("cycle", "ml_dtype", "transfer_dtype")}
+        if bf16 not in ckw.values():
+            return {}
+        out = [cycle_vs_plain(f"{name}, {tag}", h, R, **ckw)
+               for tag, R in zip(("opening residual", "random"), Rs)]
+        return {k: (max if k.endswith("err") else min)(o[k] for o in out)
+                for k in out[0]}
+
+    factors = [f for r in MU_SWEEP_REGIMES.values() for f in r]
+    geom = make_no_adv_params(1.0, sulci_w_dim=0.25, sulci_h_dim=0.25,
+                              mesh_size_dim=0.02)
+    mesh = make_mesh(geom)
+    mus = sweep_mus(geom, factors)
+    D = [geom.D] * len(mus)
+    sys_ = build_transport_system(mesh, dev)
+    build_s = {}
+    hier = {}
+    # each hierarchy once (the earlier phases have built the like of it)
+    for name, kw in (("lapack", {}),
+                     ("newton_schulz", {"coarse_inverse": "newton_schulz"})):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        hier[name] = build_multilevel_for(sys_, mesh, D, mus, **kw)
+        torch.cuda.synchronize()
+        build_s[name] = time.time() - t0
+    ml, ml_ns = hier["lapack"], hier["newton_schulz"]
+    ns = ml_ns.info["coarse_inverse"]
+    rel = float((ml_ns.Ainv - ml.Ainv).abs().max() / ml.Ainv.abs().max())
+    print(f"[configs] hierarchy build seconds by coarsest inverse: "
+          f"{ {k: round(v, 4) for k, v in build_s.items()} }; Newton-Schulz "
+          f"{ns['iters']} iterations on {tuple(ml_ns.Ainv.shape)}, worst "
+          f"max|I - A X| {ns['worst_residual']:.3e}, {rel:.3e} of max "
+          f"|Ainv| from LAPACK's", flush=True)
+    if not ns["worst_residual"] <= 1e-3:
+        raise AssertionError(f"Newton-Schulz residual {ns}")
+
+    configs = [
+        ("default", ml, {}),
+        ("transfer_dtype=bf16", ml, {"transfer_dtype": bf16}),
+        ("ml_dtype=bf16", ml, {"ml_dtype": bf16}),
+        ("cycle=add", ml, {"cycle": "add"}),
+        ("cycle=mult", ml, {"cycle": "mult"}),
+        ("cycle=mult ml_dtype=bf16", ml, {"cycle": "mult",
+                                          "ml_dtype": bf16}),
+        ("cheap_passes=0", ml, {"cheap_passes": 0}),
+        ("precision=f64 cycle=mult", ml, {"precision": "f64",
+                                          "cycle": "mult"}),
+        ("coarse_inverse=newton_schulz", ml_ns, {}),
+    ]
+    rows, X_ref = [], None
+    Rs = opening_residual(sys_, D, mus)
+    for name, h, kw in configs:
+        held = held_to_plain(name, h, Rs, kw)
+        X, row = run_config(
+            "configs", name,
+            lambda: solve_sweep(sys_, D, mus, multilevel=h, **kw), X_ref)
+        row.update(held)
+        X_ref = X if X_ref is None else X_ref
+        check_bf16_launches(name, row["launches"],
+                            transfers=name == "transfer_dtype=bf16",
+                            cycle=name.endswith("ml_dtype=bf16"))
+        rows.append(dict(row, path="mu_sweep"))
+    f64 = next(r for r in rows
+               if r["config"].startswith("precision=f64"))["launches"]
+    if f64["band_apply"] or f64["rect_band_apply"] or not f64[
+            "element_apply full"]:
+        raise AssertionError(f"the f64 solve's launches: {f64}")
+    rows[0]["hierarchy_build_s"] = build_s
+    del sys_, ml, ml_ns, hier, X_ref, Rs
+    torch.cuda.empty_cache()
+
+    # the no-uptake transport solve: the mult cycle's fine band applies
+    # sit inside M, in f32 and in bf16 side by side.  BiCGStab needs a
+    # fixed linear M; a cycle that rounds its vectors to bf16 is neither,
+    # and the solve may stall or break down: the f32 row is held to the
+    # gates, the bf16 rows are reported as they come
+    p0 = _make_params(PECLET[0], 0.5, 1.0, 0.02)
+    mesh = make_mesh(p0, "sulcus")
+    u, _ = stokes_for_study(mesh, p0.H, dev)
+    D = [1.0 / pe for pe in PECLET]
+    mu0 = [0.0] * len(D)
+    adv = build_transport_system(mesh, dev, u_values=u.values,
+                                 u_space=u.space)
+    aml = build_multilevel_for(adv, mesh, D, mu0, u_fine=u)
+    X_ref = None
+    Rs = opening_residual(adv, D, mu0)
+    for name, kw in (("no_uptake mult f32", {}),
+                     ("no_uptake mult bf16", {"ml_dtype": bf16}),
+                     ("no_uptake mult bf16 transfers",
+                      {"transfer_dtype": bf16})):
+        held = held_to_plain(name, aml, Rs, dict(kw, cycle="mult"))
+        X, row = run_config(
+            "configs", name,
+            lambda: solve_sweep(adv, D, mu0, multilevel=aml, **kw), X_ref,
+            gate=not kw)
+        row.update(held)
+        X_ref = X if X_ref is None else X_ref
+        check_bf16_launches(name, row["launches"],
+                            transfers=name.endswith("transfers"),
+                            cycle=name.endswith("bf16"))
+        rows.append(dict(row, path="no_uptake"))
+        if not kw and row["iters"] != [15, 28, 171]:
+            print(f"[configs] FINDING: the f32 mult solve read "
+                  f"{row['iters']}, not the study's [15, 28, 171]",
+                  flush=True)
+    del adv, aml, X_ref, Rs
+    torch.cuda.empty_cache()
+
+    # the Jacobi branch: no hierarchy at h >= 0.08
+    zero_launches()
+    _, st = run_mu_sweep(dev, 0.08, base_dir=str(OUT_DIR / "jacobi"),
+                         verbose=False)
+    jl = read_launches()
+    print(f"[configs] Jacobi branch (h = 0.08, {st['cells']} cells): CG "
+          f"iters max {max(st['iters'])} in {st['passes']} passes, solve "
+          f"{st['solve_s']:.3f}s, max rel residual "
+          f"{max(st['rel_resnorm']):.3e}, launches {jl}", flush=True)
+    if st["multilevel"]:
+        raise AssertionError("h = 0.08 built a hierarchy")
+    if not max(st["rel_resnorm"]) <= 1e-11:
+        raise AssertionError(f"Jacobi branch: rel residual "
+                             f"{max(st['rel_resnorm']):.3e} > 1e-11")
+    if jl["rect_band_apply"] or not jl["band_apply"]:
+        raise AssertionError(f"Jacobi branch launches: {jl}")
+    rows.append({"config": "jacobi h=0.08", "path": "mu_sweep",
+                 "iters": st["iters"], "passes": st["passes"],
+                 "converged": True, "solve_s": st["solve_s"], "launches": jl,
+                 "max_true_rel_resnorm": max(st["rel_resnorm"])})
+    total = {k: sum(r["launches"][k] for r in rows)
+             for k in rows[0]["launches"]}
+    return rows, total
+
+
 def _cprofile(tag, fn):
     """cProfile of fn(): the top 40 entries by cumulative time printed,
     60 written to build/chip_smoke/profile_<tag>.txt; returns fn()."""
@@ -1151,14 +1752,30 @@ def main(argv=None):
     build_s = time.time() - t0
     print(f"[build] {lib_path.name} ready in {build_s:.1f}s", flush=True)
 
-    cases = phase_kernels(dev)
-    for name, cs in phase_kernels_flow(dev).items():
+    phase_s = {"build": build_s}
+
+    def timed(name, fn):
+        t = time.time()
+        out = fn(dev)
+        phase_s[name] = time.time() - t
+        print(f"[time] {name}: {phase_s[name]:.1f}s", flush=True)
+        return out
+
+    cases = timed("kernels", phase_kernels)
+    for name, cs in timed("kernels_flow", phase_kernels_flow).items():
         cases[name] += cs
-    cases[PER_SAMPLE] = phase_kernels_advdiff(dev)
-    launches, stats, stats2, worst = phase_slice(dev)
-    nu_launches, nu_stats, nu_stats2, nu_worst = phase_no_uptake(dev)
-    ad_launches, ad_stats, ad_stats2, ad_worst = phase_adv_diff(dev)
-    na_launches, na_stats, na_worst = phase_no_adv_studies(dev)
+    cases[PER_SAMPLE], a9, c16 = timed("kernels_advdiff",
+                                       phase_kernels_advdiff)
+    cases["band_apply"].append(a9)
+    cases["element_apply bf16"].append(c16)
+    launches, stats, stats2, worst = timed("slice", phase_slice)
+    nu_launches, nu_stats, nu_stats2, nu_worst = timed("no_uptake",
+                                                       phase_no_uptake)
+    ad_launches, ad_stats, ad_stats2, ad_worst = timed("adv_diff",
+                                                       phase_adv_diff)
+    na_launches, na_stats, na_worst = timed("no_adv_studies",
+                                            phase_no_adv_studies)
+    cfg_rows, cfg_launches = timed("configs", phase_configs)
     if args.profile:
         phase_profile(dev)
 
@@ -1170,9 +1787,18 @@ def main(argv=None):
         "rect_band_apply": ("band_apply.cu", f"{PALLAS}:274"),
         "element_apply": ("element_apply.cu", f"{PALLAS}:51"),
         PER_SAMPLE: ("element_apply.cu", f"{JAX_SWEEP}:104"),
+        # the bf16 operand forms: the TPU kernels' bf16 branches; launched
+        # by the configs phase alone
+        "band_apply bf16": ("band_apply.cu", f"{PALLAS}:138"),
+        "rect_band_apply bf16": ("band_apply.cu", f"{PALLAS}:258"),
+        "element_apply bf16": ("element_apply.cu", f"{PALLAS}:51"),
     }
     by_path = {"mu_sweep": launches, "no_uptake": nu_launches,
-               "adv_diff": ad_launches, "no_adv_studies": na_launches}
+               "adv_diff": ad_launches, "no_adv_studies": na_launches,
+               "configs": cfg_launches}
+    unlaunched = [n for n in meta if sum(p[n] for p in by_path.values()) <= 0]
+    if unlaunched:
+        raise AssertionError(f"kernels no path launched: {unlaunched}")
     kernels = []
     for name, (src, replaces) in meta.items():
         cs = cases[name]
@@ -1187,8 +1813,11 @@ def main(argv=None):
                if name == "element_apply" else {}),
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "max_rel_err": max(c["max_rel_err"] for c in cs),
-            **{k: cs[0][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")},
+            # the kernel's first case (the first with a device time,
+            # should the profiler have been lost on the way)
+            **{k: next((c for c in cs if c["ms"] is not None), cs[0])[k]
+               for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")},
             "cases": cs})
     summary = {"card": card, "build_s": build_s, "kernels": kernels,
                "first": stats, "steady": stats2, "golden_worst": worst,
@@ -1198,6 +1827,7 @@ def main(argv=None):
                "adv_diff_golden_worst": ad_worst,
                "no_adv_studies": na_stats,
                "no_adv_studies_golden_worst": na_worst,
+               "configs": cfg_rows, "phase_s": phase_s,
                "wall_s": time.time() - t_start}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))

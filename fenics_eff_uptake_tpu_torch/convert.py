@@ -117,8 +117,21 @@ def velocity_from_values(values, mesh) -> Function:
 
 
 def multilevel_from_arrays(levels: List[dict], Ainv, free_c, omega, D_vec,
-                           mu_vec, device) -> MultilevelData:
+                           mu_vec, device,
+                           coarse_info=None) -> MultilevelData:
     """The port's MultilevelData from the numpy leaves of a JAX one.
+
+    The JAX hierarchy holds f32 arrays whatever its cycle's dtype: the
+    bf16 cycle and the bf16 transfer bands (its ``FEU_ML_BF16`` and
+    ``FEU_ML_TB_BF16`` settings) cast them where the cycle's arguments are
+    made.  So a hierarchy built under either setting carries over as it
+    is, and the port's cycle makes its bf16 copies of the carried arrays
+    when ``make_ml_preconditioner`` is given that dtype.  ``Ainv``
+    is the JAX hierarchy's (B, nc, nc) f32 inverses however they were made
+    (host LAPACK or its device Newton-Schulz); ``coarse_info`` is kept as
+    the hierarchy's ``info["coarse_inverse"]``.  A level without the
+    ``tb_*`` keys (the JAX CPU default's gather transfers) carries no
+    bands: only the f64 cycle runs on it.
 
     ``levels`` holds one dict per smoothed level (fine first) with keys
     ``sys`` (a ``_system_to_arrays`` dict), ``mesh``, ``element``, ``dinv``,
@@ -144,12 +157,15 @@ def multilevel_from_arrays(levels: List[dict], Ainv, free_c, omega, D_vec,
         tr = Transfer(cols=np.asarray(lv["t_cols"]),
                       weights=np.asarray(lv["t_w"]),
                       n_coarse=int(lv["n_coarse"]))
-        p, r = f32(lv["tb_p"]), f32(lv["tb_r"])
-        bands = TransferBands(p=p, po=_i32(lv["tb_po"], device),
-                              r=r, ro=_i32(lv["tb_ro"], device),
-                              sig=idx(lv["tb_sig"]), isig=idx(lv["tb_isig"]),
-                              pad_p=int(lv["pad_p"]), pad_r=int(lv["pad_r"]),
-                              ps=band_spans(p), rs=band_spans(r))
+        bands = None
+        if lv.get("tb_p") is not None:
+            p, r = f32(lv["tb_p"]), f32(lv["tb_r"])
+            bands = TransferBands(
+                p=p, po=_i32(lv["tb_po"], device),
+                r=r, ro=_i32(lv["tb_ro"], device),
+                sig=idx(lv["tb_sig"]), isig=idx(lv["tb_isig"]),
+                pad_p=int(lv["pad_p"]), pad_r=int(lv["pad_r"]),
+                ps=band_spans(p), rs=band_spans(r))
         rb = lv.get("R_batch")
         out.append(Level(sys=sys_l, dinv=f32(lv["dinv"]), free=sys_l.free,
                          transfer=tr, bands=bands,
@@ -163,4 +179,7 @@ def multilevel_from_arrays(levels: List[dict], Ainv, free_c, omega, D_vec,
         D_vec=torch.tensor(np.asarray(D_vec), dtype=torch.float64,
                            device=device),
         mu_vec=torch.tensor(np.asarray(mu_vec), dtype=torch.float64,
-                            device=device))
+                            device=device),
+        info={"coarse_inverse": coarse_info
+              or {"method": "carried", "worst_residual": None}},
+        lowp={})

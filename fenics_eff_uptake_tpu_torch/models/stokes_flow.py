@@ -162,18 +162,25 @@ class StokesSetup(NamedTuple):
 def _widened(ml, ncols):
     """The hierarchy of a unit-D, mu = 0 sweep applied to ``ncols``
     columns at once: inverse diagonals and the coarsest inverse of column
-    0 broadcast over all of them."""
+    0 broadcast over all of them.  It shares the hierarchy's copies in
+    other dtypes (``lowp``)."""
     dev = ml.D_vec.device
     return ml._replace(
         levels=tuple(la._replace(dinv=la.dinv[:, :1]) for la in ml.levels),
         Ainv=ml.Ainv[:1],
+        A_c=None if ml.A_c is None else ml.A_c[:1],
         D_vec=torch.ones(ncols, dtype=torch.float64, device=dev),
         mu_vec=torch.zeros(ncols, dtype=torch.float64, device=dev))
 
 
-def stokes_setup(mesh: MeshData, H: float, device) -> StokesSetup:
+def stokes_setup(mesh: MeshData, H: float, device, ml_dtype=None,
+                 transfer_dtype=None, n_smooth=1,
+                 coarse_inverse="lapack") -> StokesSetup:
     """Operators, preconditioner and right-hand side of the saddle
-    system (the JAX ``_stokes_mg_setup``)."""
+    system (the JAX ``_stokes_mg_setup``).  ml_dtype, transfer_dtype and
+    n_smooth: the velocity block's mult cycle, as
+    ``make_ml_preconditioner`` takes them; coarse_inverse: its hierarchy's,
+    as ``build_multilevel`` does."""
     device = torch.device(device)
     sysV = build_transport_system(mesh, device, "P2",
                                   dirichlet=VELOCITY_DIRICHLET,
@@ -206,7 +213,9 @@ def stokes_setup(mesh: MeshData, H: float, device) -> StokesSetup:
 
     ml = build_multilevel(sysV, level_meshes_for(mesh), np.ones(2),
                           np.zeros(2), dirichlet=VELOCITY_DIRICHLET,
-                          with_robin=False)
+                          with_robin=False, coarse_inverse=coarse_inverse)
+    cyc = dict(cycle="mult", dtype=ml_dtype, transfer_dtype=transfer_dtype,
+               n_smooth=n_smooth)
     a64 = operator_args(sysV, np.ones(2), np.zeros(2), f32=False)
     a32 = operator_args(sysV, np.ones(2), np.zeros(2), f32=True)
     free_p_np = np.ones(np_, dtype=bool)
@@ -222,7 +231,7 @@ def stokes_setup(mesh: MeshData, H: float, device) -> StokesSetup:
     Z = torch.as_tensor(Z_np, device=device)
     VT = div.apply_t(Z).reshape(ns, 2, KZ)
     VT = torch.where(free[:, :, None], VT, 0.0)
-    wide = make_ml_preconditioner(_widened(ml, 2 * KZ), cycle="mult")
+    wide = make_ml_preconditioner(_widened(ml, 2 * KZ), **cyc)
     W = wide(VT.float().permute(0, 2, 1).reshape(ns, 2 * KZ).contiguous())
     Wm = W.reshape(ns, KZ, 2).permute(0, 2, 1)
     S_Z = torch.einsum("nik,niz->kz", VT, Wm.double()).cpu().numpy()
@@ -237,7 +246,7 @@ def stokes_setup(mesh: MeshData, H: float, device) -> StokesSetup:
     ws = np.clip(ws, 1e-10 * max(ws.max(), 1e-30), None)
     Cinv = torch.as_tensor(COARSE_SCALE * (Vs / ws) @ Vs.T, device=device)
 
-    Mv = make_ml_preconditioner(ml, cycle="mult")
+    Mv = make_ml_preconditioner(ml, **cyc)
     Z32, Cinv32, mp32 = Z.float(), Cinv.float(), mp_inv.float()
 
     def M32(x):
@@ -289,14 +298,15 @@ def saddle_solve(st: StokesSetup, rtol=OUTER_RTOL):
                "converged": bool(rn <= rtol * max(bnorm, 1e-300))}
 
 
-def stokes_solve_mg(mesh: MeshData, H: float, device, rtol=OUTER_RTOL):
+def stokes_solve_mg(mesh: MeshData, H: float, device, rtol=OUTER_RTOL,
+                    **cycle_options):
     """Velocity and pressure Functions (numpy values in FunctionSpace
     numbering): ``stokes_setup`` then ``saddle_solve``.  Both carry
     ``solver_info``: the ``saddle_solve`` report plus method, setup_s and
     solve_s (each ending in a device sync)."""
     device = torch.device(device)
     t0 = time.time()
-    st = stokes_setup(mesh, H, device)
+    st = stokes_setup(mesh, H, device, **cycle_options)
     t1 = _sync(device)
     x, info = saddle_solve(st, rtol)
     t2 = _sync(device)

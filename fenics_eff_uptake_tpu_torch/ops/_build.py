@@ -36,6 +36,9 @@ _SIGNATURES = {
     "feu_band_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "feu_rect_band_apply": [_P, _P, _P, _P, _P, _I, _I, _I,
                             ctypes.c_longlong, _I, _P],
+    "feu_band_apply_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "feu_rect_band_apply_bf16": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                 ctypes.c_longlong, _I, _I, _P],
     "feu_element_apply": [_P, _P, _P, _P, _I, _I, _P],
 }
 

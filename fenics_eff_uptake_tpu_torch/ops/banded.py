@@ -23,6 +23,21 @@ chunks that holds all of its nonzeros; it is computed once where each band
 is made and carried beside it, and the kernels stream only those chunks.
 Every skipped term is ``fmaf(0, x, acc) == acc``, so for finite X the
 result equals the full-width sum bit for bit.
+
+Operand types.  Both kernels take f32 operands, and the bf16 operand forms
+of the JAX package's bf16 cycle and bf16 transfer bands:
+
+    A          band, X, coef and Y in bf16
+    B, form 1  band in bf16, X in f32 (rounded to bf16 as it is read), Y f32
+    B, form 2  band, X and Y in bf16
+
+In each the products are formed from the bf16 values and summed in f32 (a
+bf16 x bf16 product is exact in f32), the coef product is made in f32, and
+a bf16 Y is rounded once, on the store; the plain versions upcast, run the
+f32 einsum and round once, and never a bf16 einsum.  The spans of an f32
+band serve its bf16 copy: bf16 has f32's exponent range, so rounding to
+bf16 makes no nonzero of the band zero (short of f32's subnormals, and a
+value that did round to zero adds nothing).
 """
 
 from __future__ import annotations
@@ -37,7 +52,8 @@ from .elemspmv import make_segment_plan, planned_segment_sum
 __all__ = ["band_from_elements", "rect_band_values", "band_spans",
            "SPAN_ROWS", "SPAN_COLS", "band_apply", "band_apply_plain",
            "check_band_apply_args", "rect_band_apply",
-           "rect_band_apply_plain", "check_rect_band_apply_args"]
+           "rect_band_apply_plain", "check_rect_band_apply_args",
+           "BAND_APPLY_DTYPES", "RECT_BAND_APPLY_DTYPES"]
 
 # the kernels' row block and column chunk (csrc/band_apply.cu kRows, kK)
 SPAN_ROWS = 64
@@ -99,11 +115,19 @@ def _check_spans(name, band, spans, dev):
 # ---------------------------------------------------------------------------
 
 def band_apply_plain(band, X, coef=None):
-    """Plain PyTorch kernel A: unfold the zero-padded X windows, einsum."""
+    """Plain PyTorch kernel A: unfold the zero-padded X windows, einsum.
+    A bf16 band: X rounded to bf16, both upcast, the f32 einsum, the coef
+    product in f32, one rounding to X's dtype."""
     T, R, W = band.shape
     halo = (W // R - 1) // 2
     n, B = X.shape
     Xp = F.pad(X.to(band.dtype), (0, 0, halo * R, halo * R))
+    if band.dtype == torch.bfloat16:
+        win = Xp.float().unfold(0, W, R)
+        Y = torch.einsum("trw,tbw->trb", band.float(), win).reshape(n, B)
+        if coef is not None:
+            Y = Y * coef.float()
+        return Y.to(X.dtype)
     win = Xp.unfold(0, W, R)                           # (T, B, W)
     Y = torch.einsum("trw,tbw->trb", band, win).reshape(n, B).to(X.dtype)
     if coef is not None:
@@ -111,10 +135,25 @@ def band_apply_plain(band, X, coef=None):
     return Y
 
 
-def _check_cuda_f32(name, band, ts, dev):
-    if band.shape[2] % 4 or band.data_ptr() % 16:
-        raise ValueError(f"{name} needs W % 4 == 0 and a 16-byte aligned "
-                         "band (it is read as float4)")
+# the (band, X) dtypes each kernel takes; Y, and A's coef, have X's
+_F32, _BF16 = torch.float32, torch.bfloat16
+BAND_APPLY_DTYPES = ((_F32, _F32), (_BF16, _BF16))
+RECT_BAND_APPLY_DTYPES = ((_F32, _F32), (_BF16, _F32), (_BF16, _BF16))
+
+
+def _check_dtypes(name, band, X, allowed):
+    if (band.dtype, X.dtype) not in allowed:
+        raise TypeError(
+            f"{name} kernel takes (band, X) in one of "
+            f"{[tuple(str(d) for d in p) for p in allowed]}, got "
+            f"{band.dtype}, {X.dtype}")
+
+
+def _check_cuda(name, band, ts, dev):
+    per = 16 // band.element_size()
+    if band.shape[2] % per or band.data_ptr() % 16:
+        raise ValueError(f"{name} needs W % {per} == 0 and a 16-byte aligned "
+                         f"band (it is copied {per} values at a time)")
     for t in ts:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name} needs every tensor on X's CUDA device")
@@ -124,9 +163,7 @@ def _check_cuda_f32(name, band, ts, dev):
 
 def check_band_apply_args(band, X, coef=None, spans=None):
     """Raise unless kernel A can take these arguments as they are."""
-    if band.dtype != torch.float32 or X.dtype != torch.float32:
-        raise TypeError(f"band_apply kernel takes f32 band and X, got "
-                        f"{band.dtype}, {X.dtype}")
+    _check_dtypes("band_apply", band, X, BAND_APPLY_DTYPES)
     if band.dim() != 3 or X.dim() != 2:
         raise ValueError("band must be (T, R, W) and X (n, B)")
     T, R, W = band.shape
@@ -138,32 +175,39 @@ def check_band_apply_args(band, X, coef=None, spans=None):
         raise ValueError(f"B={X.shape[1]}: X needs at least one column")
     ts = [band, X]
     if coef is not None:
-        if coef.dtype != torch.float32 or tuple(coef.shape) != (X.shape[1],):
-            raise ValueError("coef must be (B,) f32")
+        if coef.dtype != X.dtype or tuple(coef.shape) != (X.shape[1],):
+            raise ValueError("coef must be (B,) of X's dtype")
         ts.append(coef)
-    _check_cuda_f32("band_apply", band, ts, X.device)
+    _check_cuda("band_apply", band, ts, X.device)
     _check_spans("band_apply", band, spans, X.device)
 
 
 def band_apply(band, X, coef=None, spans=None):
     """Kernel A: Y = A @ X from the (T, R, W) band, ``coef`` (B,) fused.
-    ``spans`` (``band_spans(band)``) is required on CUDA tensors; the plain
-    version ignores it."""
+    ``spans`` (``band_spans(band)``, or of the f32 band a bf16 one was
+    rounded from) is required on CUDA tensors; the plain version ignores
+    it.  f32 operands, or band, X and coef all bf16 (f32 sums, Y bf16).
+    ``band_apply.launches`` counts the launches, ``.launches_bf16`` those
+    of the bf16 form among them."""
     if X.device.type == "cpu":
         return band_apply_plain(band, X, coef)
     check_band_apply_args(band, X, coef, spans)
     T, R, W = band.shape
     Y = torch.empty_like(X)
-    err = _build.library().feu_band_apply(
+    bf16 = band.dtype == torch.bfloat16
+    lib = _build.library()
+    err = (lib.feu_band_apply_bf16 if bf16 else lib.feu_band_apply)(
         band.data_ptr(), spans.data_ptr(), X.data_ptr(),
         None if coef is None else coef.data_ptr(), Y.data_ptr(),
         T, R, W, X.shape[1], _build.raw_stream(X.device.index))
     _build.check(err, "band_apply")
     band_apply.launches += 1
+    band_apply.launches_bf16 += bf16
     return Y
 
 
 band_apply.launches = 0
+band_apply.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -171,19 +215,21 @@ band_apply.launches = 0
 # ---------------------------------------------------------------------------
 
 def rect_band_apply_plain(band, offs, Xp):
-    """Plain PyTorch kernel B: index the windows, einsum."""
+    """Plain PyTorch kernel B: index the windows, einsum.  A bf16 band: Xp
+    rounded to bf16, both upcast, the f32 einsum, one rounding to Xp's
+    dtype."""
     T, R, W = band.shape
     idx = offs.long()[:, None] + torch.arange(W, device=Xp.device)
     win = Xp.to(band.dtype)[idx]                       # (T, W, B)
+    if band.dtype == torch.bfloat16:
+        band, win = band.float(), win.float()
     Y = torch.einsum("trw,twb->trb", band, win)
     return Y.reshape(T * R, Xp.shape[1]).to(Xp.dtype)
 
 
 def check_rect_band_apply_args(band, offs, Xp, spans=None):
     """Raise unless kernel B can take these arguments as they are."""
-    if band.dtype != torch.float32 or Xp.dtype != torch.float32:
-        raise TypeError(f"rect_band_apply kernel takes f32 band and X, got "
-                        f"{band.dtype}, {Xp.dtype}")
+    _check_dtypes("rect_band_apply", band, Xp, RECT_BAND_APPLY_DTYPES)
     if band.dim() != 3 or Xp.dim() != 2:
         raise ValueError("band must be (T, R, W) and Xp (n, B)")
     T = band.shape[0]
@@ -191,26 +237,45 @@ def check_rect_band_apply_args(band, offs, Xp, spans=None):
         raise ValueError("offs must be (T,) int32")
     if Xp.shape[1] < 1:
         raise ValueError(f"B={Xp.shape[1]}: Xp needs at least one column")
-    _check_cuda_f32("rect_band_apply", band, [band, offs, Xp], Xp.device)
+    _check_cuda("rect_band_apply", band, [band, offs, Xp], Xp.device)
     _check_spans("rect_band_apply", band, spans, Xp.device)
 
 
 def rect_band_apply(band, offs, Xp, spans=None):
     """Kernel B: Y (T*R, B) = rect_band @ Xp; Xp zero-padded by the caller
-    to the plan's ``n_cols_pad`` rows.  ``spans`` (``band_spans(band)``) is
-    required on CUDA tensors; the plain version ignores it."""
+    to the plan's ``n_cols_pad`` rows.  ``spans`` (``band_spans(band)``, or
+    of the f32 band a bf16 one was rounded from) is required on CUDA
+    tensors; the plain version ignores it.  f32 operands; a bf16 band with
+    f32 Xp (rounded to bf16 as it is read; Y f32); or band and Xp in bf16
+    (Y bf16); f32 sums in each.  ``rect_band_apply.launches`` counts the
+    launches, ``.launches_bf16_band`` those with a bf16 band and f32 Xp
+    and ``.launches_bf16`` those all in bf16 among them."""
     if Xp.device.type == "cpu":
         return rect_band_apply_plain(band, offs, Xp)
     check_rect_band_apply_args(band, offs, Xp, spans)
     T, R, W = band.shape
     Y = torch.empty((T * R, Xp.shape[1]), dtype=Xp.dtype, device=Xp.device)
-    err = _build.library().feu_rect_band_apply(
-        band.data_ptr(), spans.data_ptr(), offs.data_ptr(), Xp.data_ptr(),
-        Y.data_ptr(), T, R, W, Xp.shape[0], Xp.shape[1],
-        _build.raw_stream(Xp.device.index))
+    lib = _build.library()
+    stream = _build.raw_stream(Xp.device.index)
+    bf16_band = band.dtype == torch.bfloat16
+    x_bf16 = Xp.dtype == torch.bfloat16
+    if bf16_band:
+        err = lib.feu_rect_band_apply_bf16(
+            band.data_ptr(), spans.data_ptr(), offs.data_ptr(),
+            Xp.data_ptr(), Y.data_ptr(), T, R, W, Xp.shape[0], Xp.shape[1],
+            int(x_bf16), stream)
+    else:
+        err = lib.feu_rect_band_apply(
+            band.data_ptr(), spans.data_ptr(), offs.data_ptr(),
+            Xp.data_ptr(), Y.data_ptr(), T, R, W, Xp.shape[0], Xp.shape[1],
+            stream)
     _build.check(err, "rect_band_apply")
     rect_band_apply.launches += 1
+    rect_band_apply.launches_bf16 += bf16_band and x_bf16
+    rect_band_apply.launches_bf16_band += bf16_band and not x_bf16
     return Y
 
 
 rect_band_apply.launches = 0
+rect_band_apply.launches_bf16 = 0
+rect_band_apply.launches_bf16_band = 0

@@ -64,7 +64,17 @@
 // threads (columns) at neighbouring addresses, each value used once.  A
 // chunk's A rows in shared memory would be B times the shared form's; these
 // blocks are a few hundred facets and sit at the launch floor either way.
+//
+// The bf16 form (Plan.dtype = 2; the Robin blocks of the bf16 cycle): A, X,
+// coef and Y are bf16 in memory, and everything between is f32.  The
+// gathered X values and the A rows are upcast (exact), an entry's products
+// are exact in f32 and summed in f32, the slots and partial sums are f32,
+// the product by coef is made in f32, and an output is rounded once, on the
+// store; the accumulate form reads the bf16 Y, adds in f32 and rounds once.
+// An A row of nd = 3 values is 6 bytes, less than cp.async copies, so those
+// rows reach shared memory by plain loads and stores.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -76,15 +86,16 @@ constexpr int kGapRows = 256;            // rows without entries per block
 
 // Kernel C's plan of one element block; must match elemspmv._PlanStruct.
 struct Plan {
-    const void* A;        // (N*nd, nd) f32 or f64: the rows A[n, i, :] in
-                          //   sorted-entry order
+    const void* A;        // (N*nd, nd) in the plan's dtype: the rows
+                          //   A[n, i, :] in sorted-entry order
     const int* rows;      // (n_rows,) the rows holding entries, ascending
     const int* rptr;      // (n_rows+1,) first sorted entry of each of them
     const int* cptr;      // (n_tiles+1,) first chunk of each tile
     const int* eptr;      // (n_chunks+1,) first element record of each chunk
     const int* meta;      // (n_records, meta_ints) element records
     const int* gaps;      // (n_gaps,) the rows without entries, ascending
-    int is_f64, nd, ndofs, n_rows, n_tiles, rows_per_tile, chunk_slots,
+    int dtype;            // of A, X, coef and Y: 0 f32, 1 f64, 2 bf16
+    int nd, ndofs, n_rows, n_tiles, rows_per_tile, chunk_slots,
         max_chunk, max_elems, max_tile_chunks, n_gaps;
     int batch;            // 0: A shared by the columns; B > 0: per-sample A
                           //   (N*nd, nd, B), bound at exactly B columns
@@ -101,31 +112,53 @@ __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 // shared memory of a block, in this order: element records, row
 // pointers, rows (ints); the chunk's A rows by slot, padded to 16 bytes
 // (none in the per-sample form); slots and partial sums for a column block
-// of bc
-template <typename T>
+// of bc.  S is the type in memory (A, X, coef, Y), T the type of the
+// arithmetic, the slots and the partial sums: S itself, or f32 for bf16.
+template <typename S>
 __host__ __device__ long long a_rows_bytes(const Plan& p)
 {
     if (p.batch > 0) return 0;
-    return ((long long)p.max_chunk * p.nd * sizeof(T) + 15) / 16 * 16;
+    return ((long long)p.max_chunk * p.nd * sizeof(S) + 15) / 16 * 16;
 }
 
-template <typename T>
+template <typename S> struct Compute { using type = S; };
+template <> struct Compute<__nv_bfloat16> { using type = float; };
+
+__device__ __forceinline__ float up(float v) { return v; }
+__device__ __forceinline__ double up(double v) { return v; }
+__device__ __forceinline__ float up(__nv_bfloat16 v)
+{
+    return __bfloat162float(v);
+}
+
+// one rounding to the type in memory
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(double* p, double v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v)
+{
+    *p = __float2bfloat16_rn(v);
+}
+
+template <typename S>
 long long smem_bytes(const Plan& p, int bc)
 {
+    using T = typename Compute<S>::type;
     const long long ints = (long long)p.max_elems * meta_ints(p.nd)
                            + round4(p.rows_per_tile + 1)
                            + round4(p.rows_per_tile);
     long long vals = (long long)p.max_chunk * bc;
     if (p.max_tile_chunks > 1) vals += (long long)p.rows_per_tile * bc;
-    return 4 * ints + a_rows_bytes<T>(p) + (long long)sizeof(T) * vals;
+    return 4 * ints + a_rows_bytes<S>(p) + (long long)sizeof(T) * vals;
 }
 
-// the widest copy (16, 8 or 4 bytes) that tiles one A row of nd values
-template <typename T, int ND>
+// the widest copy (16, 8 or 4 bytes) that tiles one A row of nd values;
+// 0 where a row is no multiple of 4 bytes (three bf16)
+template <typename S, int ND>
 __host__ __device__ constexpr int a_piece()
 {
-    return (ND * sizeof(T)) % 16 == 0 ? 16
-           : (ND * sizeof(T)) % 8 == 0 ? 8 : 4;
+    return (ND * sizeof(S)) % 16 == 0 ? 16
+           : (ND * sizeof(S)) % 8 == 0 ? 8
+           : (ND * sizeof(S)) % 4 == 0 ? 4 : 0;
 }
 
 // a product and a sum rounded apart, never contracted into one FMA
@@ -158,12 +191,13 @@ __device__ __forceinline__ void wait_async()
     asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
 
-template <typename T, int ND, bool PS>
+template <typename S, int ND, bool PS>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-element_tiles_kernel(const Plan p, const T* __restrict__ X,
-                     const T* __restrict__ coef, T* Y, int accumulate, int B,
+element_tiles_kernel(const Plan p, const S* __restrict__ X,
+                     const S* __restrict__ coef, S* Y, int accumulate, int B,
                      int BC)
 {
+    using T = typename Compute<S>::type;
     constexpr int M = meta_ints(ND);
     extern __shared__ __align__(16) unsigned char smem_raw[];
     int* meta_s = reinterpret_cast<int*>(smem_raw);
@@ -171,8 +205,8 @@ element_tiles_kernel(const Plan p, const T* __restrict__ X,
     int* row_s = rp_s + round4(p.rows_per_tile + 1);
     unsigned char* a_raw =
         reinterpret_cast<unsigned char*>(row_s + round4(p.rows_per_tile));
-    const T* a_s = reinterpret_cast<const T*>(a_raw);
-    T* slots = reinterpret_cast<T*>(a_raw + a_rows_bytes<T>(p));
+    const S* a_s = reinterpret_cast<const S*>(a_raw);
+    T* slots = reinterpret_cast<T*>(a_raw + a_rows_bytes<S>(p));
     T* part = slots + (long long)p.max_chunk * BC;
     const int t = blockIdx.x;
     const int c0 = blockIdx.y * BC;
@@ -186,8 +220,8 @@ element_tiles_kernel(const Plan p, const T* __restrict__ X,
         for (int o = threadIdx.x; o < n_gap; o += kThreads) {
             const int r = o / bc;
             const int b = c0 + o - r * bc;
-            Y[(long long)p.gaps[g0 + r] * B + b] =
-                coef != nullptr ? T(0) * coef[b] : T(0);
+            put(Y + (long long)p.gaps[g0 + r] * B + b,
+                coef != nullptr ? T(0) * up(coef[b]) : T(0));
         }
         return;
     }
@@ -200,7 +234,7 @@ element_tiles_kernel(const Plan p, const T* __restrict__ X,
         copy_async<4>(row_s + r, p.rows + q0 + r);
     const int k_tile = p.rptr[q0], k_end = p.rptr[q0 + nr];
     const int ch0 = p.cptr[t], ch1 = p.cptr[t + 1];
-    constexpr int kPiece = a_piece<T, ND>();
+    constexpr int kPiece = a_piece<S, ND>();
     const unsigned char* a_src = static_cast<const unsigned char*>(p.A);
     for (int c = ch0; c < ch1; ++c) {
         const int clo = k_tile + (c - ch0) * p.chunk_slots;
@@ -214,10 +248,20 @@ element_tiles_kernel(const Plan p, const T* __restrict__ X,
             copy16_async(meta_s + 4 * i, src + 4 * i);
         if constexpr (!PS) {
             const unsigned char* a_chunk =
-                a_src + (long long)clo * ND * sizeof(T);
-            const int n_pieces = (chi - clo) * ND * (int)sizeof(T) / kPiece;
-            for (int i = threadIdx.x; i < n_pieces; i += kThreads)
-                copy_async<kPiece>(a_raw + i * kPiece, a_chunk + i * kPiece);
+                a_src + (long long)clo * ND * sizeof(S);
+            if constexpr (kPiece > 0) {
+                const int n_pieces =
+                    (chi - clo) * ND * (int)sizeof(S) / kPiece;
+                for (int i = threadIdx.x; i < n_pieces; i += kThreads)
+                    copy_async<kPiece>(a_raw + i * kPiece,
+                                       a_chunk + i * kPiece);
+            } else {
+                const S* a_g = reinterpret_cast<const S*>(a_chunk);
+                S* a_w = reinterpret_cast<S*>(a_raw);
+                for (int i = threadIdx.x; i < (chi - clo) * ND;
+                     i += kThreads)
+                    a_w[i] = a_g[i];
+            }
         }
         wait_async();
         __syncthreads();
@@ -229,7 +273,7 @@ element_tiles_kernel(const Plan p, const T* __restrict__ X,
             T x[ND];
 #pragma unroll
             for (int j = 0; j < ND; ++j)
-                x[j] = X[(long long)em[1 + j] * B + c0 + bl];
+                x[j] = up(X[(long long)em[1 + j] * B + c0 + bl]);
 #pragma unroll
             for (int i = 0; i < ND; ++i) {
                 const int k = em[1 + ND + i];
@@ -237,17 +281,17 @@ element_tiles_kernel(const Plan p, const T* __restrict__ X,
                 T s;
                 if constexpr (PS) {
                     // this column's own row: a[clo + k, :, c0 + bl]
-                    const T* a = static_cast<const T*>(p.A)
+                    const S* a = static_cast<const S*>(p.A)
                                  + (long long)(clo + k) * ND * B + c0 + bl;
-                    s = a[0] * x[0];
+                    s = up(a[0]) * x[0];
 #pragma unroll
                     for (int j = 1; j < ND; ++j)
-                        s += a[(long long)j * B] * x[j];
+                        s += up(a[(long long)j * B]) * x[j];
                 } else {
-                    const T* a = a_s + k * ND;
-                    s = a[0] * x[0];
+                    const S* a = a_s + k * ND;
+                    s = up(a[0]) * x[0];
 #pragma unroll
-                    for (int j = 1; j < ND; ++j) s += a[j] * x[j];
+                    for (int j = 1; j < ND; ++j) s += up(a[j]) * x[j];
                 }
                 slots[k * bc + bl] = s;
             }
@@ -272,37 +316,37 @@ element_tiles_kernel(const Plan p, const T* __restrict__ X,
                     part[o] = acc;
                     continue;
                 }
-                v[u] = coef != nullptr ? mul_rn(acc, coef[c0 + bl]) : acc;
+                v[u] = coef != nullptr ? mul_rn(acc, up(coef[c0 + bl])) : acc;
                 idx[u] = (long long)row_s[r] * B + c0 + bl;
-                if (accumulate) prev[u] = Y[idx[u]];
+                if (accumulate) prev[u] = up(Y[idx[u]]);
             }
             if (!last) continue;
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
                 if (o0 + u * kThreads >= n_out) break;
-                Y[idx[u]] = accumulate ? add_rn(prev[u], v[u]) : v[u];
+                put(Y + idx[u], accumulate ? add_rn(prev[u], v[u]) : v[u]);
             }
         }
         __syncthreads();
     }
 }
 
-template <typename T, int ND, bool PS>
+template <typename S, int ND, bool PS>
 cudaError_t launch(const Plan& p, const void* X, const void* coef, void* Y,
                    int accumulate, int B, cudaStream_t stream)
 {
     // columns per block: the most whose slots fit the shared-memory
     // budget, split evenly
     long long bc = B;
-    while (bc > 1 && smem_bytes<T>(p, (int)bc) > kSmemBudget) --bc;
-    if (smem_bytes<T>(p, (int)bc) > kSmemBudget) return cudaErrorInvalidValue;
+    while (bc > 1 && smem_bytes<S>(p, (int)bc) > kSmemBudget) --bc;
+    if (smem_bytes<S>(p, (int)bc) > kSmemBudget) return cudaErrorInvalidValue;
     long long n_cb = (B + bc - 1) / bc;
     bc = (B + n_cb - 1) / n_cb;
     n_cb = (B + bc - 1) / bc;
     static bool attr_set = false;
     if (!attr_set) {
         const cudaError_t err = cudaFuncSetAttribute(
-            element_tiles_kernel<T, ND, PS>,
+            element_tiles_kernel<S, ND, PS>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
         if (err != cudaSuccess) return err;
         attr_set = true;
@@ -312,10 +356,10 @@ cudaError_t launch(const Plan& p, const void* X, const void* coef, void* Y,
     long long n_blocks = p.n_tiles;
     if (!accumulate) n_blocks += (p.n_gaps + kGapRows - 1) / kGapRows;
     const dim3 grid((unsigned)(n_blocks > 0 ? n_blocks : 1), (unsigned)n_cb);
-    element_tiles_kernel<T, ND, PS><<<
-        grid, kThreads, (size_t)smem_bytes<T>(p, (int)bc), stream>>>(
-        p, static_cast<const T*>(X), static_cast<const T*>(coef),
-        static_cast<T*>(Y), accumulate, B, (int)bc);
+    element_tiles_kernel<S, ND, PS><<<
+        grid, kThreads, (size_t)smem_bytes<S>(p, (int)bc), stream>>>(
+        p, static_cast<const S*>(X), static_cast<const S*>(coef),
+        static_cast<S*>(Y), accumulate, B, (int)bc);
     return cudaGetLastError();
 }
 
@@ -346,7 +390,7 @@ cudaError_t dispatch_nd(const Plan& p, const void* X, const void* coef,
 extern "C" {
 
 // Kernel C.  plan: one block's Plan (host memory; its arrays on the card),
-// in the dtype plan->is_f64 selects for A, X, coef and Y.  X (n_x, B),
+// in the dtype plan->dtype selects for A, X, coef and Y.  X (n_x, B),
 // coef (B,) or null, Y (ndofs, B); all contiguous.  accumulate = 0 writes
 // every row of Y; 1 adds into the rows that hold entries and leaves the
 // others as they are.  A per-sample plan (plan->batch > 0) takes exactly
@@ -362,9 +406,14 @@ int feu_element_apply(const void* plan, const void* X, const void* coef,
         || (p.batch > 0 && (B != p.batch || coef != nullptr)))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (p.is_f64)
-        return (int)dispatch_nd<double>(p, X, coef, Y, accumulate, B, s);
-    return (int)dispatch_nd<float>(p, X, coef, Y, accumulate, B, s);
+    switch (p.dtype) {
+        case 0: return (int)dispatch_nd<float>(p, X, coef, Y, accumulate, B, s);
+        case 1: return (int)dispatch_nd<double>(p, X, coef, Y, accumulate, B, s);
+        case 2:
+            return (int)dispatch_nd<__nv_bfloat16>(p, X, coef, Y, accumulate,
+                                                   B, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 // Message for an error code returned by any feu_* entry point.

@@ -22,6 +22,12 @@ it is made, and only ``X``, ``coef`` and ``out`` per call, and launches or
 raises.  There is no fallback between the two.  The kernel runs on the
 tile plan of :func:`make_tiles`, which :func:`make_scatter` builds beside
 the sorted-scatter plan.
+
+Three dtypes: f64, f32, and bf16 (the Robin blocks of the bf16 cycle).  In
+bf16, A, X, coef and the output are bf16 in memory and everything between
+is f32: exact products of the upcast values, f32 row sums, the coef product
+in f32, one rounding on the store; ``out=`` reads the bf16 ``out``, adds in
+f32 and rounds once.
 """
 
 from __future__ import annotations
@@ -42,6 +48,9 @@ __all__ = ["Scatter", "TilePlan", "make_scatter", "make_tiles",
 # entity sizes kernel C is compiled for: 6 (P2 cells, and P2 Robin facets,
 # which carry their owner cell's dofs), 3 (P1), 2 (two-node edge blocks)
 KERNEL_ND = (2, 3, 6)
+# the dtypes it is compiled for, by the code csrc/element_apply.cu's Plan
+# carries
+KERNEL_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 # the kernel's row tile and entry chunk: the most rows (with entries) of
 # one thread block, and the sorted entries whose products it holds in
 # shared memory at once (csrc/element_apply.cu).  A block with few rows
@@ -258,8 +267,16 @@ def element_apply_plain(A, dofs, scatter: Scatter, X, coef=None, out=None):
     """Plain PyTorch kernel C: gather, einsum, ``index_add_`` in sorted
     order; with ``out``, ``out += that`` in place (returns ``out``).  A is
     (N, nd, nd), shared by the columns, or per-sample (B, N, nd, nd) (then
-    without ``coef``).  Runs on any device; the CPU path and the tests use
-    it."""
+    without ``coef``).  bf16 operands are upcast and the f32 result (or
+    f32 ``out + result``) rounded once.  Runs on any device; the CPU path
+    and the tests use it."""
+    if X.dtype == torch.bfloat16:
+        Y = element_apply_plain(
+            A.float(), dofs, scatter, X.float(),
+            None if coef is None else coef.float())
+        if out is None:
+            return Y.to(torch.bfloat16)
+        return out.copy_(out.float() + Y)
     N, nd = dofs.shape
     B = X.shape[1]
     Xe = X[dofs.long()]                                  # (N, nd, B)
@@ -287,10 +304,10 @@ def _check_block(A, dofs, scatter: Scatter, dtype=None):
     N, nd = A.shape[-3], A.shape[-1]
     if nd not in KERNEL_ND:
         raise ValueError(f"nd={nd} not in {KERNEL_ND}")
-    if A.dtype not in (torch.float32, torch.float64) or (
+    if A.dtype not in KERNEL_DTYPES or (
             dtype is not None and A.dtype != dtype):
-        raise TypeError(f"A and X must share f32 or f64, got {A.dtype}, "
-                        f"{dtype}")
+        raise TypeError(f"A and X must share f32, f64 or bf16, got "
+                        f"{A.dtype}, {dtype}")
     if tuple(dofs.shape) != (N, nd) or dofs.dtype != torch.int32:
         raise ValueError("dofs must be (N, nd) int32")
     if scatter.perm.numel() != N * nd or scatter.perm.dtype != torch.int32:
@@ -319,7 +336,7 @@ def _check_call(X, coef, out, dtype, device, ndofs, min_rows, batch=0):
     per-sample block bound at ``batch`` > 0 columns takes X of exactly
     that many and no coef."""
     if X.dtype != dtype:
-        raise TypeError(f"A and X must share f32 or f64, got {dtype}, "
+        raise TypeError(f"A and X must share f32, f64 or bf16, got {dtype}, "
                         f"{X.dtype}")
     if X.dim() != 2:
         raise ValueError(f"X must be (n, B), got {tuple(X.shape)}")
@@ -356,7 +373,7 @@ class _PlanStruct(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "A", "rows", "rptr", "cptr", "eptr", "meta", "gaps")]
         + [(n, ctypes.c_int) for n in (
-            "is_f64", "nd", "ndofs", "n_rows", "n_tiles", "rows_per_tile",
+            "dtype", "nd", "ndofs", "n_rows", "n_tiles", "rows_per_tile",
             "chunk_slots", "max_chunk", "max_elems", "max_tile_chunks",
             "n_gaps", "batch")])
 
@@ -381,11 +398,13 @@ class ElementKernel:
     ``ElementKernel.launches`` counts the launches of every bound block,
     ``ElementKernel.launches_out`` those of the out= form among them,
     ``ElementKernel.launches_sample`` those of per-sample blocks (either
-    form) among them."""
+    form) among them, ``ElementKernel.launches_bf16`` those of blocks bound
+    in bf16."""
 
     launches = 0
     launches_out = 0
     launches_sample = 0
+    launches_bf16 = 0
     __slots__ = ("A_sorted", "scatter", "device", "dtype", "ndofs",
                  "min_rows", "batch", "_plan", "_addr", "_fn", "_index")
 
@@ -407,7 +426,7 @@ class ElementKernel:
         self.min_rows = tp.x_rows
         self._plan = _PlanStruct(
             self.A_sorted.data_ptr(), *[x.data_ptr() for x in tp[:6]],
-            int(A.dtype == torch.float64), nd, scatter.ndofs,
+            KERNEL_DTYPES[A.dtype], nd, scatter.ndofs,
             tp.rows.numel(), tp.n_tiles, tp.rows_per_tile, tp.chunk_slots,
             tp.max_chunk, tp.max_elems, tp.max_tile_chunks,
             tp.gaps.numel(), self.batch)
@@ -434,4 +453,6 @@ class ElementKernel:
             ElementKernel.launches_out += 1
         if self.batch:
             ElementKernel.launches_sample += 1
+        if self.dtype == torch.bfloat16:
+            ElementKernel.launches_bf16 += 1
         return Y

@@ -11,9 +11,9 @@ per-sample batch of Robin facet matrices on R_unit's facets
 with Adv the advection by one fixed velocity field (the nondimensional
 Stokes field is Pe-independent, so one velocity feeds every Pe column), and
 all B sweep columns are solved at once in the batch-minor ``(n, B)`` layout.
-Both solves are f64 defect-correction loops around f32 preconditioned
-Krylov passes with per-column ``active`` masks, as the JAX package runs
-them on a TPU:
+The default solves (``precision="mixed"``) are f64 defect-correction loops
+around f32 preconditioned Krylov passes with per-column ``active`` masks,
+as the JAX package runs them on a TPU:
 
   symmetric (no Adv)   the fused mixed program: f32 CG passes, the first
                        started from the Dirichlet lift, one cheap pass that
@@ -34,8 +34,16 @@ add.
 Convergence of the inner iteration is tested on the host once per
 iteration (``any(|r_b| > tol_b)``), one device sync each; the ``active``
 masks make any extra iteration a no-op for converged columns, as in the
-JAX programs.  f64 CG and f64 BiCGStab (the JAX CPU default) are not
-ported.
+JAX programs.
+
+``solve_sweep`` reaches the JAX package's other configurations through
+keyword arguments (it reads no environment variable): ``precision="f64"``
+(the JAX CPU default: one f64 CG or BiCGStab of ``solvers/batched.py`` with
+the f64 cycle, every apply through kernel C) and ``"f32"``; the cycle
+(``"hybrid"``, ``"mult"``, ``"add"``), its smoothing steps and its working
+dtype (``ml_dtype=torch.bfloat16``, or ``transfer_dtype=torch.bfloat16``
+alone); 0 or more cheap passes; the inner tolerance.  The defaults are the
+configuration the JAX package runs on a TPU.
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ from ..ops.elemspmv import (ElementKernel, Scatter, element_apply_plain,
 __all__ = ["TransportSystem", "build_transport_system", "system_to",
            "unpermute_columns", "robin_matrices_for_mu", "OperatorArgs",
            "operator_args", "apply_operator", "operator_rhs", "fine_dinv",
-           "solve_sweep", "BAND_TILE"]
+           "solve_sweep", "BAND_TILE", "PRECISIONS"]
 
 # rows per band tile; systems are padded to a multiple of it (and to
 # nothing else)
@@ -78,22 +86,45 @@ class _Block(NamedTuple):
     plans; on a CUDA device also kernel C bound to each precision (its
     fixed tensors checked once, where the block is made).  The matrices
     are (N, nd, nd), shared by the columns, or (B, N, nd, nd), one set per
-    column (``per_sample``)."""
+    column (``per_sample``).  ``with_bf16`` adds a bf16 copy of the f32
+    matrices (the bf16 cycle's Robin blocks) and its kernel."""
     A64: torch.Tensor
     A32: torch.Tensor
     dofs: torch.Tensor        # (N, nd) int32
     scatter: Scatter
-    kernels: Optional[tuple] = None   # (f64, f32) ElementKernel on CUDA
+    kernels: Optional[dict] = None    # dtype -> ElementKernel, on CUDA
+    A16: Optional[torch.Tensor] = None   # bf16 matrices (with_bf16)
 
     @classmethod
-    def of(cls, A64, A32, dofs, scatter: Scatter):
+    def of(cls, A64, A32, dofs, scatter: Scatter, A16=None):
         """The block of these tensors, with its kernels where they lie on
         a CUDA device."""
         kernels = None
         if A64.device.type == "cuda":
-            kernels = (ElementKernel(A64, dofs, scatter),
-                       ElementKernel(A32, dofs, scatter))
-        return cls(A64, A32, dofs, scatter, kernels)
+            kernels = {A.dtype: ElementKernel(A, dofs, scatter)
+                       for A in (A64, A32, A16) if A is not None}
+        return cls(A64, A32, dofs, scatter, kernels, A16)
+
+    def with_bf16(self):
+        """This block with a bf16 copy of its f32 matrices (and, on a CUDA
+        device, kernel C bound to it) beside the f64 and f32 ones."""
+        if self.A16 is not None:
+            return self
+        A16 = self.A32.to(torch.bfloat16)
+        kernels = self.kernels
+        if kernels is not None:
+            kernels = {**kernels, A16.dtype: ElementKernel(
+                A16, self.dofs, self.scatter)}
+        return self._replace(A16=A16, kernels=kernels)
+
+    def matrices(self, dtype):
+        """The entity matrices in ``dtype`` (f64, f32, or bf16 after
+        ``with_bf16``)."""
+        A = {torch.float64: self.A64, torch.float32: self.A32,
+             torch.bfloat16: self.A16}.get(dtype)
+        if A is None:
+            raise TypeError(f"this block has no {dtype} matrices")
+        return A
 
     @classmethod
     def build(cls, A64, dofs, ndofs: int):
@@ -126,12 +157,13 @@ class _Block(NamedTuple):
         in place and returns it (on the card only the rows the block
         touches are read and written)."""
         if X.device.type == "cpu":
-            A = self.A64 if X.dtype == torch.float64 else self.A32
-            return element_apply_plain(A, self.dofs, self.scatter, X, coef,
-                                       out)
+            return element_apply_plain(self.matrices(X.dtype), self.dofs,
+                                       self.scatter, X, coef, out)
         if self.kernels is None:
             raise ValueError("kernel C needs every tensor on X's CUDA device")
-        return self.kernels[X.dtype != torch.float64](X, coef, out)
+        if X.dtype not in self.kernels:
+            raise TypeError(f"this block has no {X.dtype} kernel")
+        return self.kernels[X.dtype](X, coef, out)
 
     def diagonal(self):
         """(ndofs,) f64 diagonal of the assembled block; (ndofs, B) of a
@@ -153,7 +185,8 @@ class _Block(NamedTuple):
 
     def to(self, device):
         return _Block.of(self.A64.to(device), self.A32.to(device),
-                         self.dofs.to(device), self.scatter.to(device))
+                         self.dofs.to(device), self.scatter.to(device),
+                         None if self.A16 is None else self.A16.to(device))
 
 
 class TransportSystem(NamedTuple):
@@ -320,8 +353,10 @@ def operator_rhs(a: OperatorArgs, G):
     return torch.where(a.free[:, None], -_apply_raw(a, G), G)
 
 
-def fine_dinv(sys: TransportSystem, D_vec, mu_vec, robin_matrices=None):
-    """(n, B) f32 inverse diagonal of A(D_b, mu_b); 1 on constrained rows.
+def fine_dinv(sys: TransportSystem, D_vec, mu_vec, robin_matrices=None,
+              dtype=torch.float32):
+    """(n, B) inverse diagonal of A(D_b, mu_b), computed in f64 and
+    returned in ``dtype``; 1 on constrained rows.
     ``robin_matrices``: per-sample Robin matrices (B, F, nd, nd) f64 on
     sys.R's facets, in place of mu_b * R."""
     dev = sys.free.device
@@ -338,16 +373,19 @@ def fine_dinv(sys: TransportSystem, D_vec, mu_vec, robin_matrices=None):
                 robin_matrices, dtype=torch.float64, device=dev))
     ok = sys.free[:, None] & (d != 0)
     return torch.where(ok, 1.0 / torch.where(d != 0, d, 1.0),
-                       1.0).float()
+                       1.0).to(dtype)
 
 
 def _colnorm(R):
     return torch.sqrt(torch.sum(R * R, dim=0))
 
 
-def _mixed_solve(a64, a32, M, RHS, X0, tol):
+def _mixed_solve(a64, a32, M, RHS, X0, tol, cheap_passes=CHEAP_PASSES,
+                 inner_rtol=INNER_RTOL):
     """The JAX ``_mixed_solve_program`` with ``x0_lift=True``: X0 is the
     Dirichlet lift, so the opening residual is where(free, RHS, 0).
+    ``cheap_passes`` = 0 runs true passes only (each closing f64 residual
+    opens the next pass).
 
     Returns (X, rn (B,) true f64 residual norms, iters (B,), passes)."""
     B = RHS.shape[1]
@@ -356,7 +394,7 @@ def _mixed_solve(a64, a32, M, RHS, X0, tol):
     def inner(R64):
         rn0 = _colnorm(R64)
         R = R64.float()
-        tol_in = torch.maximum(INNER_RTOL * rn0, 0.1 * tol).float()
+        tol_in = torch.maximum(inner_rtol * rn0, 0.1 * tol).float()
         Z = M(R)
         P = Z
         rz = torch.sum(R * Z, dim=0)
@@ -392,28 +430,29 @@ def _mixed_solve(a64, a32, M, RHS, X0, tol):
     rn = _colnorm(R64)
     tot = torch.zeros(B, dtype=torch.int64, device=RHS.device)
     k = 0
-    # one leading true pass: a cheap pass started at full residual scale
-    # would carry ~2^-24 ||b|| of f32 drift
-    if bool((rn > tol).any()):
-        X, R64, rn, cit = true_pass(X, R64)
-        tot, k = tot + cit, k + 1
-    # cheap passes carry the inner CG's own recurrence residual
-    while k < 1 + CHEAP_PASSES and bool((rn > tol).any()):
-        Dx, Rf, cit = inner(R64)
-        X = X + Dx.double()
-        R64 = Rf.double()
+    if cheap_passes > 0:
+        # one leading true pass: a cheap pass started at full residual
+        # scale would carry ~2^-24 ||b|| of f32 drift
+        if bool((rn > tol).any()):
+            X, R64, rn, cit = true_pass(X, R64)
+            tot, k = tot + cit, k + 1
+        # cheap passes carry the inner CG's own recurrence residual
+        while k < 1 + cheap_passes and bool((rn > tol).any()):
+            Dx, Rf, cit = inner(R64)
+            X = X + Dx.double()
+            R64 = Rf.double()
+            rn = _colnorm(R64)
+            tot, k = tot + cit, k + 1
+        # certification: reported norms are always a true f64 residual
+        R64 = RHS - apply_operator(a64, X)
         rn = _colnorm(R64)
-        tot, k = tot + cit, k + 1
-    # certification: reported norms are always a true f64 residual
-    R64 = RHS - apply_operator(a64, X)
-    rn = _colnorm(R64)
     while k < MAX_PASSES and bool((rn > tol).any()):
         X, R64, rn, cit = true_pass(X, R64)
         tot, k = tot + cit, k + 1
     return X, rn, tot, k
 
 
-def _bicgstab_solve(a64, a32, M, RHS, X0, tol):
+def _bicgstab_solve(a64, a32, M, RHS, X0, tol, inner_rtol=INNER_RTOL):
     """The JAX per-pass ``_refine_program_bicgstab`` loop: up to
     MAX_PASSES_BICGSTAB true f64 passes (at least one), each an f32
     preconditioned BiCGStab with per-column ``active`` masks, started from
@@ -427,7 +466,7 @@ def _bicgstab_solve(a64, a32, M, RHS, X0, tol):
     def inner(R64):
         rn0 = _colnorm(R64)
         R = R64.float()
-        tol_in = torch.maximum(INNER_RTOL * rn0, 0.1 * tol).float()
+        tol_in = torch.maximum(inner_rtol * rn0, 0.1 * tol).float()
         Rhat = R
         rho = alpha = omega = torch.ones(B, dtype=R.dtype, device=R.device)
         Dx = torch.zeros_like(R)
@@ -478,20 +517,44 @@ def _bicgstab_solve(a64, a32, M, RHS, X0, tol):
     return X, rn, tot, k
 
 
+PRECISIONS = ("mixed", "f64", "f32")
+
+
 def solve_sweep(sys: TransportSystem, D_values, mu_values=None, rtol=1e-12,
-                multilevel=None, robin_matrices=None):
-    """Batched mixed-precision transport solve over sweep points: CG
-    without advection, BiCGStab with it.
+                multilevel=None, robin_matrices=None, precision="mixed",
+                cycle=None, cheap_passes=CHEAP_PASSES, inner_rtol=INNER_RTOL,
+                ml_dtype=None, transfer_dtype=None, n_smooth=1):
+    """Batched transport solve over sweep points: CG without advection,
+    BiCGStab with it.
 
     D_values, mu_values: (B,).  robin_matrices: (B, F, nd, nd) f64
     per-sample Robin matrices on sys.R's facets (``robin_matrices_for_mu``
     stacked), in place of mu_values; where the hierarchy's fine level was
     built from this very tensor, its block is used and none is bound anew.
-    multilevel: a ``solvers.multilevel`` hierarchy (hybrid cycle for CG,
-    multiplicative V(1,1) for BiCGStab, the cycles the JAX package runs on
-    a TPU); None preconditions with Jacobi.
+    multilevel: a ``solvers.multilevel`` hierarchy; None preconditions with
+    Jacobi.
+
+    precision: "mixed" (f32 Krylov passes inside f64 defect correction, the
+    JAX package's TPU configuration), "f64" (one f64 Krylov solve with the
+    f64 cycle, its CPU default) or "f32" (one f32 solve, rtol at least
+    1e-6).  cycle: "hybrid", "mult" or "add"; None takes hybrid for CG and
+    mult for BiCGStab.  cheap_passes: defect passes of the mixed CG that
+    carry the inner recurrence residual (0: true passes only).  inner_rtol:
+    the residual reduction of one mixed pass.  ml_dtype: the cycle's
+    working dtype under "mixed" and "f32" (None: f32; torch.bfloat16);
+    transfer_dtype=torch.bfloat16: bf16 transfer bands in an f32 cycle.
+    n_smooth: smoothing steps of the multiplicative part.
+
     Returns (X (B, n_true) f64 in FunctionSpace numbering, info) with info
-    keys iters (B,), resnorm (B,), rel_resnorm (B,), passes."""
+    keys iters (B,), resnorm (B,), rel_resnorm (B,) (under "mixed" a true
+    f64 residual; else the Krylov recurrence's, as in the JAX package),
+    true_rel_resnorm (B,) (the f64 residual of the returned X, whatever
+    the precision), converged (B,) bool (true_rel_resnorm <= rtol, or
+    max(rtol, 1e-6) under "f32"; False for a column that broke down into
+    NaN: a nonsymmetric solve whose cycle rounds to bf16 can) and, under
+    "mixed", passes."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
     dev = sys.free.device
     D_vec = torch.as_tensor(np.asarray(D_values, dtype=np.float64),
                             device=dev)
@@ -512,22 +575,46 @@ def solve_sweep(sys: TransportSystem, D_values, mu_values=None, rtol=1e-12,
     a32 = operator_args(sys, D_vec, mu_vec, f32=True, R_batch=Rb)
     G = sys.bc_values[:, None].expand(-1, B).contiguous()
     RHS = operator_rhs(a64, G)
+    wd = torch.float64 if precision == "f64" else torch.float32
     if multilevel is not None:
         from ..solvers.multilevel import make_ml_preconditioner
-        M = make_ml_preconditioner(multilevel,
-                                   cycle="mult" if nonsym else "hybrid")
+        if cycle is None:
+            cycle = "mult" if nonsym else "hybrid"
+        M = make_ml_preconditioner(
+            multilevel, cycle=cycle,
+            dtype=torch.float64 if precision == "f64" else ml_dtype,
+            transfer_dtype=transfer_dtype, n_smooth=n_smooth)
     else:
         dinv = fine_dinv(sys, D_vec, mu_vec,
-                         None if Rb is None else Rb.A64)
+                         None if Rb is None else Rb.A64, dtype=wd)
 
         def M(R):
             return dinv * R
     bnorm = _colnorm(RHS)
-    solve = _bicgstab_solve if nonsym else _mixed_solve
-    X, rn, tot, passes = solve(a64, a32, M, RHS, G, rtol * bnorm)
     bn = bnorm.cpu().numpy()
-    resnorm = rn.cpu().numpy()
-    info = {"iters": tot.cpu().numpy(), "resnorm": resnorm,
-            "rel_resnorm": resnorm / np.where(bn > 0, bn, 1.0),
-            "passes": int(passes)}
+    bn = np.where(bn > 0, bn, 1.0)
+    if precision == "mixed":
+        if nonsym:
+            X, rn, tot, passes = _bicgstab_solve(
+                a64, a32, M, RHS, G, rtol * bnorm, inner_rtol)
+        else:
+            X, rn, tot, passes = _mixed_solve(
+                a64, a32, M, RHS, G, rtol * bnorm, cheap_passes, inner_rtol)
+        resnorm = rn.cpu().numpy()
+        info = {"iters": tot.cpu().numpy(), "resnorm": resnorm,
+                "rel_resnorm": resnorm / bn, "true_rel_resnorm": resnorm / bn,
+                "converged": resnorm / bn <= rtol, "passes": int(passes)}
+        return unpermute_columns(sys, X.t()), info
+    from ..solvers.batched import batched_bicgstab, batched_cg
+    krylov = batched_bicgstab if nonsym else batched_cg
+    a = a64 if precision == "f64" else a32
+    if precision == "f32":
+        rtol = max(rtol, 1e-6)
+    res = krylov(lambda P: apply_operator(a, P), RHS.to(wd), M=M,
+                 X0=G.to(wd), rtol=rtol)
+    X = res.X.double()
+    true = _colnorm(RHS - apply_operator(a64, X)).cpu().numpy()
+    info = {"iters": res.iters, "resnorm": res.resnorm,
+            "rel_resnorm": res.resnorm / bn, "true_rel_resnorm": true / bn,
+            "converged": true / bn <= rtol}
     return unpermute_columns(sys, X.t()), info

@@ -1,5 +1,6 @@
 """Batched geometric multigrid preconditioner (counterpart of
-``solvers/multilevel.py``), hybrid and multiplicative cycles.
+``solvers/multilevel.py``): hybrid, multiplicative and additive cycles in
+f32, bf16 or f64.
 
 Hierarchy for a P2 fine system on mesh h:
 
@@ -13,17 +14,33 @@ level mesh (``level_velocities``).  Transfers are barycentric interpolation
 (exact embedding for the nested same-mesh level) stored as windowed bands,
 so restriction and prolongation run through kernel B; the levels' K and
 Adv applies run through kernel A and their Robin applies through kernel C.
-The coarsest level is a batch of dense f32 inverses, built on the host
-(LAPACK) and shipped once; its advection enters symmetrised,
-constrain(0.5 (Adv + Adv^T)), as in the JAX package.
+The coarsest level is a batch of dense f32 inverses, assembled on the host
+and inverted there (LAPACK, the default) or on the system's device by a
+batched Newton-Schulz iteration (``coarse_inverse="newton_schulz"``); its
+advection enters symmetrised, constrain(0.5 (Adv + Adv^T)), as in the JAX
+package.
 
-Two cycles (``make_ml_preconditioner``), both from the JAX package:
+Three cycles (``make_ml_preconditioner``), all from the JAX package:
 
   hybrid  additive at the fine level (scaled Jacobi plus the prolongated
           coarse correction, no fine operator apply), multiplicative below;
           symmetric positive definite, so CG applies (symmetric sweeps)
-  mult    the V(1,1) cycle with weighted-Jacobi smoothing on every level
-          (nonsymmetric sweeps, the Stokes velocity block)
+  mult    the V(nu,nu) cycle with weighted-Jacobi smoothing on every level
+          (nonsymmetric sweeps, the Stokes velocity block); nu = n_smooth
+  add     additive (BPX-like): scaled Jacobi on every level plus the
+          coarsest solve, summed; no operator apply inside M
+
+and three working dtypes.  f32 is the default.  bf16 (``dtype``) runs every
+vector and array of the cycle in bf16 through the kernels' bf16 forms, with
+f32 sums inside them and the coarsest solve in f32; ``transfer_dtype=bf16``
+alone keeps the f32 cycle and stores only the transfer bands in bf16
+(kernel B reads the f32 vector rounded to bf16).  f64 runs the level
+applies through the element blocks (kernel C in f64) and the transfers by
+gather and planned segment sum: the bands are f32.  What a cycle needs in
+another dtype than the hierarchy's f32 (bf16 bands and Robin blocks, the
+f64 cycle's gather plans and coarsest inverses) is made once, at the first
+``make_ml_preconditioner`` call that asks for it, and kept with the
+hierarchy (``MultilevelData.lowp``); that is the only way to these copies.
 
 Level systems are assembled on the host (CPU tensors) and shipped to the
 fine system's device, as the JAX package does.
@@ -42,6 +59,7 @@ from ..meshing.generator import generate_mesh
 from ..ops.band_plans import aligned_transfer_plans
 from ..ops.banded import (band_apply, band_spans, rect_band_apply,
                           rect_band_values)
+from ..ops.elemspmv import make_segment_plan, planned_segment_sum
 from ..fem.assembly import robin_facet_block
 from ..meshing.mesh_data import MARKERS
 from ..parallel.sweep import (TransportSystem, _Block,
@@ -49,8 +67,8 @@ from ..parallel.sweep import (TransportSystem, _Block,
 
 __all__ = ["Transfer", "TransferBands", "Level", "MultilevelData",
            "level_meshes_for", "level_velocities", "level_robin_matrices",
-           "build_multilevel",
-           "build_multilevel_for", "make_ml_preconditioner"]
+           "build_multilevel", "build_multilevel_for",
+           "make_ml_preconditioner", "newton_schulz_inverse", "CYCLES"]
 
 LEVEL_FACTORS = (3.0, 9.0)   # coarse level mesh sizes, in fine h
 LEVEL_CAP = 0.45             # largest level h, in channel heights
@@ -85,7 +103,9 @@ class Level(NamedTuple):
                               # broadcast over the columns)
     free: torch.Tensor        # (n_l,) bool
     transfer: Transfer
-    bands: TransferBands
+    bands: Optional[TransferBands]     # None: gather transfers only (a
+                                       #   hierarchy carried in for the f64
+                                       #   cycle)
     R_batch: Optional[_Block] = None   # per-sample Robin (step-mu sweeps),
                                        #   in place of mu * sys.R
 
@@ -98,6 +118,18 @@ class MultilevelData(NamedTuple):
     omega: float
     D_vec: torch.Tensor       # (B,) f64
     mu_vec: torch.Tensor
+    A_c: Optional[np.ndarray] = None   # (B, nc, nc) f64 coarsest operators
+                              # on the host: the f64 cycle inverts them at its
+                              # first use.  A hierarchy carried over from the
+                              # JAX package has none and takes what that
+                              # package takes: Ainv upcast
+    info: Optional[dict] = None   # coarse_inverse: the method, and for
+                              # Newton-Schulz the worst max|I - A X|
+    lowp: Optional[dict] = None   # copies in other dtypes, made at first use
+                              # (_level_arrays, _coarse_f64): per level the
+                              # bf16 bands and Robin blocks and the f64
+                              # cycle's gather plans, none of which depends on
+                              # the columns, and ("Ainv64", B), which does
 
 
 def level_meshes_for(mesh):
@@ -169,14 +201,47 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
+NS_ITERS = 35                # Newton-Schulz doublings (the JAX package's)
+NS_DEGRADED = 1e-2           # max|I - A X| above which a warning is raised
+
+
+def newton_schulz_inverse(A, iters=NS_ITERS):
+    """Batched inverse of A (B, n, n) on A's device by the Newton-Schulz
+    iteration X <- X (2 I - A X) from X0 = A^T / (|A|_1 |A|_inf), which
+    contracts for any nonsingular A; ``iters`` doublings reach f32 accuracy
+    for the coarsest operators (cond <~ 1e4).  Plain batched matmuls (the
+    JAX package runs it outside any hand kernel too), TF32 off.  Returns
+    (X, res) with res (B,) = max|I - A X| per matrix."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        n1 = A.abs().sum(dim=1).amax(dim=1)
+        ninf = A.abs().sum(dim=2).amax(dim=1)
+        X = A.transpose(1, 2) / (n1 * ninf)[:, None, None]
+        I2 = 2.0 * torch.eye(A.shape[1], dtype=A.dtype, device=A.device)
+        for _ in range(iters):
+            X = torch.bmm(X, I2 - torch.bmm(A, X))
+        E = 0.5 * I2 - torch.bmm(A, X)
+        return X, E.abs().amax(dim=(1, 2))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def _coarse_inverses(csys: TransportSystem, D_vec, mu_vec,
-                     robin_matrices=None):
-    """(B, nc, nc) f32 inverses of the constrained dense coarsest operators
-    (host f64 assembly, LAPACK inverse in f32), as the JAX CPU path; the
+                     robin_matrices=None, method="lapack", device="cpu"):
+    """(Ainv (B, nc, nc) f32 on ``device``, the operators themselves
+    (B, nc, nc) f64 numpy, info) for the constrained dense coarsest
+    operators, assembled on the host in f64; the
     advection enters symmetrised, constrain(0.5 (Adv + Adv^T)), and every
     operator gets a 1e-6 mean-|diagonal| shift, both as in JAX.
+    ``method``: "lapack" inverts in f32 on the host (the JAX CPU path),
+    "newton_schulz" on ``device`` in f32 (the JAX accelerator path); its
+    worst max|I - A X| goes into info (read synchronously; above
+    NS_DEGRADED a RuntimeWarning says so).
     robin_matrices: (B, F, nd, nd) numpy per-sample Robin matrices on
     csys.R's facets, in place of mu_b * R."""
+    if method not in ("lapack", "newton_schulz"):
+        raise ValueError(f"unknown coarse_inverse {method!r}")
     nc = csys.ndofs
 
     def dense_of(block, Ae=None):
@@ -214,15 +279,33 @@ def _coarse_inverses(csys: TransportSystem, D_vec, mu_vec,
                 A = A + constrain(dense_of(csys.R, robin_matrices[b]))
             else:
                 A = A + mu_vec[b] * R_c
-        A = A + 1e-6 * np.abs(np.diag(A)).mean() * np.eye(nc)
-        out.append(np.linalg.inv(A.astype(np.float32)))
-    return np.stack(out)
+        out.append(A + 1e-6 * np.abs(np.diag(A)).mean() * np.eye(nc))
+    A64 = np.stack(out)
+    info = {"method": method, "worst_residual": None}
+    if method == "lapack":
+        Ainv = torch.as_tensor(np.linalg.inv(A64.astype(np.float32)),
+                               device=device)
+    else:
+        Ainv, res = newton_schulz_inverse(
+            torch.as_tensor(A64.astype(np.float32), device=device),
+            iters=NS_ITERS)
+        worst = float(res.max())
+        info.update(worst_residual=worst, iters=NS_ITERS)
+        if not worst <= NS_DEGRADED:
+            import warnings
+            warnings.warn(
+                f"coarse Newton-Schulz inverse degraded: max|I - A X| = "
+                f"{worst:.2e} over the batch (conditioned beyond the ~1e4 "
+                f"design point?); expect extra Krylov iterations",
+                RuntimeWarning)
+    return Ainv, A64, info
 
 
 def build_multilevel(sys: TransportSystem, level_meshes, D_values,
                      mu_values=None, u_levels=None, dirichlet=None,
                      with_robin=True, robin_matrices_levels=None,
-                     robin_matrices_fine=None) -> MultilevelData:
+                     robin_matrices_fine=None,
+                     coarse_inverse="lapack") -> MultilevelData:
     """MG hierarchy for a fine TransportSystem sweep.
 
     level_meshes: MeshData list fine -> coarse; the first may be the fine
@@ -235,7 +318,8 @@ def build_multilevel(sys: TransportSystem, level_meshes, D_values,
     step-mu sweep on that level's bottom facets (numpy), and
     robin_matrices_fine the fine system's (numpy or tensor); they take the place of
     mu_values (then zeros) in every level operator, inverse diagonal and
-    coarsest inverse."""
+    coarsest inverse.  coarse_inverse: "lapack" (host) or "newton_schulz"
+    (batched, on the system's device)."""
     dev = sys.free.device
     D = np.asarray(D_values, dtype=np.float64)
     mu = (np.zeros(len(D)) if mu_values is None
@@ -297,13 +381,14 @@ def build_multilevel(sys: TransportSystem, level_meshes, D_values,
             sys=level_sys[l], dinv=dinvs[l], free=level_sys[l].free,
             transfer=tr, bands=bands,
             R_batch=None if rb is None else level_sys[l].R.per_sample(rb)))
-    Ainv = torch.as_tensor(
-        _coarse_inverses(lsys[-1], D, mu, robin_matrices=Rb_levels[-1]),
-        device=dev)
+    Ainv, A_c, cinfo = _coarse_inverses(
+        lsys[-1], D, mu, robin_matrices=Rb_levels[-1],
+        method=coarse_inverse, device=dev)
     return MultilevelData(levels=tuple(levels), Ainv=Ainv,
                           free_c=lsys[-1].free.to(dev), omega=OMEGA,
                           D_vec=torch.as_tensor(D, device=dev),
-                          mu_vec=torch.as_tensor(mu, device=dev))
+                          mu_vec=torch.as_tensor(mu, device=dev),
+                          A_c=A_c, info={"coarse_inverse": cinfo}, lowp={})
 
 
 def level_velocities(u_fine, level_meshes):
@@ -341,14 +426,15 @@ def level_robin_matrices(level_meshes, mu_callables):
 
 
 def build_multilevel_for(sys, mesh, D_values, mu_values=None, u_fine=None,
-                         mu_callables=None, robin_matrices_fine=None
-                         ) -> Optional[MultilevelData]:
+                         mu_callables=None, robin_matrices_fine=None,
+                         coarse_inverse="lapack") -> Optional[MultilevelData]:
     """The study hierarchy, or None when the mesh is coarse enough
     (h >= H_THRESHOLD) that Jacobi alone converges quickly.  u_fine: the
     fine velocity Function of an advective sweep, carried to every level.
     mu_callables: the columns' spatially varying mu_b(x) of a step-mu
     sweep (the level Robin matrices are assembled from them on each level
-    mesh), with robin_matrices_fine the fine system's batch."""
+    mesh), with robin_matrices_fine the fine system's batch.
+    coarse_inverse: as ``build_multilevel`` takes it."""
     g = mesh.geom
     if g is None or g.mesh_size >= H_THRESHOLD:
         return None
@@ -360,73 +446,221 @@ def build_multilevel_for(sys, mesh, D_values, mu_values=None, u_fine=None,
     return build_multilevel(sys, meshes, D_values, mu_values,
                             u_levels=u_levels,
                             robin_matrices_levels=robin_levels,
-                            robin_matrices_fine=robin_matrices_fine)
+                            robin_matrices_fine=robin_matrices_fine,
+                            coarse_inverse=coarse_inverse)
 
 
-def make_ml_preconditioner(ml: MultilevelData, cycle="hybrid"):
-    """M^{-1}: (n, B) f32 -> (n, B) f32, one ``cycle`` ("hybrid" or
-    "mult") of the hierarchy."""
-    if cycle not in ("hybrid", "mult"):
+_BF16 = torch.bfloat16
+CYCLES = ("hybrid", "mult", "add")
+CYCLE_DTYPES = (None, torch.float32, torch.bfloat16, torch.float64)
+
+
+class _LevelArrays(NamedTuple):
+    """One level's arrays in a cycle's working dtype (``_level_arrays``)."""
+    Kband: Optional[torch.Tensor]      # level bands (None: the f64 cycle
+    Advband: Optional[torch.Tensor]    #   applies the element blocks)
+    R: Optional[_Block]
+    R_batch: Optional[_Block]
+    p: Optional[torch.Tensor]          # transfer bands (None: gather path)
+    r: Optional[torch.Tensor]
+    gather: Optional[tuple]            # (cols (n, 3) long, weights (n, 3),
+                                       #   segment plan of the restriction)
+
+
+def _level_arrays(ml: MultilevelData, l: int, dtype, transfer_dtype):
+    """Level ``l``'s column-independent arrays for a cycle in ``dtype``
+    with transfer bands in ``transfer_dtype``, from ``ml.lowp`` where they
+    were made before (a hierarchy without that dict gets them anew)."""
+    la = ml.levels[l]
+    cache = ml.lowp if ml.lowp is not None else {}
+
+    def cached(key, make):
+        if key not in cache:
+            cache[key] = make()
+        return cache[key]
+
+    if dtype == torch.float64:
+        def gather():
+            dev = la.free.device
+            cols = torch.as_tensor(np.asarray(la.transfer.cols),
+                                   dtype=torch.long, device=dev)
+            w = torch.as_tensor(np.asarray(la.transfer.weights),
+                                dtype=torch.float64, device=dev)
+            return cols, w, make_segment_plan(cols.reshape(-1),
+                                              la.transfer.n_coarse, dev)
+        return _LevelArrays(None, None, la.sys.R, la.R_batch, None, None,
+                            cached(("gather", l), gather))
+    if la.bands is None:
+        raise ValueError(f"level {l} has no transfer bands: only the f64 "
+                         "cycle runs without them")
+    tb = la.bands
+    if dtype == _BF16 or transfer_dtype == _BF16:
+        # the f32 bands' spans serve their bf16 copies (ops/banded.py)
+        p, r = cached(("tb16", l),
+                      lambda: (tb.p.to(_BF16), tb.r.to(_BF16)))
+    else:
+        p, r = tb.p, tb.r
+    if dtype != _BF16:
+        return _LevelArrays(la.sys.Kband, la.sys.Advband, la.sys.R,
+                            la.R_batch, p, r, None)
+    Kb, Ab = cached(("bands16", l), lambda: (
+        la.sys.Kband.to(_BF16),
+        None if la.sys.Advband is None else la.sys.Advband.to(_BF16)))
+    R = (None if la.sys.R is None
+         else cached(("R16", l), la.sys.R.with_bf16))
+    Rb = (None if la.R_batch is None
+          else cached(("Rb16", l), la.R_batch.with_bf16))
+    return _LevelArrays(Kb, Ab, R, Rb, p, r, None)
+
+
+def _coarse_f64(ml: MultilevelData):
+    """The f64 cycle's coarsest inverses: the f64 LAPACK inverses of the
+    hierarchy's coarsest operators, made once and kept in ``ml.lowp`` (by
+    the number of operators: the Stokes setup's widened copy of a hierarchy
+    shares the dict and holds only the first); the f32 inverses upcast
+    where the hierarchy holds no operators."""
+    if ml.A_c is None:
+        return ml.Ainv.double()
+    cache = ml.lowp if ml.lowp is not None else {}
+    key = ("Ainv64", len(ml.A_c))
+    if key not in cache:
+        cache[key] = torch.as_tensor(np.linalg.inv(ml.A_c),
+                                     device=ml.Ainv.device)
+    return cache[key]
+
+
+def _check_cycle_dtypes(dtype, transfer_dtype):
+    if dtype not in CYCLE_DTYPES:
+        raise ValueError(f"cycle dtype {dtype} not in f32, bf16, f64")
+    if transfer_dtype not in (None, torch.float32, _BF16):
+        raise ValueError(f"transfer_dtype {transfer_dtype} not in f32, bf16")
+
+
+def make_ml_preconditioner(ml: MultilevelData, cycle="hybrid", dtype=None,
+                           transfer_dtype=None, n_smooth=1):
+    """M^{-1}: (n, B) -> (n, B) in the argument's dtype, one ``cycle``
+    ("hybrid", "mult" or "add") of the hierarchy.
+
+    dtype: the cycle's working dtype, f32 (None), bf16 or f64; the
+    argument is cast to it on entry and the result cast back.  In bf16,
+    the inverse diagonals, D, mu, omega, the level bands, the Robin blocks
+    and the transfer bands are bf16 and every apply takes its kernel's bf16
+    form; the coarsest solve is Ainv f32 times the bf16 vector upcast,
+    rounded to bf16.  In f64, the level operators apply their element
+    blocks, the transfers gather, and the coarsest solve takes the f64
+    inverses of ``ml.A_c`` (``_coarse_f64``).  transfer_dtype=bf16 with the
+    f32 cycle stores only the transfer bands in bf16 (the f64 cycle has no
+    bands and ignores it).  The copies a dtype needs are made at the first
+    call that asks for them and kept in ``ml.lowp``.
+    n_smooth: smoothing steps before and after each coarse correction of
+    the multiplicative part."""
+    if cycle not in CYCLES:
         raise ValueError(f"unknown cycle {cycle!r}")
-    D32 = ml.D_vec.float()
-    mu32 = ml.mu_vec.float()
-    omega = ml.omega
+    _check_cycle_dtypes(dtype, transfer_dtype)
+    n_smooth = int(n_smooth)
+    if n_smooth < 1:
+        raise ValueError(f"n_smooth={n_smooth}: at least one step")
+    wd = torch.float32 if dtype is None else dtype
+    f64 = wd == torch.float64
     levels = ml.levels
     n_mid = len(levels)
+    arrs = [_level_arrays(ml, l, wd, transfer_dtype) for l in range(n_mid)]
+    Dw = ml.D_vec.to(wd)
+    muw = ml.mu_vec.to(wd)
+    dinvs = [la.dinv.to(wd) for la in levels]
+    # a tensor, so that bf16 takes omega rounded to bf16 as JAX does
+    omega = torch.as_tensor(ml.omega, dtype=wd, device=Dw.device)
+    Ainv = _coarse_f64(ml) if f64 else ml.Ainv
 
-    def A_masked(la: Level, X):
+    def A_masked(l, X):
         # A_l on free rows, zero on constrained ones
+        la, ar = levels[l], arrs[l]
         free = la.free[:, None]
         Xm = torch.where(free, X, 0.0)
-        Y = band_apply(la.sys.Kband, Xm, coef=D32, spans=la.sys.Kspans)
-        if la.sys.Advband is not None:
-            Y = Y + band_apply(la.sys.Advband, Xm, spans=la.sys.Advspans)
-        if la.R_batch is not None:
-            Y = la.R_batch.apply_batched(Xm, out=Y)
-        elif la.sys.R is not None:
-            Y = la.sys.R.apply_batched(Xm, coef=mu32, out=Y)
+        if f64:
+            Y = la.sys.K.apply_batched(Xm, coef=Dw)
+            if la.sys.Adv is not None:
+                Y = Y + la.sys.Adv.apply_batched(Xm)
+        else:
+            Y = band_apply(ar.Kband, Xm, coef=Dw, spans=la.sys.Kspans)
+            if ar.Advband is not None:
+                Y = Y + band_apply(ar.Advband, Xm, spans=la.sys.Advspans)
+        if ar.R_batch is not None:
+            Y = ar.R_batch.apply_batched(Xm, out=Y)
+        elif ar.R is not None:
+            Y = ar.R.apply_batched(Xm, coef=muw, out=Y)
         return torch.where(free, Y, Xm)
 
-    def restrict(la: Level, R):
+    def restrict(l, R):
+        la, ar = levels[l], arrs[l]
+        if ar.gather is not None:
+            _, w, plan = ar.gather
+            contrib = w[:, :, None] * R[:, None, :]
+            return planned_segment_sum(
+                contrib.reshape(-1, R.shape[1]), plan)
         tb = la.bands
         Xq = F.pad(R, (0, 0, 0, tb.pad_r - R.shape[0]))
-        Ys = rect_band_apply(tb.r, tb.ro, Xq, tb.rs)[:la.transfer.n_coarse]
+        Ys = rect_band_apply(ar.r, tb.ro, Xq, tb.rs)[:la.transfer.n_coarse]
         return Ys[tb.isig]
 
-    def prolong(la: Level, Xc):
+    def prolong(l, Xc):
+        la, ar = levels[l], arrs[l]
+        if ar.gather is not None:
+            cols, w, _ = ar.gather
+            return torch.einsum("nk,nkb->nb", w, Xc[cols])
         tb = la.bands
         Xs = Xc[tb.sig]
         Xq = F.pad(Xs, (0, 0, 0, tb.pad_p - Xs.shape[0]))
-        return rect_band_apply(tb.p, tb.po, Xq, tb.ps)[:la.free.shape[0]]
+        return rect_band_apply(ar.p, tb.po, Xq, tb.ps)[:la.free.shape[0]]
 
     def coarse(rc):
         rc = torch.where(ml.free_c[:, None], rc, 0.0)
-        return torch.matmul(ml.Ainv, rc.t().unsqueeze(-1)).squeeze(-1).t()
+        xc = torch.matmul(Ainv, rc.to(Ainv.dtype).t().unsqueeze(-1))
+        return xc.squeeze(-1).t().to(wd)
+
+    def smooth(l, x, r):
+        return x + omega * dinvs[l] * (r - A_masked(l, x))
 
     def vcycle(l, r):
-        la = levels[l]
-        x = omega * la.dinv * r                 # first step from zero
-        rc = restrict(la, r - A_masked(la, x))
+        x = omega * dinvs[l] * r                # first step from zero
+        for _ in range(n_smooth - 1):
+            x = smooth(l, x, r)
+        rc = restrict(l, r - A_masked(l, x))
         if l + 1 < n_mid:
             rc = torch.where(levels[l + 1].free[:, None], rc, 0.0)
             xc = vcycle(l + 1, rc)
         else:
             xc = coarse(rc)
-        x = x + prolong(la, xc)
+        x = x + prolong(l, xc)
         # mirrored post-smooth keeps M symmetric (CG-safe)
-        return x + omega * la.dinv * (r - A_masked(la, x))
-
-    if cycle == "mult":
-        return lambda R: vcycle(0, R)
+        for _ in range(n_smooth):
+            x = smooth(l, x, r)
+        return x
 
     def hybrid(R):
-        la = levels[0]
-        rc = restrict(la, R)
+        rc = restrict(0, R)
         if n_mid > 1:
             rc = torch.where(levels[1].free[:, None], rc, 0.0)
             xc = vcycle(1, rc)
         else:
             xc = coarse(rc)
-        return omega * la.dinv * R + prolong(la, xc)
+        return omega * dinvs[0] * R + prolong(0, xc)
 
-    return hybrid
+    def additive(R):
+        # restrict the residual down the hierarchy, scaled Jacobi on every
+        # smoothing level and the dense inverse at the coarsest, prolong
+        # and accumulate back up
+        rs = [R]
+        for l in range(n_mid):
+            rc = restrict(l, rs[-1])
+            if l + 1 < n_mid:
+                rc = torch.where(levels[l + 1].free[:, None], rc, 0.0)
+            rs.append(rc)
+        c = coarse(rs[-1])
+        for l in range(n_mid - 1, -1, -1):
+            c = omega * dinvs[l] * rs[l] + prolong(l, c)
+        return c
+
+    body = {"hybrid": hybrid, "add": additive,
+            "mult": lambda R: vcycle(0, R)}[cycle]
+    return lambda R: body(R.to(wd)).to(R.dtype)

@@ -82,8 +82,8 @@ def _domain_stats(domain, mesh, sys, si, ts, info, seconds):
         "solve_s": ts["solve_s"], **seconds,
         "minres_iters": si["outer_iters"], "minres_passes": si["passes"],
         "stokes_rel_resnorm": si["rel_resnorm"],
-        "iters": info["iters"].tolist(), "passes": info["passes"],
-        "rel_resnorm": info["rel_resnorm"].tolist(),
+        "iters": info["iters"].tolist(), "passes": info.get("passes"),
+        "rel_resnorm": info["true_rel_resnorm"].tolist(),
         "multilevel": ts["multilevel"],
     }
 
@@ -91,8 +91,11 @@ def _domain_stats(domain, mesh, sys, si, ts, info, seconds):
 def run_advdiff_step_validation(output_base_dir=OUTPUT_BASE,
                                 mesh_size_dim=None, pe_values=None,
                                 mu_factors=None, device="cuda", rtol=1e-12,
-                                verbose=True):
-    """The Pe x mu validation on ``device``.  Returns (rows, stats): the
+                                verbose=True, solver_options=None,
+                                stokes_options=None):
+    """The Pe x mu validation on ``device``; ``solver_options`` and
+    ``stokes_options`` as in ``studies.no_uptake.run_geometry_study``.
+    Returns (rows, stats): the
     CSV rows, and one stats dict per domain (stage seconds, each stage
     ending in a device sync; iterations, passes, relative residuals)."""
     pe_values = list(pe_values or PE_VALUES)
@@ -111,12 +114,14 @@ def run_advdiff_step_validation(output_base_dir=OUTPUT_BASE,
     t1 = time.time()
     sulc_mesh = make_mesh(p0, "sulcus")
     t_mesh = time.time()
-    u_s, _ = stokes_for_study(sulc_mesh, p0.H, device)
+    stokes_options = stokes_options or {}
+    u_s, _ = stokes_for_study(sulc_mesh, p0.H, device, **stokes_options)
     if verbose:
         print(f"[sulcus] Stokes: {time.time() - t_mesh:.1f}s "
               f"{u_s.solver_info}")
     Xs, info_s, sys_s, ts_s = transport_batch(sulc_mesh, u_s, D_batch,
-                                              mu_batch, device, rtol=rtol)
+                                              mu_batch, device, rtol=rtol,
+                                              solver_options=solver_options)
     t_solve = time.time()
     if verbose:
         print(f"[sulcus] {len(cells)} transport solves in "
@@ -157,7 +162,7 @@ def run_advdiff_step_validation(output_base_dir=OUTPUT_BASE,
     t1 = time.time()
     rect_mesh = make_mesh(p0, "rectangular")
     t_mesh = time.time()
-    u_r, _ = stokes_for_study(rect_mesh, p0.H, device)
+    u_r, _ = stokes_for_study(rect_mesh, p0.H, device, **stokes_options)
     if verbose:
         print(f"[rect] Stokes: {time.time() - t_mesh:.1f}s "
               f"{u_r.solver_info}")
@@ -169,7 +174,8 @@ def run_advdiff_step_validation(output_base_dir=OUTPUT_BASE,
             sulcus_right_x=params.L / 2 + params.sulci_w / 2,
             L_c=0.1 * params.sulci_w, Gamma=STEP_GAMMA))
     Xr, info_r, sys_r, ts_r = transport_batch(rect_mesh, u_r, D_batch, None,
-                                              device, rtol=rtol, steps=steps)
+                                              device, rtol=rtol, steps=steps,
+                                              solver_options=solver_options)
     t_solve = time.time()
     if verbose:
         print(f"[rect] {len(cells)} surrogate solves in "

@@ -69,9 +69,43 @@ def _sync(device):
     return time.time()
 
 
+# what a study passes on to build_multilevel(_for) and to solve_sweep
+BUILD_OPTIONS = ("coarse_inverse",)
+SOLVE_OPTIONS = ("precision", "cycle", "cheap_passes", "inner_rtol",
+                 "ml_dtype", "transfer_dtype", "n_smooth")
+
+
+def split_solver_options(options):
+    """A study's ``solver_options`` dict -> (build_multilevel_for's keyword
+    arguments, solve_sweep's): ``coarse_inverse`` goes to the hierarchy,
+    the rest to the solve."""
+    options = dict(options or {})
+    unknown = set(options) - set(BUILD_OPTIONS) - set(SOLVE_OPTIONS)
+    if unknown:
+        raise ValueError(f"unknown solver options {sorted(unknown)}")
+    return ({k: options[k] for k in BUILD_OPTIONS if k in options},
+            {k: options[k] for k in SOLVE_OPTIONS if k in options})
+
+
+def require_converged(info, what):
+    """Raise unless every column of a ``solve_sweep`` report converged: a
+    study writes no row of a solve that stalled or broke down into NaN (a
+    BiCGStab solve under a cycle that rounds to bf16 can)."""
+    bad = np.flatnonzero(~np.asarray(info["converged"]))
+    if bad.size:
+        raise RuntimeError(
+            f"{what}: columns {bad.tolist()} did not converge (iterations "
+            f"{np.asarray(info['iters'])[bad].tolist()}, true relative "
+            f"residuals {np.asarray(info['true_rel_resnorm'])[bad].tolist()})")
+
+
 def no_adv_batch(geom_params: Parameters, mu_factors: List[float],
-                 domain_type: str, device, rtol=1e-12, verbose=True):
+                 domain_type: str, device, rtol=1e-12, verbose=True,
+                 solver_options=None):
     """The pure-diffusion problem for several mu values on one mesh.
+    ``solver_options``: ``solve_sweep``'s configuration keywords and
+    ``coarse_inverse`` (``split_solver_options``); None is the default
+    configuration.  Raises RuntimeError if a column did not converge.
 
     Returns (results, stats): one dict per mu factor with the keys of the
     JAX package's results (c, mass_metrics, flux_metrics, params,
@@ -86,16 +120,18 @@ def no_adv_batch(geom_params: Parameters, mu_factors: List[float],
     D_batch = [geom_params.D] * len(mus)
     sys = build_transport_system(mesh, device, element="P2")
     t_asm = _sync(device)
-    ml = build_multilevel_for(sys, mesh, D_batch, mu_values=mus)
+    build_kw, solve_kw = split_solver_options(solver_options)
+    ml = build_multilevel_for(sys, mesh, D_batch, mu_values=mus, **build_kw)
     t_ml = _sync(device)
     X, info = solve_sweep(sys, D_batch, mu_values=mus, rtol=rtol,
-                          multilevel=ml)
+                          multilevel=ml, **solve_kw)
     t_solve = _sync(device)
+    require_converged(info, f"no_adv_batch {domain_type}")
     if verbose:
         print(f"  [batch] {domain_type} w={geom_params.sulci_w_dim} "
               f"h={geom_params.sulci_h_dim}: {len(mus)} solves in "
               f"{t_solve - t0:.2f}s (iters={info['iters'].tolist()}, "
-              f"passes={info['passes']})")
+              f"passes={info.get('passes')})")
     params_list = [
         make_no_adv_params(
             f, sulci_w_dim=geom_params.sulci_w_dim,
@@ -134,28 +170,32 @@ def no_adv_batch(geom_params: Parameters, mu_factors: List[float],
         "mesh_s": t_mesh - t0, "assembly_s": t_asm - t_mesh,
         "ml_setup_s": t_ml - t_asm, "solve_s": t_solve - t_ml,
         "metrics_s": t_end - t_solve, "total_s": t_end - t0,
-        "iters": info["iters"].tolist(), "passes": info["passes"],
-        "rel_resnorm": info["rel_resnorm"].tolist(),
+        "iters": info["iters"].tolist(), "passes": info.get("passes"),
+        "rel_resnorm": info["true_rel_resnorm"].tolist(),
         "multilevel": ml is not None,
     }
     return out, stats
 
 
-def stokes_for_study(mesh, H, device):
+def stokes_for_study(mesh, H, device, **cycle_options):
     """The study's Stokes field (u, p) on ``device``, solved as the JAX
     package's ``stokes_solve`` does (MINRES + MG, outer rtol 1e-9); the
-    solver report, with its setup and solve seconds, is ``u.solver_info``."""
-    return stokes_solve_mg(mesh, H, setup(device))
+    solver report, with its setup and solve seconds, is ``u.solver_info``.
+    ``cycle_options``: the velocity hierarchy's (``stokes_setup``)."""
+    return stokes_solve_mg(mesh, H, setup(device), **cycle_options)
 
 
 def transport_batch(mesh, u, D_batch, mu_batch, device, rtol=1e-12,
-                    steps=None):
+                    steps=None, solver_options=None):
     """One domain's batch of advective transport columns (the unsharded
     JAX ``transport_batch``): the system with advection by ``u``, the
     hierarchy carrying u to every level, and ONE batched BiCGStab solve.
     Either ``mu_batch`` (uniform mu per column) or ``steps`` (one mu_b(x)
     callable per column, ``mu_batch`` None: per-sample Robin matrices on
     the fine system and on every level) selects the Robin term.
+
+    ``solver_options``: as for ``no_adv_batch``.  Raises RuntimeError if
+    a column did not converge, as ``no_adv_batch`` does.
 
     Returns (X (B, n) f64 on ``device``, info, system, stats) with stats
     the stage seconds (each ending in a device sync) assembly_s,
@@ -167,13 +207,15 @@ def transport_batch(mesh, u, D_batch, mu_batch, device, rtol=1e-12,
     robin_matrices = None if steps is None else torch.stack(
         [robin_matrices_for_mu(sys, s) for s in steps])
     t_asm = _sync(device)
+    build_kw, solve_kw = split_solver_options(solver_options)
     ml = build_multilevel_for(sys, mesh, D_batch, mu_batch, u_fine=u,
                               mu_callables=steps,
-                              robin_matrices_fine=robin_matrices)
+                              robin_matrices_fine=robin_matrices, **build_kw)
     t_ml = _sync(device)
     X, info = solve_sweep(sys, D_batch, mu_batch, rtol=rtol, multilevel=ml,
-                          robin_matrices=robin_matrices)
+                          robin_matrices=robin_matrices, **solve_kw)
     t_solve = _sync(device)
+    require_converged(info, "transport_batch")
     stats = {"assembly_s": t_asm - t0, "ml_setup_s": t_ml - t_asm,
              "solve_s": t_solve - t_ml, "multilevel": ml is not None}
     return X, info, sys, stats

@@ -120,19 +120,21 @@ def _rect_row(params, mm, fm, vm):
     }
 
 
-def _domain_runs(params_list, domain_type, device, verbose):
+def _domain_runs(params_list, domain_type, device, verbose,
+                 solver_options=None, stokes_options=None):
     """Stokes + batched transport + metrics on one domain for all Pe of
     ``params_list`` (one geometry).  Returns (rows, stats)."""
     t0 = time.time()
     p0 = params_list[0]
     mesh = make_mesh(p0, domain_type)
     t_mesh = time.time()
-    u, _ = stokes_for_study(mesh, p0.H, device)
+    u, _ = stokes_for_study(mesh, p0.H, device, **(stokes_options or {}))
     si = u.solver_info
     t_stokes = time.time()
     D_batch = [1.0 / p.Pe for p in params_list]
     X, info, sys, ts = transport_batch(mesh, u, D_batch,
-                                       [0.0] * len(D_batch), device)
+                                       [0.0] * len(D_batch), device,
+                                       solver_options=solver_options)
     t_solve = time.time()
     sm = build_sweep_metrics(sys.space, mesh, 1.0, X.device, u=u)
     flux_list, mass_list, _ = metrics_to_dicts(
@@ -151,8 +153,8 @@ def _domain_runs(params_list, domain_type, device, verbose):
         "metrics_s": t_end - t_solve, "total_s": t_end - t0,
         "minres_iters": si["outer_iters"], "minres_passes": si["passes"],
         "stokes_rel_resnorm": si["rel_resnorm"],
-        "iters": info["iters"].tolist(), "passes": info["passes"],
-        "rel_resnorm": info["rel_resnorm"].tolist(),
+        "iters": info["iters"].tolist(), "passes": info.get("passes"),
+        "rel_resnorm": info["true_rel_resnorm"].tolist(),
         "multilevel": ts["multilevel"],
     }
     if verbose:
@@ -161,18 +163,20 @@ def _domain_runs(params_list, domain_type, device, verbose):
         print(f"  [{label}] {len(D_batch)} Pe points in "
               f"{stats['total_s']:.2f}s "
               f"(MINRES {si['outer_iters']} iters / {si['passes']} passes, "
-              f"BiCGStab iters={stats['iters']}, passes={info['passes']})")
+              f"BiCGStab iters={stats['iters']}, passes={info.get('passes')})")
     return rows, stats
 
 
 def run_rectangular_baselines(peclet_numbers=None, mesh_size_dim=None,
-                              device="cuda", verbose=True):
+                              device="cuda", verbose=True,
+                              solver_options=None, stokes_options=None):
     """The rectangle's rows for every Pe: one Stokes solve, one batched
     transport solve.  Returns (rows, stats)."""
     pes = list(peclet_numbers or PECLET_NUMBERS)
     params_list = [_make_params(pe, mesh_size_dim=mesh_size_dim)
                    for pe in pes]
-    return _domain_runs(params_list, "rectangular", device, verbose)
+    return _domain_runs(params_list, "rectangular", device, verbose,
+                        solver_options, stokes_options)
 
 
 def _div(a, b):
@@ -216,9 +220,13 @@ def add_ratio_metrics(rows):
 
 def run_geometry_study(geometries=None, peclet_numbers=None,
                        mesh_size_dim=None, base_dir=BASE_DIR, device="cuda",
-                       verbose=True):
+                       verbose=True, solver_options=None,
+                       stokes_options=None):
     """The no-uptake study on ``device`` over the named geometries of
     ``create_geometry_variations`` (default: all 23) and the rectangle.
+    ``solver_options``: the transport solves' configuration
+    (``studies.common.split_solver_options``); ``stokes_options``: the
+    Stokes velocity hierarchy's cycle options (``stokes_setup``).
     Returns (rows, stats) with one stats dict per domain run."""
     pes = list(peclet_numbers or PECLET_NUMBERS)
     print("=" * 64 + "\nNO-UPTAKE GEOMETRY x PECLET STUDY\n" + "=" * 64)
@@ -233,10 +241,12 @@ def run_geometry_study(geometries=None, peclet_numbers=None,
         params_list = [_make_params(pe, gcfg["sulci_w_dim"],
                                     gcfg["sulci_h_dim"], mesh_size_dim)
                        for pe in pes]
-        r, st = _domain_runs(params_list, "sulcus", device, verbose)
+        r, st = _domain_runs(params_list, "sulcus", device, verbose,
+                             solver_options, stokes_options)
         rows += r
         stats.append(dict(st, geometry=gkey))
-    r, st = run_rectangular_baselines(pes, mesh_size_dim, device, verbose)
+    r, st = run_rectangular_baselines(pes, mesh_size_dim, device, verbose,
+                                      solver_options, stokes_options)
     rows += r
     stats.append(dict(st, geometry="rectangle"))
     add_ratio_metrics(rows)

@@ -72,9 +72,9 @@ def _mu_eff_columns(result):
 
 
 def run_mu_sweep(device, mesh_size_dim=0.02, base_dir=BASE_DIR,
-                 verbose=True):
+                 verbose=True, solver_options=None):
     """The mu sweep on ``device``; returns (rows, stats) (see
-    ``studies.common.no_adv_batch`` for stats)."""
+    ``studies.common.no_adv_batch`` for stats and ``solver_options``)."""
     print("=" * 60 + "\nMU PARAMETER SWEEP STUDY\n" + "=" * 60)
     t0 = time.time()
     study_dir = create_study_dir("Mu Parameter Sweep", base_dir)
@@ -83,7 +83,8 @@ def run_mu_sweep(device, mesh_size_dim=0.02, base_dir=BASE_DIR,
     geom = make_no_adv_params(1.0, sulci_w_dim=0.25, sulci_h_dim=0.25,
                               mesh_size_dim=mesh_size_dim)
     results, stats = no_adv_batch(geom, factors, "sulcus", device,
-                                  verbose=verbose)
+                                  verbose=verbose,
+                                  solver_options=solver_options)
     rows = []
     for regime, factor, res in zip(regimes, factors, results):
         row = {

@@ -21,11 +21,18 @@ over ``--calls`` calls, summed, over the calls) and the per-call time
 ``--rows-variant``, each C case is also timed through the
 one-thread-per-output variant of ``scripts/element_rows_variant.cu``
 (launched over the touched rows in the add form), built here with nvcc,
-and its outputs must equal the tree's bit for bit.  ``--save`` writes kernel C's outputs on fixed inputs (numpy seeds) to
-FILE; ``--against`` compares this tree's outputs with
-such a file bit for bit and prints the largest difference.  The last line
-is one JSON object with every case.  Run trees in turns (parent, change,
-change, parent) within one call, on one card.
+and its outputs must equal the tree's bit for bit.  ``--save`` writes every
+case's output on fixed inputs (a seeded generator for A and B, numpy seeds
+for C) to FILE; ``--against`` compares this tree's outputs with such a file
+bit for bit, case by case where both have the case, and prints the largest
+difference.  A tree whose kernels take bf16 operands also runs the bf16
+cases, after the f32 ones and on inputs of their own, so that the f32
+cases see the same inputs in every tree: A on the mid K band (B = 20) and
+the fine advection band (B = 3), B in both forms on the fine transfers
+(B = 20), C on the fine Robin block in the out= form (B = 20); f32 against
+bf16 of one tree can then be read from one run.  The last line is one JSON
+object with every case.  Run trees in turns (parent, change, change,
+parent) within one call, on one card.
 """
 
 import argparse
@@ -163,6 +170,7 @@ def main(argv=None):
         return getattr(obj, name) if spans_ok else None
 
     cases = []
+    outputs = {}
 
     def timed(label, fn):
         cases.append({"case": label, "ms": device_ms(fn, args.calls),
@@ -171,11 +179,14 @@ def main(argv=None):
     def run_a(label, band, spans, B, coef):
         X = rnd(band.shape[0] * band.shape[1], B)
         kw = {"spans": spans} if spans_ok else {}
+        outputs[label] = banded.band_apply(band, X, coef, **kw).cpu()
         timed(label, lambda: banded.band_apply(band, X, coef, **kw))
 
     def run_b(label, band, offs, spans, rows, B):
         Xq = rnd(rows, B)
         extra = (spans,) if spans_ok else ()
+        outputs[label] = banded.rect_band_apply(band, offs, Xq,
+                                                *extra).cpu()
         timed(label, lambda: banded.rect_band_apply(band, offs, Xq, *extra))
 
     coef20 = torch.rand(B_SWEEP, generator=g, device=dev) + 0.5
@@ -201,7 +212,6 @@ def main(argv=None):
               sp(tb, "ps"), tb.pad_p, B)
 
     # kernel C on fixed numpy inputs, so that two trees see the same X
-    outputs = {}
 
     def np_inputs(seed, n, B, dtype, with_coef):
         rng = np.random.default_rng(seed)
@@ -268,11 +278,54 @@ def main(argv=None):
     run_c(9, "f32 R", adv.R, 3, f32, "out")
     run_c(10, "f32 mid R", aml.levels[1].sys.R, 3, f32, "out")
 
+    # the bf16 operand forms, where the tree has them
+    if hasattr(banded, "BAND_APPLY_DTYPES"):
+        bf16 = torch.bfloat16
+        g16 = torch.Generator(device=dev).manual_seed(16)
+
+        def rnd16(n, B, dtype):
+            return (torch.rand((n, B), generator=g16, device=dev) * 2
+                    - 1).to(dtype)
+
+        for label, band, spans, B, coef in (
+                (f"A bf16 mid K {tuple(mid.Kband.shape)} B=20", mid.Kband,
+                 mid.Kspans, B_SWEEP, coef20.to(bf16)),
+                (f"A bf16 Adv band {tuple(adv.Advband.shape)} B=3",
+                 adv.Advband, adv.Advspans, 3, None)):
+            b16 = band.to(bf16)
+            X = rnd16(band.shape[0] * band.shape[1], B, bf16)
+            outputs[label] = banded.band_apply(b16, X, coef,
+                                               spans=spans).cpu()
+            timed(label, lambda: banded.band_apply(b16, X, coef,
+                                                   spans=spans))
+        tb = ml.levels[0].bands
+        for way, band, offs, spans, rows in (
+                ("restrict", tb.r, tb.ro, tb.rs, tb.pad_r),
+                ("prolong", tb.p, tb.po, tb.ps, tb.pad_p)):
+            b16 = band.to(bf16)
+            for xd, form in ((torch.float32, "bf16 band, f32 X"),
+                             (bf16, "all bf16")):
+                Xq = rnd16(rows, B_SWEEP, xd)
+                label = (f"B {form} fine {way} {tuple(band.shape)} "
+                         f"B={B_SWEEP}")
+                outputs[label] = banded.rect_band_apply(b16, offs, Xq,
+                                                        spans).cpu()
+                timed(label, lambda: banded.rect_band_apply(b16, offs, Xq,
+                                                            spans))
+        R16 = sys_.R.with_bf16()
+        X, Y0, c = np_inputs(11, R16.ndofs, B_SWEEP, bf16, True)
+        label = f"C bf16 R A{tuple(R16.A16.shape)} B={B_SWEEP} out"
+        outputs[label] = R16.apply_batched(X, c, out=Y0.clone()).cpu()
+        Y = Y0.clone()
+        timed(label, lambda: R16.apply_batched(X, c, out=Y))
+
     same = None
     if args.against:
         ref = torch.load(args.against)
         same = {}
         for label, Y in outputs.items():
+            if label not in ref:
+                continue
             d = float((Y.double() - ref[label].double()).abs().max())
             same[label] = {"bitwise": bool(torch.equal(
                 Y.view(torch.uint8), ref[label].view(torch.uint8))),

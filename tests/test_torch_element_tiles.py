@@ -364,7 +364,7 @@ def test_call_checks_refuse_what_the_kernel_does_not_take():
     X = torch.zeros((10, 3))
     args = (torch.float32, cpu, 10, 8)
     te._check_call(X, torch.ones(3), torch.zeros((10, 3)), *args)
-    with pytest.raises(TypeError, match="f32 or f64"):
+    with pytest.raises(TypeError, match="f32, f64 or bf16"):
         te._check_call(X.double(), None, None, *args)
     with pytest.raises(ValueError, match="at least 8 rows"):
         te._check_call(X[:7], None, None, *args)
@@ -439,7 +439,7 @@ def test_plain_per_sample_form(dtype, nd):
 def test_plan_struct_matches_the_kernel():
     """Seven pointers, then twelve ints: the C ``Plan``."""
     S = te._PlanStruct
-    assert S.is_f64.offset == 56 and S.n_gaps.offset == 56 + 10 * 4
+    assert S.dtype.offset == 56 and S.n_gaps.offset == 56 + 10 * 4
     assert S.batch.offset == 56 + 11 * 4
     assert ctypes.sizeof(S) == 104
 

@@ -327,7 +327,10 @@ def test_checkers_refuse_unsupported_input():
     """What the CUDA kernels do not take raises in their argument checks
     (the CUDA path calls them before every launch); nothing truncates."""
     band, X, coef = (torch.as_tensor(a) for a in _band_case(1))
-    with pytest.raises(TypeError, match="f32"):
+    # a dtype pair the kernel has no form for (f16 band; bf16 band, f32 X)
+    with pytest.raises(TypeError, match="kernel takes"):
+        tb.check_band_apply_args(band.half(), X, coef)
+    with pytest.raises(TypeError, match="kernel takes"):
         tb.check_band_apply_args(band.bfloat16(), X, coef)
     # any width >= 1 is taken (wide batches run as column blocks)
     with pytest.raises(ValueError, match="B=0"):
@@ -338,8 +341,10 @@ def test_checkers_refuse_unsupported_input():
     rband, Xp = _rect_case(_UNALIGNED_OFFS)
     rband, offs, Xp = (torch.as_tensor(rband),
                        torch.as_tensor(_UNALIGNED_OFFS), torch.as_tensor(Xp))
-    with pytest.raises(TypeError, match="f32"):
-        tb.check_rect_band_apply_args(rband.bfloat16(), offs, Xp)
+    with pytest.raises(TypeError, match="kernel takes"):
+        tb.check_rect_band_apply_args(rband.half(), offs, Xp)
+    with pytest.raises(TypeError, match="kernel takes"):
+        tb.check_rect_band_apply_args(rband, offs, Xp.bfloat16())
     with pytest.raises(ValueError, match="B=0"):
         tb.check_rect_band_apply_args(rband, offs,
                                       torch.zeros((Xp.shape[0], 0)))
