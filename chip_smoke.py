@@ -45,7 +45,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    n B rows, applied to the batch-minor X seen as one long column; and
    kernel A in f32 on the rectangle's fine advection band at B = 9, two
    thirds of that batch's solve.
-   The bf16 operand forms run beside them on the same bands and blocks: A
+   The bf16 operand forms run beside them on the same bands and blocks
+   (A and B on the tensor cores, ``mma.sync`` m16n8k16, and labelled so): A
    (band, X, coef, Y in bf16) on the mid and fine K bands at B = 20 and,
    at B = 3, on the fine advection band and the first mid level's K and
    advection bands; B in both forms (bf16 band with f32 X and Y; all bf16)
@@ -205,6 +206,9 @@ CG_BOUND = 40
 PALLAS = "fenics_eff_uptake_tpu/ops/pallas_kernels.py"
 JAX_SWEEP = "fenics_eff_uptake_tpu/parallel/sweep.py"
 CSRC = "fenics_eff_uptake_tpu_torch/ops/csrc"
+# the label of the bf16 forms of kernels A and B: products on the tensor
+# cores (mma.sync m16n8k16, bf16 in, f32 accumulate)
+TC = "(tensor cores)"
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s, and
 # FLOP/s by the operands' element size (bf16: the dense tensor-core rate;
 # f32 and f64 outside the tensor cores)
@@ -704,7 +708,7 @@ def phase_kernels(dev):
     # the out= form (tolerances: compare's ``terms``)
     bf16 = torch.bfloat16
     out["band_apply bf16"] = [band_case(
-        f"A bf16 {label} band {tuple(s.Kband.shape)} B={B_SWEEP}",
+        f"A bf16 {TC} {label} band {tuple(s.Kband.shape)} B={B_SWEEP}",
         s.Kband.to(bf16), s.Kspans,
         rnd(s.Kband.shape[0] * s.Kband.shape[1], bf16), coef32.to(bf16))
         for label, s in (("mid", ml.levels[1].sys), ("fine", sys_))]
@@ -715,7 +719,8 @@ def phase_kernels(dev):
         for xd, form in ((torch.float32, "bf16 band, f32 X"),
                          (bf16, "all bf16")):
             out["rect_band_apply bf16"].append(rect_case(
-                f"B {form} fine {label} {tuple(band.shape)} B={B_SWEEP}",
+                f"B {form} {TC} fine {label} {tuple(band.shape)} "
+                f"B={B_SWEEP}",
                 band.to(bf16), offs, spans, rnd(rows, xd)))
     out["element_apply bf16"] = [element_case(
         "R", sys_.R.with_bf16(), rnd(sys_.ndofs, bf16), coef32.to(bf16),
@@ -801,7 +806,7 @@ def phase_kernels_flow(dev):
     mid = aml.levels[1].sys
     coef3 = torch.rand(3, generator=g, device=dev) + 0.5
     out["band_apply bf16"] = [band_case(
-        f"A bf16 {label} {tuple(band.shape)} B=3", band.to(bf16), spans,
+        f"A bf16 {TC} {label} {tuple(band.shape)} B=3", band.to(bf16), spans,
         rnd(band.shape[0] * band.shape[1], 3, bf16),
         None if coef is None else coef.to(bf16))
         for label, band, spans, coef in (
@@ -810,7 +815,8 @@ def phase_kernels_flow(dev):
             ("mid Adv band", mid.Advband, mid.Advspans, None))]
     tb = aml.levels[0].bands
     out["rect_band_apply bf16"] = [rect_case(
-        f"B {form} transport {way} {tuple(band.shape)} B=3", band.to(bf16),
+        f"B {form} {TC} transport {way} {tuple(band.shape)} B=3",
+        band.to(bf16),
         offs, spans, rnd(rows, 3, xd))
         for way, band, offs, spans, rows in (
             ("restrict", tb.r, tb.ro, tb.rs, tb.pad_r),
@@ -1312,10 +1318,15 @@ def cycle_vs_plain(name, ml, R, **cycle_kw):
     ``element_apply_plain`` put in the wrappers' places for that one
     call), so that a solve that does not converge under this cycle cannot
     be a wrong kernel at these shapes.  Raises unless every entry of the
-    kernels' result is finite and, for a cycle in bf16 (whose result is a
-    bf16 vector upcast), >= 99% of the entries equal plain's and all lie
-    within 4 bf16 steps of max |M r| (2^-6) of it; for an f32 cycle,
-    within 1e-4 of max |M r|."""
+    kernels' result is finite and, for a cycle that rounds its vectors to
+    bf16 (the bf16 cycle, or bf16 transfers, which round each transfer's
+    input), >= 99% of the entries equal plain's and all lie within 4 bf16
+    steps of max |M r| (2^-6) of it; for an f32 cycle, within 1e-4 of max
+    |M r|.  The bf16 band kernels sum on the tensor cores in another order
+    than the plain versions, and a difference in the last f32 bit can flip
+    a later rounding to bf16 by one step, which the cycle carries on: a
+    cycle with bf16 transfers is held to the bf16 bounds, not to the f32
+    cycle's."""
     import torch
     from fenics_eff_uptake_tpu_torch.ops import banded, elemspmv
     from fenics_eff_uptake_tpu_torch.parallel import sweep
@@ -1351,7 +1362,8 @@ def cycle_vs_plain(name, ml, R, **cycle_kw):
     scale = float(Mp.abs().max())
     err = float((Mk - Mp).abs().max()) / scale
     equal = float((Mk == Mp).float().mean())
-    lowp = cycle_kw.get("dtype") == torch.bfloat16
+    lowp = torch.bfloat16 in (cycle_kw.get("dtype"),
+                              cycle_kw.get("transfer_dtype"))
     tol = 2.0 ** -6 if lowp else 1e-4
     print(f"[configs] {name}: one cycle M(R) on {tuple(R.shape)}, kernels "
           f"against plain on the card: max |diff| / max |M r| {err:.3e} "

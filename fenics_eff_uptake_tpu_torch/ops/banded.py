@@ -34,10 +34,16 @@ of the JAX package's bf16 cycle and bf16 transfer bands:
 In each the products are formed from the bf16 values and summed in f32 (a
 bf16 x bf16 product is exact in f32), the coef product is made in f32, and
 a bf16 Y is rounded once, on the store; the plain versions upcast, run the
-f32 einsum and round once, and never a bf16 einsum.  The spans of an f32
-band serve its bf16 copy: bf16 has f32's exponent range, so rounding to
-bf16 makes no nonzero of the band zero (short of f32's subnormals, and a
-value that did round to zero adds nothing).
+f32 einsum and round once, and never a bf16 einsum.  On the card the bf16
+forms run on the tensor cores (``mma.sync`` m16n8k16, bf16 in, f32
+accumulate), as the TPU kernels' bf16 branch runs on the MXU: the f32 sums
+go in the tensor cores' order, so the kernels are held to the plain
+versions by tolerance (a bf16 Y equal in at least 99% of the entries and
+each within one bf16 ulp or 1e-5 of its sum of |terms|; an f32 Y within
+1e-5 of it), not bit for bit.  The spans of an f32 band serve its bf16
+copy: bf16 has f32's exponent range, so rounding to bf16 makes no nonzero
+of the band zero (short of f32's subnormals, and a value that did round to
+zero adds nothing).
 """
 
 from __future__ import annotations

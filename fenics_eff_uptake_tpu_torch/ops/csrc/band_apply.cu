@@ -13,77 +13,95 @@
 // plans 16-aligned it for DMA; nothing here relies on that); window rows
 // outside [0, n_cols) read as zero.
 //
-// What bounds them on an H100.  At B <= 20 columns each 4-byte band element
-// feeds at most 20 FMAs, so both kernels are bound by device-memory bandwidth
-// on the band; at B = 96 (the Stokes deflation's one wide apply) by f32 FMA
-// throughput.  Three things held the first design (one 64 x 32 register-staged
-// slab per block, 32-column blocks) at 1.5 TB/s and under the cuBLAS bmm at
-// B = 96, and the design answers each:
-//   * less than half of a band holds anything, and in every 64-row block the
-//     nonzeros sit in one contiguous span of 32-column chunks.  The caller
-//     passes that span per block (ops/banded.band_spans: int32 (T,
-//     ceil(R/64), 2), [lo, hi) in chunks), and a block streams only its
-//     span's chunks; a block with an empty span still stores its rows
-//     (zeros, times the coef).  Every skipped term is fmaf(0, x, acc) ==
-//     acc for finite x, so the result equals the full-width sum bit for
-//     bit; a NaN or inf in X under a skipped zero does not propagate (the
-//     tests and the solvers use finite X);
-//   * little was in flight: the band now streams through a ring of kStages
-//     shared-memory stages filled by cp.async (16-byte .cg copies for the
-//     band, whose rows are 16-byte aligned; 16-byte copies for X when B % 4
-//     == 0, else 4-byte .ca copies, as its rows are B * 4 bytes), so
-//     kStages - 1 chunks (2 x 8 KB of band) are in flight per block while it
-//     computes one, with one barrier per chunk.  The ring is kept short so
-//     that more blocks reside per SM, which keeps more bytes in flight per
-//     SM than a deeper ring per block would.  Out-of-range band and window
-//     elements are zero-filled by the copy itself (src-size 0).  Dynamic
-//     shared memory (29-63 KB per block) is enabled per instance with
-//     cudaFuncSetAttribute;
-//   * B > 32 re-read the band per 32-column block.  Each instance now keeps
-//     accumulators for all of its columns, up to kMaxCols = 96 (the widest
-//     batch the paths use), so a band slab is read from device memory once
-//     whatever B is; above 96, blocks of 96 columns.  A thread owns TM rows
-//     (strided by 64 / TM) and TN columns (float4 groups interleaved across
-//     the CG column groups), a register tile: per 4 window columns it reads
-//     TM float4 of band and TN float4 of X from shared memory (conflict-free:
-//     the band pitch is 36 floats, neighbouring lanes read neighbouring X
-//     groups or broadcast) for 4 * TM * TN FMAs.
-// The arithmetic is unchanged: IEEE f32 fmaf, no tensor cores, no TF32 (the
-// TPU kernel's Precision.HIGHEST contract), and each output's FMA chain runs
-// in ascending w over its span, so a column's values do not depend on B or
-// on the instance, and equal the first design's.  Kernel A's optional
-// per-column coef is fused into the store.  Band pointers not 16-byte
-// aligned and W % 4 != 0 are refused (cudaErrorInvalidValue), never worked
-// around.
+// Both kernels share one blocking: a block owns 64 band rows of one tile
+// (kRows, SPAN_ROWS) and streams the 32-column chunks (kK, SPAN_COLS) of
+// their column span through a ring of cp.async stages.  Less than half of a
+// band holds anything, and in every 64-row block the nonzeros sit in one
+// contiguous span of chunks: the caller passes that span per block
+// (ops/banded.band_spans: int32 (T, ceil(R/64), 2), [lo, hi) in chunks),
+// and a block streams only its span's chunks; a block with an empty span
+// still stores its rows (zeros, times the coef).  A skipped chunk is
+// all-zero band and adds nothing.  Band copies are 16-byte .cg cp.async
+// (rows 16-byte aligned); out-of-range band elements are zero-filled by the
+// copy itself (src-size 0).  Dynamic shared memory is enabled per instance
+// with cudaFuncSetAttribute.
 //
-// The bf16 operand forms (the TPU kernels' single-pass MXU branch, reached by
-// the bf16 cycle and by bf16 transfer bands) run the same design on 2-byte
-// operands:
+// The f32 form.  At B <= 20 columns each 4-byte band element feeds at most
+// 20 FMAs, so it is bound by device-memory bandwidth on the band; at B = 96
+// (the Stokes deflation's one wide apply) by f32 FMA throughput.
+//   * The ring holds kStages = 3 stages (2 x 8 KB of band in flight per
+//     block while it computes one, one barrier per chunk); it is kept short
+//     so that more blocks reside per SM.  X rows (B * 4 bytes) are copied by
+//     16-byte copies when B % 4 == 0, else by 4-byte .ca copies.
+//   * Each instance keeps accumulators for all of its columns, up to
+//     kMaxCols = 96 (the widest batch the paths use), so a band slab is read
+//     from device memory once whatever B is; above 96, blocks of 96 columns.
+//     A thread owns TM rows (strided by 64 / TM) and TN columns (float4
+//     groups interleaved across the CG column groups), a register tile: per
+//     4 window columns it reads TM float4 of band and TN float4 of X from
+//     shared memory (conflict-free: the band pitch is 36 floats, neighbouring
+//     lanes read neighbouring X groups or broadcast) for 4 * TM * TN FMAs.
+//   * IEEE f32 fmaf, no tensor cores, no TF32 (the TPU kernel's
+//     Precision.HIGHEST contract), each output's FMA chain in ascending w
+//     over its span: every skipped term is fmaf(0, x, acc) == acc for finite
+//     x, so the result equals the full-width sum bit for bit, and a column's
+//     values do not depend on B or on the instance.  Kernel A's optional
+//     per-column coef is fused into the store.
+//
+// The bf16 operand forms (the TPU kernels' single-pass MXU branch, reached
+// by the bf16 cycle and by bf16 transfer bands):
 //   A          band, X, coef and Y in bf16;
-//   B, form 1  band in bf16, X in f32 and rounded to bf16 where it is read
-//              from shared memory (round to nearest even), Y in f32;
+//   B, form 1  band in bf16, X in f32 rounded to bf16 (round to nearest
+//              even, as the plain version rounds it), Y in f32;
 //   B, form 2  band, X and Y in bf16.
-// A bf16 x bf16 product is exact in f32, so the arithmetic is the f32
-// kernel's on upcast operands: fmaf in ascending w over the span, the coef
-// product in f32, one rounding where Y is bf16.  No tensor cores.  A 16-byte
-// copy carries 8 band values, so the band needs W % 8 == 0 and the ring's
-// band pitch is 40 values (80 bytes: rows stay 16-byte aligned).  A thread
-// reads 4 bf16 values as one 8-byte word pair and upcasts them by a shift
-// where it uses them.  Rounding f32 X to bf16 (B's form 1) is dearer than a
-// shift and an X value is read by every row group, so there the block
-// converts a landed chunk once (band upcast, X rounded to bf16 and back)
-// into an f32 copy of one stage, in the f32 kernel's layout, and the FMA
-// loop is the f32 kernel's on that copy; a second barrier per chunk
-// separates the conversion from the loop.  (Converting once in every bf16
-// form was tried on the card: no faster with bf16 X, and slower at B <= 4,
-// where one thread uses each band value.)  X rows are B * 2 bytes: 16-byte
-// copies when B % 8 == 0, 4-byte copies (two values) when B is even, and
-// plain 2-byte loads stored to the ring stage when B is odd (cp.async copies
-// no less than 4 bytes); the barrier that publishes a chunk's copies
-// publishes those stores too.  The spans of the f32 band serve
-// its bf16 copy: bf16 has f32's exponent range, so rounding turns no nonzero
-// into zero short of f32's own subnormals, and a value that did round to
-// zero only adds an exact 0 to the sum.
+// The TPU kernels contract bf16 operands on the MXU with f32 accumulation
+// (preferred_element_type=f32) in an order the MXU chooses; here the same
+// contract runs on Hopper's tensor cores: mma.sync.m16n8k16.row.col
+// .f32.bf16.bf16.f32, products exact, f32 accumulators in registers, the
+// coef product in f32 and one rounding where Y is bf16.  Each 2-byte band
+// value feeds B multiply-adds (at most 96 FLOPs per byte), far below the
+// tensor cores' ridge, so with the products off the issue path these forms
+// are bound by the band's bytes.  The design:
+//   * four warps, one per 16 rows of the 64-row block; each warp holds all
+//     of the block's columns as NT = ceil(cols / 8) n8 tiles of f32
+//     accumulators (NT in {1, 3, 6, 12}: at most 96 columns, 48 registers);
+//     above 96 columns, blocks of 96 as in the f32 form;
+//   * per 32-column chunk two k16 steps, each one ldmatrix.x4 of the band
+//     (16 x 16) and one ldmatrix.x4.trans of the X stage per two n8 tiles
+//     (x2.trans for an odd last tile), then NT mma.  The ring's band pitch of
+//     40 bf16 (80 bytes) puts the 8 rows of an 8 x 8 matrix on 8 distinct
+//     16-byte bank groups; the X stage holds NT * 8 columns, zero beyond the
+//     block's, at a pitch of an odd number of 16-byte units: conflict-free;
+//   * X rows are B * 2 (or B * 4) bytes with no alignment at odd B or odd
+//     window starts.  Each window row's piece is copied by 16-byte cp.async
+//     over its aligned superset (every 16-byte unit read holds a byte of the
+//     row, so none leaves X's pages) into a raw area of the ring stage; once
+//     landed, the block repacks the chunk's rows into the bf16 X stage,
+//     rounding f32 X by cvt.rn.bf16x2.f32 on the way and zeroing rows
+//     outside the window or X and columns past the block's.  No extra pass
+//     over X in device memory.  The copies and the repack are most of a
+//     chunk's instructions, and where few blocks share an SM they set its
+//     pace: the repack moves 8 values per 16-byte store (4 at one n8 tile,
+//     where 8 would leave three quarters of the threads idle), and the
+//     rows a chunk reads are one range worked out once per chunk;
+//   * the repack of chunk i + 1 runs beside the mma of chunk i, into the
+//     other of two X stages, so one barrier per chunk still serves: ring of
+//     kTcStages = 4 (chunk i + 1 landed, i + 2 and i + 3 in flight).  A
+//     chunk row of band is 64 bytes, half a 128-byte line: the copies ask
+//     L2 for the whole line (.L2::128B), so the next chunk's half is there;
+//   * batch invariance: every instance runs the same k16 steps in ascending
+//     chunk order over the same span, and the m16n8 output tiles are
+//     independent along n, so a column's values do not depend on B or on
+//     the instance.  The sums run in the tensor cores' order, not in
+//     ascending w: a bf16 Y is held to the plain version by tolerance
+//     (>= 99% equal, each within one bf16 ulp or 1e-5 of its sum of
+//     |terms|), an f32 Y by 1e-5 of its sum of |terms|.
+// A 16-byte copy carries 8 band values, so the band needs W % 8 == 0.  The
+// spans of the f32 band serve its bf16 copy: bf16 has f32's exponent range,
+// so rounding turns no nonzero into zero short of f32's own subnormals, and
+// a value that did round to zero only adds an exact 0 to the sum.
+// Band pointers not 16-byte aligned and W % 4 != 0 (f32) or W % 8 != 0
+// (bf16) are refused (cudaErrorInvalidValue), never worked around.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,12 +109,16 @@
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kRows = 64;         // band rows of one block (SPAN_ROWS)
 constexpr int kK = 32;            // window columns of one chunk (SPAN_COLS)
 // band row pitch in shared memory, in values: the chunk plus 16 bytes
 template <typename TB>
 constexpr int kPitchOf = kK + 16 / (int)sizeof(TB);
-constexpr int kStages = 3;        // copy ring depth
+constexpr int kStages = 3;        // copy ring depth, f32 form
+constexpr int kTcStages = 4;      // copy ring depth, tensor-core form
+constexpr int kTcThreads = 128;   // four warps, 16 rows each
 constexpr int kMaxCols = 96;      // widest one-pass column block
 
 __device__ __forceinline__ unsigned smem_addr(const void* p)
@@ -111,6 +133,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                      smem_addr(dst)),
                  "l"(src), "r"(src_bytes));
+}
+
+// the same, with the rest of the 128-byte line prefetched into L2: a bf16
+// chunk row is 64 bytes, and the next chunk reads the line's other half
+__device__ __forceinline__ void cp_async16_pf(void* dst, const void* src,
+                                              int src_bytes)
+{
+    asm volatile(
+        "cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(
+            smem_addr(dst)),
+        "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -132,83 +165,52 @@ __device__ __forceinline__ void cp_async_wait()
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// four consecutive values from shared memory, upcast to f32 (a bf16 is the
-// high half of the f32 of the same value)
-__device__ __forceinline__ float4 load4(const float* p)
-{
-    return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p)
-{
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    return make_float4(__uint_as_float(u.x << 16),
-                       __uint_as_float(u.x & 0xffff0000u),
-                       __uint_as_float(u.y << 16),
-                       __uint_as_float(u.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ float round_bf16(float v)
-{
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float as_float(float v) { return v; }
-__device__ __forceinline__ float as_float(__nv_bfloat16 v)
-{
-    return __bfloat162float(v);
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v)
-{
-    *p = __float2bfloat16_rn(v);
-}
+// ---------------------------------------------------------------------------
+// the f32 form
+// ---------------------------------------------------------------------------
 
 // how a block copies its X rows into a ring stage
-enum XCopy { kXScalar = 0, kXWord = 1, kXVec = 2 };
+enum XCopy { kXWord = 1, kXVec = 2 };
 
-// one instance: TM rows x TN columns per thread, CG column groups; band
-// values of type TB, X values of type TX
-template <int TM, int TN, int CG, typename TB = float, typename TX = float>
+// one instance: TM rows x TN columns per thread, CG column groups
+template <int TM, int TN, int CG>
 struct Tile {
     static_assert(kRows % TM == 0 && TN % 4 == 0, "tile shape");
     static constexpr int kRG = kRows / TM;               // row groups
     static constexpr int kThreads = kRG * CG;
     static constexpr int kCols = TN * CG;                // columns per block
-    static constexpr int kPitch = kPitchOf<TB>;
-    static constexpr int kBandBytes = kRows * kPitch * (int)sizeof(TB);
-    static constexpr int kStageBytes =
-        kBandBytes + kK * kCols * (int)sizeof(TX);
+    static constexpr int kPitch = kPitchOf<float>;
+    static constexpr int kBandBytes = kRows * kPitch * 4;
+    static constexpr int kStageBytes = kBandBytes + kK * kCols * 4;
     static_assert(kBandBytes % 16 == 0 && kStageBytes % 16 == 0, "stages");
-    // a bf16 band with f32 X: one more stage, in f32, for the FMA loop
-    static constexpr bool kConvert = sizeof(TB) == 2 && sizeof(TX) == 4;
-    static constexpr int kF32Floats = kRows * kPitchOf<float> + kK * kCols;
-    static constexpr int kSmem =
-        kStages * kStageBytes + (kConvert ? kF32Floats * 4 : 0);
+    static constexpr int kSmem = kStages * kStageBytes;
 };
 
 // One chunk's FMAs of a thread (row group rg, column group cg): per 4 window
-// columns, TM x 4 band values and TN x 4 X values from a stage (f32, or bf16
-// upcast by load4) for 4 * TM * TN FMAs, each output's chain in ascending w.
-template <int TM, int TN, int CG, int PITCH, typename SB, typename SX>
-__device__ __forceinline__ void fma_chunk(float (&acc)[TM][TN], const SB* sb,
-                                          const SX* sx, int rg, int cg)
+// columns, TM x 4 band values and TN x 4 X values from a stage for
+// 4 * TM * TN FMAs, each output's chain in ascending w.
+template <int TM, int TN, int CG>
+__device__ __forceinline__ void fma_chunk(float (&acc)[TM][TN],
+                                          const float* sb, const float* sx,
+                                          int rg, int cg)
 {
     constexpr int kRG = kRows / TM;
     constexpr int kCols = TN * CG;
+    constexpr int kPitch = kPitchOf<float>;
 #pragma unroll
     for (int k4 = 0; k4 < kK; k4 += 4) {
         float4 a[TM];
 #pragma unroll
         for (int m = 0; m < TM; ++m)
-            a[m] = load4(sb + (rg + m * kRG) * PITCH + k4);
+            a[m] = *reinterpret_cast<const float4*>(
+                sb + (rg + m * kRG) * kPitch + k4);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-            const SX* xk = sx + (k4 + q) * kCols;
+            const float* xk = sx + (k4 + q) * kCols;
 #pragma unroll
             for (int j = 0; j < TN / 4; ++j) {
-                const float4 x = load4(xk + 4 * (j * CG + cg));
+                const float4 x = *reinterpret_cast<const float4*>(
+                    xk + 4 * (j * CG + cg));
 #pragma unroll
                 for (int m = 0; m < TM; ++m) {
                     const float av = q == 0   ? a[m].x
@@ -225,25 +227,19 @@ __device__ __forceinline__ void fma_chunk(float (&acc)[TM][TN], const SB* sb,
     }
 }
 
-// TB, TX, TY: the types of the band, of X and of Y (and coef).  f32 X under
-// a bf16 band is rounded to bf16 where its chunk is converted to f32.
-template <int TM, int TN, int CG, bool RECT, typename TB, typename TX,
-          typename TY>
-__global__ void __launch_bounds__(Tile<TM, TN, CG, TB, TX>::kThreads)
-span_band_kernel(const TB* __restrict__ band, const int* __restrict__ spans,
-                 const int* __restrict__ offs, const TX* __restrict__ X,
-                 const TY* __restrict__ coef, TY* __restrict__ Y, int R,
-                 int W, int halo, long long n, int B, int xcopy)
+template <int TM, int TN, int CG, bool RECT>
+__global__ void __launch_bounds__(Tile<TM, TN, CG>::kThreads)
+span_band_kernel(const float* __restrict__ band,
+                 const int* __restrict__ spans, const int* __restrict__ offs,
+                 const float* __restrict__ X, const float* __restrict__ coef,
+                 float* __restrict__ Y, int R, int W, int halo, long long n,
+                 int B, int xcopy)
 {
-    using Tl = Tile<TM, TN, CG, TB, TX>;
+    using Tl = Tile<TM, TN, CG>;
     constexpr int kThreads = Tl::kThreads;
     constexpr int kCols = Tl::kCols;
     constexpr int kRG = Tl::kRG;
-    constexpr int kPitch = Tl::kPitch;          // of the ring's band rows
-    constexpr int kPitchF = kPitchOf<float>;    // of the rows the FMAs read
-    constexpr int kEB = 16 / (int)sizeof(TB);   // band values per 16 bytes
-    constexpr int kEX = 16 / (int)sizeof(TX);   // X values per 16 bytes
-    constexpr int kWX = 4 / (int)sizeof(TX);    // X values per 4 bytes
+    constexpr int kPitch = Tl::kPitch;
     extern __shared__ __align__(16) unsigned char smem[];
 
     const int t = blockIdx.x;
@@ -260,47 +256,39 @@ span_band_kernel(const TB* __restrict__ band, const int* __restrict__ spans,
     const int nk = min(sp[1], (W + kK - 1) / kK) - lo;   // chunks streamed
     const long long start =
         RECT ? (long long)offs[t] : (long long)(t - halo) * R;
-    const TB* bt = band + ((long long)t * R + r0) * W;
+    const float* bt = band + ((long long)t * R + r0) * W;
 
     // chunk k (window columns [k*kK, k*kK + kK)) into ring stage s
     auto load_chunk = [&](int k, int s) {
-        TB* sb = reinterpret_cast<TB*>(smem + s * Tl::kStageBytes);
-        TX* sx = reinterpret_cast<TX*>(smem + s * Tl::kStageBytes
-                                       + Tl::kBandBytes);
+        float* sb = reinterpret_cast<float*>(smem + s * Tl::kStageBytes);
+        float* sx = reinterpret_cast<float*>(smem + s * Tl::kStageBytes
+                                             + Tl::kBandBytes);
         const int c0 = k * kK;
-        for (int i = tid; i < kRows * (kK / kEB); i += kThreads) {
-            const int rr = i / (kK / kEB);
-            const int c = kEB * (i % (kK / kEB));
-            const bool ok = rr < rows && c0 + c < W;   // W % kEB == 0
+        for (int i = tid; i < kRows * (kK / 4); i += kThreads) {
+            const int rr = i / (kK / 4);
+            const int c = 4 * (i % (kK / 4));
+            const bool ok = rr < rows && c0 + c < W;   // W % 4 == 0
             cp_async16(sb + rr * kPitch + c,
                        ok ? bt + (long long)rr * W + c0 + c : band,
                        ok ? 16 : 0);
         }
-        if (xcopy == kXVec) {     // B % kEX == 0: 16-byte aligned X rows
-            for (int i = tid; i < kK * (kCols / kEX); i += kThreads) {
-                const int rr = i / (kCols / kEX);
-                const int c = kEX * (i % (kCols / kEX));
+        if (xcopy == kXVec) {     // B % 4 == 0: 16-byte aligned X rows
+            for (int i = tid; i < kK * (kCols / 4); i += kThreads) {
+                const int rr = i / (kCols / 4);
+                const int c = 4 * (i % (kCols / 4));
                 const long long row = start + c0 + rr;
                 const bool ok = c0 + rr < W && row >= 0 && row < n && c < nb;
                 cp_async16(sx + rr * kCols + c,
                            ok ? X + row * B + col0 + c : X, ok ? 16 : 0);
             }
-        } else if (xcopy == kXWord) {   // B % kWX == 0: 4-byte pieces
-            for (int i = tid; i < kK * (kCols / kWX); i += kThreads) {
-                const int rr = i / (kCols / kWX);
-                const int c = kWX * (i % (kCols / kWX));
-                const long long row = start + c0 + rr;
-                const bool ok = c0 + rr < W && row >= 0 && row < n && c < nb;
-                cp_async4(sx + rr * kCols + c,
-                          ok ? X + row * B + col0 + c : X, ok ? 4 : 0);
-            }
-        } else {                  // 2-byte values at odd B: load and store
+        } else {                  // 4-byte pieces
             for (int i = tid; i < kK * kCols; i += kThreads) {
                 const int rr = i / kCols;
                 const int c = i % kCols;
                 const long long row = start + c0 + rr;
                 const bool ok = c0 + rr < W && row >= 0 && row < n && c < nb;
-                sx[rr * kCols + c] = ok ? X[row * B + col0 + c] : TX(0.f);
+                cp_async4(sx + rr * kCols + c,
+                          ok ? X + row * B + col0 + c : X, ok ? 4 : 0);
             }
         }
     };
@@ -323,64 +311,36 @@ span_band_kernel(const TB* __restrict__ band, const int* __restrict__ spans,
         if (next < nk) load_chunk(lo + next, next % kStages);
         cp_async_commit();
         const unsigned char* st = smem + (i % kStages) * Tl::kStageBytes;
-        if constexpr (Tl::kConvert) {
-            // the landed chunk, once, into the f32 stage (free: everyone
-            // passed the barrier above after the last chunk's FMAs)
-            float* fb = reinterpret_cast<float*>(smem
-                                                 + kStages * Tl::kStageBytes);
-            float* fx = fb + kRows * kPitchF;
-            const TB* rb = reinterpret_cast<const TB*>(st);
-            const TX* rx = reinterpret_cast<const TX*>(st + Tl::kBandBytes);
-            for (int e = tid; e < kRows * (kK / 4); e += kThreads) {
-                const int rr = e / (kK / 4);
-                const int c = 4 * (e % (kK / 4));
-                *reinterpret_cast<float4*>(fb + rr * kPitchF + c) =
-                    load4(rb + rr * kPitch + c);
-            }
-            for (int e = tid; e < kK * kCols / 4; e += kThreads) {
-                float4 x = load4(rx + 4 * e);
-                x.x = round_bf16(x.x);
-                x.y = round_bf16(x.y);
-                x.z = round_bf16(x.z);
-                x.w = round_bf16(x.w);
-                *reinterpret_cast<float4*>(fx + 4 * e) = x;
-            }
-            __syncthreads();
-            fma_chunk<TM, TN, CG, kPitchF>(acc, fb, fx, rg, cg);
-        } else {
-            fma_chunk<TM, TN, CG, kPitch>(
-                acc, reinterpret_cast<const TB*>(st),
-                reinterpret_cast<const TX*>(st + Tl::kBandBytes), rg, cg);
-        }
+        fma_chunk<TM, TN, CG>(
+            acc, reinterpret_cast<const float*>(st),
+            reinterpret_cast<const float*>(st + Tl::kBandBytes), rg, cg);
     }
 
 #pragma unroll
     for (int m = 0; m < TM; ++m) {
         const int r = rg + m * kRG;
         if (r >= rows) continue;
-        TY* yr = Y + ((long long)t * R + r0 + r) * B + col0;
+        float* yr = Y + ((long long)t * R + r0 + r) * B + col0;
 #pragma unroll
         for (int j = 0; j < TN / 4; ++j) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int b = 4 * (j * CG + cg) + e;
                 if (b < nb)
-                    store(yr + b,
-                          (!RECT && coef != nullptr)
-                              ? acc[m][4 * j + e] * as_float(coef[col0 + b])
-                              : acc[m][4 * j + e]);
+                    yr[b] = (!RECT && coef != nullptr)
+                                ? acc[m][4 * j + e] * coef[col0 + b]
+                                : acc[m][4 * j + e];
             }
         }
     }
 }
 
-template <int TM, int TN, int CG, bool RECT, typename TB, typename TX,
-          typename TY>
-cudaError_t launch(const TB* band, const int* spans, const int* offs,
-                   const TX* X, const TY* coef, TY* Y, int T, int R,
+template <int TM, int TN, int CG, bool RECT>
+cudaError_t launch(const float* band, const int* spans, const int* offs,
+                   const float* X, const float* coef, float* Y, int T, int R,
                    int W, int halo, long long n, int B, cudaStream_t stream)
 {
-    using Tl = Tile<TM, TN, CG, TB, TX>;
+    using Tl = Tile<TM, TN, CG>;
     // the dynamic shared memory ceiling, raised once per device
     static bool raised[64] = {};
     int dev = 0;
@@ -389,51 +349,368 @@ cudaError_t launch(const TB* band, const int* spans, const int* offs,
     if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
     if (!raised[dev]) {
         err = cudaFuncSetAttribute(
-            span_band_kernel<TM, TN, CG, RECT, TB, TX, TY>,
+            span_band_kernel<TM, TN, CG, RECT>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
         if (err != cudaSuccess) return err;
         raised[dev] = true;
     }
-    // the widest copy X's rows allow: 16 bytes, 4 bytes, single 2-byte
-    // values (a block's first column is a multiple of 4 * CG)
-    constexpr int kEX = 16 / (int)sizeof(TX);
-    constexpr int kWX = 4 / (int)sizeof(TX);
+    // 16-byte X copies where its rows allow (a block's first column is a
+    // multiple of 4 * CG), else 4-byte ones
     const uintptr_t xa = reinterpret_cast<uintptr_t>(X);
-    int xcopy = kXScalar;
-    if (B % kEX == 0 && Tl::kCols % kEX == 0 && xa % 16 == 0)
-        xcopy = kXVec;
-    else if (B % kWX == 0 && xa % 4 == 0)
-        xcopy = kXWord;
+    const int xcopy = (B % 4 == 0 && xa % 16 == 0) ? kXVec : kXWord;
     const dim3 grid(T, (R + kRows - 1) / kRows,
                     (B + Tl::kCols - 1) / Tl::kCols);
-    span_band_kernel<TM, TN, CG, RECT, TB, TX, TY>
+    span_band_kernel<TM, TN, CG, RECT>
         <<<grid, Tl::kThreads, Tl::kSmem, stream>>>(
             band, spans, offs, X, coef, Y, R, W, halo, n, B, xcopy);
     return cudaGetLastError();
 }
 
-template <bool RECT, typename TB, typename TX, typename TY>
-cudaError_t dispatch(const TB* band, const int* spans, const int* offs,
-                     const TX* X, const TY* coef, TY* Y, int T,
+template <bool RECT>
+cudaError_t dispatch(const float* band, const int* spans, const int* offs,
+                     const float* X, const float* coef, float* Y, int T,
                      int R, int W, int halo, long long n, int B,
                      cudaStream_t stream)
 {
-    constexpr int kEB = 16 / (int)sizeof(TB);   // band values per copy
-    if (T < 1 || R < 1 || R > 65535 * kRows || W < kEB || W % kEB != 0 ||
+    if (T < 1 || R < 1 || R > 65535 * kRows || W < 4 || W % 4 != 0 ||
         B < 1 || (B + kMaxCols - 1) / kMaxCols > 65535 ||
         reinterpret_cast<uintptr_t>(band) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(X) % sizeof(TX) != 0)
+        reinterpret_cast<uintptr_t>(X) % 4 != 0)
         return cudaErrorInvalidValue;
     // register tiles: one column block up to 96 columns
-#define FEU_LAUNCH(TM, TN, CG)                                              \
-    launch<TM, TN, CG, RECT, TB, TX, TY>(band, spans, offs, X, coef, Y, T,  \
-                                         R, W, halo, n, B, stream)
+#define FEU_LAUNCH(TM, TN, CG)                                             \
+    launch<TM, TN, CG, RECT>(band, spans, offs, X, coef, Y, T, R, W, halo, \
+                             n, B, stream)
     if (B <= 4) return FEU_LAUNCH(1, 4, 1);
     if (B <= 8) return FEU_LAUNCH(1, 4, 2);
     if (B <= 24) return FEU_LAUNCH(4, 4, 6);
     if (B <= 48) return FEU_LAUNCH(4, 8, 6);
     return FEU_LAUNCH(4, 8, 12);
 #undef FEU_LAUNCH
+}
+
+// ---------------------------------------------------------------------------
+// the bf16 operand forms: tensor cores
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p)
+{
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p)
+{
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const void* p)
+{
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+        : "=r"(r[0]), "=r"(r[1])
+        : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col): bf16 products, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1)
+{
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two values rounded to bf16 (nearest even), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi)
+{
+    unsigned d;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+    return d;
+}
+
+__device__ __forceinline__ float as_float(float v) { return v; }
+__device__ __forceinline__ float as_float(bf16 v)
+{
+    return __bfloat162float(v);
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v)
+{
+    *p = __float2bfloat16_rn(v);
+}
+
+// one instance: NT n8 tiles of columns per warp, X of type TX
+template <int NT, typename TX>
+struct TcTile {
+    static constexpr int kCols = 8 * NT;                 // columns per block
+    // the bf16 X stage's row pitch: an odd number of 16-byte units
+    static constexpr int kXPitch = kCols + (NT % 2 == 0 ? 8 : 0);
+    // 16-byte copies per raw X row: the row's bytes plus a misalignment
+    static constexpr int kPieces = kCols * (int)sizeof(TX) / 16 + 1;
+    static constexpr int kPitch = kPitchOf<bf16>;        // 40: 80 bytes
+    static constexpr int kBandBytes = kRows * kPitch * 2;
+    static constexpr int kRawBytes = kK * kPieces * 16;
+    static constexpr int kStageBytes = kBandBytes + kRawBytes;
+    static constexpr int kXsBytes = kK * kXPitch * 2;
+    static_assert(kBandBytes % 16 == 0 && kXsBytes % 16 == 0, "stages");
+    static constexpr int kSmem = kTcStages * kStageBytes + 2 * kXsBytes;
+};
+
+// TX: X's type (bf16, or f32 rounded to bf16 in the repack); TY: Y's and
+// coef's
+template <int NT, bool RECT, typename TX, typename TY>
+__global__ void __launch_bounds__(kTcThreads)
+tc_band_kernel(const bf16* __restrict__ band, const int* __restrict__ spans,
+               const int* __restrict__ offs, const TX* __restrict__ X,
+               const TY* __restrict__ coef, TY* __restrict__ Y, int R, int W,
+               int halo, long long n, int B)
+{
+    using Tl = TcTile<NT, TX>;
+    constexpr int kCols = Tl::kCols;
+    constexpr int kPitch = Tl::kPitch;
+    constexpr int kXPitch = Tl::kXPitch;
+    constexpr int kRawPitch = Tl::kPieces * 16;          // bytes
+    constexpr int kES = (int)sizeof(TX);
+    constexpr int kThreads = kTcThreads;
+    extern __shared__ __align__(16) unsigned char smem[];
+
+    const int t = blockIdx.x;
+    const int nrb = gridDim.y;
+    const int r0 = blockIdx.y * kRows;
+    const int col0 = blockIdx.z * kCols;
+    const int nb = min(kCols, B - col0);      // this block's columns
+    const int rows = min(kRows, R - r0);
+    const int tid = threadIdx.x;
+    const int wm = tid / 32;           // the warp's 16 rows
+    const int lane = tid % 32;
+    const int* sp = spans + 2 * ((long long)t * nrb + blockIdx.y);
+    const int lo = max(sp[0], 0);
+    const int nk = min(sp[1], (W + kK - 1) / kK) - lo;   // chunks streamed
+    const long long start =
+        RECT ? (long long)offs[t] : (long long)(t - halo) * R;
+    const bf16* bt = band + ((long long)t * R + r0) * W;
+    bf16* xstage = reinterpret_cast<bf16*>(smem + kTcStages * Tl::kStageBytes);
+
+    // the window rows [rlo, rhi) of the chunk at column c0 that read X
+    // (inside the window and inside X); the others read as zero
+    auto x_rows = [&](int c0, int& rlo, int& rhi) {
+        const long long r0x = start + c0;           // X row of window row 0
+        rlo = (int)min((long long)kK, max(0LL, -r0x));
+        rhi = (int)max(0LL, min((long long)min(kK, W - c0), n - r0x));
+    };
+
+    // chunk k (window columns [k*kK, k*kK + kK)) into ring stage s: the
+    // band rows, and each X row's columns [col0, col0 + nb) as the 16-byte
+    // units that hold them
+    auto load_chunk = [&](int k, int s) {
+        unsigned char* st = smem + s * Tl::kStageBytes;
+        bf16* sb = reinterpret_cast<bf16*>(st);
+        const int c0 = k * kK;
+        for (int i = tid; i < kRows * (kK / 8); i += kThreads) {
+            const int rr = i / (kK / 8);
+            const int c = 8 * (i % (kK / 8));
+            const bool ok = rr < rows && c0 + c < W;   // W % 8 == 0
+            cp_async16_pf(sb + rr * kPitch + c,
+                          ok ? bt + (long long)rr * W + c0 + c : band,
+                          ok ? 16 : 0);
+        }
+        unsigned char* raw = st + Tl::kBandBytes;
+        int rlo, rhi;
+        x_rows(c0, rlo, rhi);
+        for (int i = tid; i < kK * Tl::kPieces; i += kThreads) {
+            const int rr = i / Tl::kPieces;
+            const int p = i % Tl::kPieces;
+            if (rr < rlo || rr >= rhi) continue;
+            const uintptr_t a0 = reinterpret_cast<uintptr_t>(
+                X + (start + c0 + rr) * B + col0);
+            const uintptr_t a = a0 & ~uintptr_t(15);
+            if (a + 16 * p < a0 + (uintptr_t)nb * kES)
+                cp_async16_pf(raw + rr * kRawPitch + 16 * p,
+                              reinterpret_cast<const void*>(a + 16 * p), 16);
+        }
+    };
+
+    // the landed X rows of chunk k (raw area of stage s) into the bf16 X
+    // stage xs, kV values (one 8- or 16-byte store) at a time: rounded to
+    // bf16, zero outside the window, X and the block's columns.  Eight
+    // values a store leave too few stores at one n8 tile (32 a chunk for
+    // 128 threads): four there
+    constexpr int kV = NT == 1 ? 4 : 8;
+    const unsigned xlo = (unsigned)reinterpret_cast<uintptr_t>(X);
+    auto repack = [&](int k, int s, bf16* xs) {
+        const unsigned char* raw =
+            smem + s * Tl::kStageBytes + Tl::kBandBytes;
+        const int c0 = k * kK;
+        int rlo, rhi;
+        x_rows(c0, rlo, rhi);
+        // low 32 bits of window row 0's first element index (what a row's
+        // offset in its first 16-byte unit depends on)
+        const unsigned e0 = (unsigned)((start + c0) * B + col0);
+        for (int i = tid; i < kK * (kCols / kV); i += kThreads) {
+            const int rr = i / (kCols / kV);
+            const int c = kV * (i % (kCols / kV));
+            float v[kV];
+#pragma unroll
+            for (int e = 0; e < kV; ++e) v[e] = 0.f;
+            if (rr >= rlo && rr < rhi) {
+                const unsigned mis =
+                    (xlo + (e0 + (unsigned)(rr * B)) * kES) & 15u;
+                const TX* xr = reinterpret_cast<const TX*>(
+                    raw + rr * kRawPitch + mis);
+#pragma unroll
+                for (int e = 0; e < kV; ++e)
+                    if (c + e < nb) v[e] = as_float(xr[c + e]);
+            }
+            if constexpr (kV == 8)
+                *reinterpret_cast<uint4*>(xs + rr * kXPitch + c) =
+                    make_uint4(pack_bf16x2(v[0], v[1]),
+                               pack_bf16x2(v[2], v[3]),
+                               pack_bf16x2(v[4], v[5]),
+                               pack_bf16x2(v[6], v[7]));
+            else
+                *reinterpret_cast<uint2*>(xs + rr * kXPitch + c) =
+                    make_uint2(pack_bf16x2(v[0], v[1]),
+                               pack_bf16x2(v[2], v[3]));
+        }
+    };
+
+    // one chunk's products of this warp's 16 rows: two k16 steps
+    auto mma_chunk = [&](float (&acc)[NT][4], const bf16* sb,
+                         const bf16* xs) {
+#pragma unroll
+        for (int ks = 0; ks < kK / 16; ++ks) {
+            unsigned a[4];
+            ldsm_x4(a, sb + (16 * wm + lane % 16) * kPitch + 16 * ks
+                           + 8 * (lane / 16));
+            const bf16* xk =
+                xs + (16 * ks + lane % 8 + 8 * ((lane / 8) % 2)) * kXPitch;
+#pragma unroll
+            for (int j = 0; j + 1 < NT; j += 2) {
+                unsigned b[4];
+                ldsm_x4_trans(b, xk + 8 * j + 8 * (lane / 16));
+                mma_bf16(acc[j], a, b[0], b[1]);
+                mma_bf16(acc[j + 1], a, b[2], b[3]);
+            }
+            if constexpr (NT % 2 == 1) {
+                unsigned b[2];
+                ldsm_x2_trans(b, xk + 8 * (NT - 1));
+                mma_bf16(acc[NT - 1], a, b[0], b[1]);
+            }
+        }
+    };
+
+    float acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < kTcStages - 1; ++s) {
+        if (s < nk) load_chunk(lo + s, s);
+        cp_async_commit();    // empty groups keep the count uniform
+    }
+    if (nk > 0) {
+        cp_async_wait<kTcStages - 2>();   // chunk 0
+        __syncthreads();
+        repack(lo, 0, xstage);
+    }
+    for (int i = 0; i < nk; ++i) {
+        cp_async_wait<kTcStages - 3>();   // this thread's copies of i + 1
+        // everyone's copies of chunk i + 1 landed, X of chunk i repacked,
+        // chunk i - 1 consumed (its stage and X stage free)
+        __syncthreads();
+        const int next = i + kTcStages - 1;
+        if (next < nk) load_chunk(lo + next, next % kTcStages);
+        cp_async_commit();
+        if (i + 1 < nk)
+            repack(lo + i + 1, (i + 1) % kTcStages,
+                   xstage + ((i + 1) % 2) * kK * kXPitch);
+        mma_chunk(acc,
+                  reinterpret_cast<const bf16*>(
+                      smem + (i % kTcStages) * Tl::kStageBytes),
+                  xstage + (i % 2) * kK * kXPitch);
+    }
+
+    // accumulator tile j: rows g and g + 8 of the warp's 16, columns
+    // 8 j + 2 (lane % 4) + {0, 1}
+    const int g = lane / 4;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = 16 * wm + g + 8 * h;
+            if (r >= rows) continue;
+            TY* yr = Y + ((long long)t * R + r0 + r) * B + col0;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int b = 8 * j + 2 * (lane % 4) + e;
+                if (b < nb)
+                    store(yr + b, (!RECT && coef != nullptr)
+                                      ? acc[j][2 * h + e]
+                                            * as_float(coef[col0 + b])
+                                      : acc[j][2 * h + e]);
+            }
+        }
+    }
+}
+
+template <int NT, bool RECT, typename TX, typename TY>
+cudaError_t launch_tc(const bf16* band, const int* spans, const int* offs,
+                      const TX* X, const TY* coef, TY* Y, int T, int R, int W,
+                      int halo, long long n, int B, cudaStream_t stream)
+{
+    using Tl = TcTile<NT, TX>;
+    static bool raised[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+    if (!raised[dev]) {
+        err = cudaFuncSetAttribute(
+            tc_band_kernel<NT, RECT, TX, TY>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
+        if (err != cudaSuccess) return err;
+        raised[dev] = true;
+    }
+    const dim3 grid(T, (R + kRows - 1) / kRows,
+                    (B + Tl::kCols - 1) / Tl::kCols);
+    tc_band_kernel<NT, RECT, TX, TY>
+        <<<grid, kTcThreads, Tl::kSmem, stream>>>(band, spans, offs, X, coef,
+                                                  Y, R, W, halo, n, B);
+    return cudaGetLastError();
+}
+
+template <bool RECT, typename TX, typename TY>
+cudaError_t dispatch_tc(const bf16* band, const int* spans, const int* offs,
+                        const TX* X, const TY* coef, TY* Y, int T, int R,
+                        int W, int halo, long long n, int B,
+                        cudaStream_t stream)
+{
+    if (T < 1 || R < 1 || R > 65535 * kRows || W < 8 || W % 8 != 0 ||
+        B < 1 || (B + kMaxCols - 1) / kMaxCols > 65535 ||
+        reinterpret_cast<uintptr_t>(band) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(X) % sizeof(TX) != 0)
+        return cudaErrorInvalidValue;
+    // n8 tiles per warp: one column block up to 96 columns
+#define FEU_LAUNCH_TC(NT)                                                   \
+    launch_tc<NT, RECT, TX, TY>(band, spans, offs, X, coef, Y, T, R, W,     \
+                                halo, n, B, stream)
+    if (B <= 8) return FEU_LAUNCH_TC(1);
+    if (B <= 24) return FEU_LAUNCH_TC(3);
+    if (B <= 48) return FEU_LAUNCH_TC(6);
+    return FEU_LAUNCH_TC(12);
+#undef FEU_LAUNCH_TC
 }
 
 }  // namespace
@@ -465,48 +742,46 @@ int feu_rect_band_apply(const void* band, const void* spans, const void* offs,
     return (int)dispatch<true>(
         static_cast<const float*>(band), static_cast<const int*>(spans),
         static_cast<const int*>(offs), static_cast<const float*>(Xp),
-        static_cast<const float*>(nullptr), static_cast<float*>(Y), T, R, W,
-        0, n_cols, B,
+        nullptr, static_cast<float*>(Y), T, R, W, 0, n_cols, B,
         static_cast<cudaStream_t>(stream));
 }
 
-// Kernel A on bf16 operands.  band (T, R, W) with W % 8 == 0, X (T*R, B),
-// coef (B,) or null and Y (T*R, B) all bf16; spans as for the f32 band.
+// Kernel A on bf16 operands (tensor cores).  band (T, R, W) with W % 8 == 0,
+// X (T*R, B), coef (B,) or null and Y (T*R, B) all bf16; spans as for the
+// f32 band.
 int feu_band_apply_bf16(const void* band, const void* spans, const void* X,
                         const void* coef, void* Y, int T, int R, int W, int B,
                         void* stream)
 {
     if (W % R != 0 || (W / R) % 2 != 1) return (int)cudaErrorInvalidValue;
     const int halo = (W / R - 1) / 2;
-    using bf16 = __nv_bfloat16;
-    return (int)dispatch<false>(
+    return (int)dispatch_tc<false>(
         static_cast<const bf16*>(band), static_cast<const int*>(spans),
         nullptr, static_cast<const bf16*>(X), static_cast<const bf16*>(coef),
         static_cast<bf16*>(Y), T, R, W, halo, (long long)T * R, B,
         static_cast<cudaStream_t>(stream));
 }
 
-// Kernel B on a bf16 band with W % 8 == 0.  x_bf16 = 0: Xp f32, rounded to
-// bf16 as it is read, Y f32; x_bf16 = 1: Xp and Y bf16.
+// Kernel B on a bf16 band with W % 8 == 0 (tensor cores).  x_bf16 = 0: Xp
+// f32, rounded to bf16 as it is staged, Y f32; x_bf16 = 1: Xp and Y bf16.
 int feu_rect_band_apply_bf16(const void* band, const void* spans,
                              const void* offs, const void* Xp, void* Y, int T,
                              int R, int W, long long n_cols, int B,
                              int x_bf16, void* stream)
 {
-    using bf16 = __nv_bfloat16;
     const bf16* bd = static_cast<const bf16*>(band);
     const int* sp = static_cast<const int*>(spans);
     const int* of = static_cast<const int*>(offs);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (x_bf16)
-        return (int)dispatch<true>(bd, sp, of, static_cast<const bf16*>(Xp),
-                                   static_cast<const bf16*>(nullptr),
-                                   static_cast<bf16*>(Y), T, R, W, 0, n_cols,
-                                   B, s);
-    return (int)dispatch<true>(bd, sp, of, static_cast<const float*>(Xp),
-                               static_cast<const float*>(nullptr),
-                               static_cast<float*>(Y), T, R, W, 0, n_cols, B,
-                               s);
+        return (int)dispatch_tc<true>(bd, sp, of, static_cast<const bf16*>(Xp),
+                                      static_cast<const bf16*>(nullptr),
+                                      static_cast<bf16*>(Y), T, R, W, 0,
+                                      n_cols, B, s);
+    return (int)dispatch_tc<true>(bd, sp, of, static_cast<const float*>(Xp),
+                                  static_cast<const float*>(nullptr),
+                                  static_cast<float*>(Y), T, R, W, 0, n_cols,
+                                  B, s);
 }
 
 }  // extern "C"

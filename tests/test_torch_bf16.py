@@ -16,8 +16,11 @@
 * ``check_*_args`` take exactly the listed dtype pairs.  The spans of an f32
   band are the spans of its bf16 copy.
 * Kernel against plain on the card (marker ``cuda``; skipped without one),
-  for every way the kernels copy X (B odd, even, a multiple of 8), with and
-  without coef, full and ``out=`` forms, shared and per-sample A: f32
+  at the tensor-core forms' edges (odd B, partial and whole n8 tiles, each
+  instance's widest batch and 96-column blocks; windows short of a k16
+  step; spans on odd chunks and empty; odd window starts past the end of
+  X), with and without coef, full and ``out=`` forms, shared and
+  per-sample A, a column alone equal to itself in a batch: f32
   output within 1e-5 of the sum of |terms|; bf16 output equal to plain's in
   at least 99% of the entries and within one bf16 ulp of it, except where
   cancellation leaves a result so far below its terms that the f32 sums'
@@ -370,8 +373,15 @@ def _assert_bf16_close(got, want, S):
     assert float((d == 0).float().mean()) >= 0.99
 
 
+# batch widths of the tensor-core forms' edges: odd B (X rows not 4-byte
+# aligned), one n8 tile (B <= 8), a partial last n8 tile, each instance's
+# widest (8, 24, 48, 96 columns) and one past it, and 96-column blocks
+_TC_WIDTHS = [1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 20, 24, 33, 48, 95, 96, 97,
+              200]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 3, 4, 8, 9, 16, 20, 33, 48, 96, 200])
+@pytest.mark.parametrize("B", _TC_WIDTHS)
 @pytest.mark.parametrize("with_coef", [True, False])
 def test_band_kernel_bf16_matches_plain(cuda, B, with_coef):
     band, X, coef = _band_case(1, seed=B, T=7, R=256, B=B, sparse=True)
@@ -397,7 +407,7 @@ def test_band_kernel_bf16_matches_plain(cuda, B, with_coef):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 2, 3, 8, 9, 20, 24, 33, 96, 200])
+@pytest.mark.parametrize("B", _TC_WIDTHS)
 @pytest.mark.parametrize("x_bf16", [False, True])
 def test_rect_band_kernel_bf16_matches_plain(cuda, B, x_bf16):
     rng = np.random.default_rng(B)
@@ -424,11 +434,153 @@ def test_rect_band_kernel_bf16_matches_plain(cuda, B, x_bf16):
     assert got.dtype == Xt.dtype and torch.isfinite(got).all()
     S = tb.rect_band_apply_plain(b16.abs().float(), offs_t,
                                  Xpad.to(BF16).float().abs())
-    if x_bf16:
+    _assert_close(got, want, S)
+    assert torch.equal(got, tb.rect_band_apply(b16, offs_t, Xt, spans))
+    # a column's values do not depend on the batch it rides in
+    if B > 3:
+        one = tb.rect_band_apply(b16, offs_t, Xt[:, 2:3].contiguous(), spans)
+        assert torch.equal(one[:, 0], got[:, 2])
+
+
+def _assert_close(got, want, S):
+    """The bf16 criterion for a bf16 Y, 1e-5 of the terms for an f32 Y."""
+    if got.dtype == BF16:
         _assert_bf16_close(got, want, S)
     else:
         assert bool(((got - want).abs() <= 1e-5 * S).all())
-    assert torch.equal(got, tb.rect_band_apply(b16, offs_t, Xt, spans))
+
+
+def _bf16_band_check(band, X, coef, spans):
+    """Kernel A in bf16 against plain, against a launch over every chunk
+    (a skipped chunk adds nothing), and deterministic."""
+    got = tb.band_apply(band, X, coef, spans=spans)
+    S = tb.band_apply_plain(band.float().abs(), X.float().abs(),
+                            None if coef is None else coef.float())
+    _assert_bf16_close(got, tb.band_apply_plain(band, X, coef), S)
+    assert torch.equal(got, tb.band_apply(band, X, coef,
+                                          spans=_every_chunk(band)))
+    assert torch.equal(got, tb.band_apply(band, X, coef, spans=spans))
+    return got
+
+
+def _bf16_rect_check(band, offs, Xp, spans):
+    """Kernel B (either bf16 form) against plain on Xp zero-padded past
+    its end, against a launch over every chunk, and deterministic."""
+    got = tb.rect_band_apply(band, offs, Xp, spans)
+    W = band.shape[2]
+    Xpad = torch.nn.functional.pad(Xp, (0, 0, 0, W))
+    S = tb.rect_band_apply_plain(band.float().abs(), offs,
+                                 Xpad.to(BF16).float().abs())
+    _assert_close(got, tb.rect_band_apply_plain(band, offs, Xpad), S)
+    assert torch.equal(got, tb.rect_band_apply(band, offs, Xp,
+                                               _every_chunk(band)))
+    assert torch.equal(got, tb.rect_band_apply(band, offs, Xp, spans))
+    return got
+
+
+def _every_chunk(band):
+    T, R, W = band.shape
+    sp = torch.zeros((T, -(-R // tb.SPAN_ROWS), 2), dtype=torch.int32,
+                     device=band.device)
+    sp[..., 1] = -(-W // tb.SPAN_COLS)
+    return sp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [8, 24])
+@pytest.mark.parametrize("B", [3, 20])
+def test_bf16_kernels_on_windows_short_of_a_k16_step(cuda, W, B):
+    """W % 16 != 0: the last k16 step is half past the window (zero band
+    and zero X there)."""
+    rng = np.random.default_rng(W + B)
+    R = 8
+    band = torch.as_tensor(_bf16_np(rng.standard_normal((5, R, W))),
+                           device=cuda).to(BF16)
+    X = torch.as_tensor(rng.standard_normal((5 * R, B)),
+                        device=cuda).to(BF16)
+    coef = torch.as_tensor(rng.random(B) + 0.5, device=cuda).to(BF16)
+    _bf16_band_check(band, X, coef, tb.band_spans(band))
+    offs = torch.tensor([0, 1, 5, 6, 13], dtype=torch.int32, device=cuda)
+    Xp = torch.as_tensor(rng.standard_normal((20, B)).astype(np.float32),
+                         device=cuda)
+    for Xq in (Xp, Xp.to(BF16)):
+        _bf16_rect_check(band, offs, Xq, tb.band_spans(band))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [3, 20, 97])
+def test_bf16_kernels_on_a_band_of_many_row_blocks(cuda, B):
+    """A band of 1024 row blocks (a grid of several waves, as the fine
+    levels give): against plain, deterministic, and a column's values
+    independent of the batch."""
+    rng = np.random.default_rng(90 + B)
+    T, R, W = 1024, 64, 192
+    band = _bf16_np(rng.standard_normal((T, R, W)))
+    band[rng.random(band.shape) < 0.6] = 0.0
+    band = torch.as_tensor(band, device=cuda).to(BF16)
+    spans = tb.band_spans(band)
+    X = torch.as_tensor(rng.standard_normal((T * R, B)), device=cuda).to(BF16)
+    coef = torch.as_tensor(rng.random(B) + 0.5, device=cuda).to(BF16)
+    Y = _bf16_band_check(band, X, coef, spans)
+    one = tb.band_apply(band, X[:, 2:3].contiguous(), coef[2:3].contiguous(),
+                        spans=spans)
+    assert torch.equal(one[:, 0], Y[:, 2])
+    offs = torch.as_tensor(np.sort(rng.integers(0, T * R - W // 2, T)).astype(
+        np.int32), device=cuda)
+    Xp = torch.as_tensor(rng.standard_normal((T * R, B)).astype(np.float32),
+                         device=cuda)
+    for Xq in (Xp, Xp.to(BF16)):
+        Y = _bf16_rect_check(band, offs, Xq, spans)
+        one = tb.rect_band_apply(band, offs, Xq[:, 2:3].contiguous(), spans)
+        assert torch.equal(one[:, 0], Y[:, 2])
+
+
+def _chunked_band(rng, T, R, W, blocks):
+    """A (T, R, W) bf16-valued band whose 64-row block (t, k) holds
+    nonzeros exactly in the 32-column chunks [lo, hi) of blocks[(t, k)]
+    (first and last chunk included), and none where that is [0, 0)."""
+    band = np.zeros((T, R, W), np.float32)
+    for (t, k), (lo, hi) in blocks.items():
+        rows = slice(k * tb.SPAN_ROWS, min(R, (k + 1) * tb.SPAN_ROWS))
+        if hi > lo:
+            c0, c1 = lo * tb.SPAN_COLS, min(W, hi * tb.SPAN_COLS)
+            vals = rng.standard_normal(band[t, rows, c0:c1].shape)
+            vals[rng.random(vals.shape) < 0.5] = 0.0
+            band[t, rows, c0:c1] = vals
+            band[t, rows.start, c0] = band[t, rows.start, c1 - 1] = 1.0
+    return _bf16_np(band)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [3, 20, 96])
+def test_bf16_kernels_on_odd_and_empty_spans(cuda, B):
+    """Spans that begin and end on odd chunks, an empty block and an empty
+    tile; kernel B with windows starting at odd rows and running past the
+    end of Xp.  Against plain, against a launch over every chunk, and
+    empty blocks' rows zero."""
+    rng = np.random.default_rng(70 + B)
+    T, R, W = 4, 256, 768                       # 24 chunks, halo 1
+    blocks = {(t, k): (0, 0) for t in range(T) for k in range(R // 64)}
+    blocks.update({(0, 0): (1, 4), (0, 1): (3, 4), (0, 2): (5, 12),
+                   (0, 3): (7, 24), (1, 0): (0, 1), (1, 1): (9, 10),
+                   (1, 3): (11, 23), (2, 0): (1, 2), (2, 2): (13, 20),
+                   (2, 3): (0, 24)})            # tile 3 and (1, 2) empty
+    band = torch.as_tensor(_chunked_band(rng, T, R, W, blocks),
+                           device=cuda).to(BF16)
+    spans = tb.band_spans(band)
+    want = np.array([[blocks[(t, k)] for k in range(R // 64)]
+                     for t in range(T)], np.int32)
+    np.testing.assert_array_equal(spans.cpu().numpy(), want)
+    X = torch.as_tensor(rng.standard_normal((T * R, B)), device=cuda).to(BF16)
+    coef = torch.as_tensor(rng.random(B) + 0.5, device=cuda).to(BF16)
+    Y = _bf16_band_check(band, X, coef, spans).reshape(T, R, B)
+    assert not Y[3].any() and not Y[1, 128:192].any()
+    offs = torch.tensor([1, 7, 555, 1001], dtype=torch.int32, device=cuda)
+    Xp = torch.as_tensor(rng.standard_normal((1200, B)).astype(np.float32),
+                         device=cuda)          # offs[-1] + W > 1200
+    for Xq in (Xp, Xp.to(BF16)):
+        Y = _bf16_rect_check(band, offs, Xq, spans).reshape(T, R, B)
+        assert not Y[3].any() and not Y[1, 128:192].any()
 
 
 @pytest.mark.cuda
