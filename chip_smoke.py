@@ -69,15 +69,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    CSV columns against the committed JAX artifact
    examples/phase_a_tpu_h0.02 (1e-6 relative).
 5. no_uptake: the no-uptake study on the reference geometry (w = 0.5,
-   d = 1.0 mm) and the rectangle at h = 0.02, Pe = 0.1, 1, 10, through
-   studies.no_uptake.run_geometry_study, twice (first and steady run):
-   Stokes MINRES+MG, then one batched BiCGStab over the three Pe.  Prints
-   the seconds of every stage; checks that kernels A, B and C (C in both
-   forms) were launched by the first run, the true f64 relative residuals (Stokes <= 1e-9,
-   transport <= 1e-11 in every column), the iteration bounds, the six CSV
-   rows against the committed JAX artifact examples/no_uptake_tpu_h0.02
-   (1e-6 relative; the signed net fluxes 1e-6 |Mouth Q_in| absolute), and
-   that the steady run's rows equal the first run's.
+   d = 1.0 mm), the profile geometries ``largest`` (1.0 x 2.0) and
+   ``square_small`` (0.2 x 0.2) and the rectangle at h = 0.02, Pe = 0.1,
+   1, 10, through studies.no_uptake.run_geometry_study, twice (first and
+   steady run): Stokes MINRES+MG, then one batched BiCGStab over the three
+   Pe.  Prints the seconds of every stage; checks that kernels A, B and C
+   (C in both forms) were launched by the first run, the true f64
+   relative residuals (Stokes <= 1e-9, transport <= 1e-11 in every
+   column), the iteration bounds (reference and rectangle, which have
+   card records; the two profile geometries' counts are printed), the 12
+   CSV rows against the committed JAX artifact
+   examples/no_uptake_tpu_h0.02 (1e-6 relative; the signed net fluxes
+   1e-6 |Mouth Q_in| absolute), the two geometries' Profiles/ CSVs against
+   the artifact's (every row; sample coordinates to 1e-12, c and the line
+   statistics to 1e-6 of max(|c|, 1e-3), sample counts exactly), and that
+   the steady run's rows and profile CSVs equal the first run's.
 
 6. adv_diff: the adv-diff step-mu validation at h = 0.02 on the full
    3 x 3 Pe x mu grid through studies.adv_diff.run_advdiff_step_validation,
@@ -117,6 +123,32 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (``run_mu_sweep`` at h = 0.08, no hierarchy), held to the residual
    gate.
 
+9. mesh_convergence: studies.mesh_convergence.run_mesh_convergence with
+   the default ladder (h = 0.08, 0.057, 0.04, 0.028, 0.02 on the 0.5 x 1.0
+   mm sulcus, mu factors 0.1, 1, 10) and the realisation check (a second
+   mesh at h = 0.0201): residuals <= 1e-11 on every rung, CG <= 40 on the
+   multigrid rungs (h = 0.08 takes Jacobi), every kernel launched, the 15
+   rows against examples/mesh_convergence_tpu_h0.02 (1e-6 relative), the
+   Richardson orders and extrapolated limits against its
+   study_metadata.json (1e-4 relative); the realisation floors printed
+   beside the artifact's.
+
+10. setup_cache: the mu sweep and the no-uptake study on the reference
+   geometry (with its rectangle), run (a) cold in a child process on an
+   empty cache directory, (b) disk-warm in a second child process on the
+   directory (a) filled, and in this process (c) once more on that
+   directory with the memos emptied (disk-warm, in-process) and (d) again
+   (memo-warm).  Prints each run's stage seconds, s/point and s/geometry,
+   the cache's hits per tag and the seconds its reads and writes took;
+   checks that X (every column of both studies), the iterations, passes
+   and CSV rows are bit-equal across the four runs and that the warm runs
+   hit (disk hits in (b) and (c), memo hits in (d)) and missed nothing.
+
+Every study phase (4-7, 9) starts on an empty cache directory of its own
+with the memos emptied, so its first run is cold and its steady run warm;
+the directories lie under a fresh build/cache/run-* of this run, removed
+at its end.
+
 With ``--profile``, a last phase profiles the paths once more: cProfile of
 one steady ``no_adv_batch`` and one steady no-uptake study (where the host
 setup goes), and ``torch.profiler`` of one mu-sweep CG solve, one Stokes
@@ -137,6 +169,7 @@ import io
 import json
 import os
 import pstats
+import shutil
 import subprocess
 import sys
 import time
@@ -202,6 +235,22 @@ MUEFF_COLUMNS = ("Mu_Value", "Mu_base_nondim", "Mu_Eff_Simulation",
 PB_COLUMNS = ("avg_conc_sulc", "avg_conc_rect", "flux_sulc_y0",
               "flux_rect_bottom", "CR", "flux_ratio")
 PB_GEOMETRIES = ["reference", "square_medium"]
+# the no-uptake phase's geometries: the reference and the profile ones
+# (studies.no_uptake.PROFILE_GEOMETRIES), by key and (width, depth) in mm
+NU_GEOMETRIES = {"reference": (0.5, 1.0), "largest": (1.0, 2.0),
+                 "square_small": (0.2, 0.2)}
+GOLDEN_NU_PROFILES = GOLDEN_NU_CSV.parent / "Profiles"
+# below this |c| (a thousandth of the inflow concentration) profile values
+# are held to 1e-6 of it, absolutely, instead of to 1e-6 of themselves
+C_FLOOR = 1e-3
+GOLDEN_MC = (ROOT / "examples" / "mesh_convergence_tpu_h0.02"
+             / "Mesh Convergence Analysis")
+MC_COLUMNS = ("num_cells", "num_vertices", "hmin", "hmax", "mu_eff_sim",
+              "mu_eff_open", "mu_eff_arc", "mu_eff_enh", "ratio_sim",
+              "y0_flux", "total_mass")
+# the cache tags whose entries a warm run reads from the disk
+DISK_TAGS = ("port-mesh", "port-tsys", "port-mltransfer", "port-tbandplan",
+             "port-stokes")
 CG_BOUND = 40
 PALLAS = "fenics_eff_uptake_tpu/ops/pallas_kernels.py"
 JAX_SWEEP = "fenics_eff_uptake_tpu/parallel/sweep.py"
@@ -1030,9 +1079,33 @@ def never_launched(launches, per_sample=False):
             and (per_sample or n != PER_SAMPLE)]
 
 
+def fresh_cache(name):
+    """An empty cache directory ``name`` under this run's cache root as
+    FEU_CACHE_DIR, every memo and cache count emptied: what follows
+    starts cold."""
+    from fenics_eff_uptake_tpu_torch.utils import diskcache
+    d = Path(os.environ["FEU_SMOKE_CACHE_ROOT"]) / name
+    d.mkdir(parents=True, exist_ok=False)
+    os.environ["FEU_CACHE_DIR"] = str(d)
+    diskcache.clear_memos()
+    diskcache.reset_stats()
+    return d
+
+
+def cache_counts():
+    """{tag: {memo, disk, miss, read_s, write_s}} since the last reset."""
+    from fenics_eff_uptake_tpu_torch.utils import diskcache
+    out = {t: dict(n) for t, n in diskcache.CACHE_STATS.items()}
+    for t, sec in diskcache.CACHE_SECONDS.items():
+        out.setdefault(t, {"memo": 0, "disk": 0, "miss": 0}).update(
+            read_s=sec["read"], write_s=sec["write"])
+    return out
+
+
 def phase_slice(dev):
     from fenics_eff_uptake_tpu_torch.studies.phase_a import run_mu_sweep
 
+    fresh_cache("slice")
     zero_launches()
     rows, stats = run_mu_sweep(dev, 0.02, base_dir=str(OUT_DIR / "first"),
                                verbose=True)
@@ -1073,40 +1146,128 @@ def phase_slice(dev):
     return launches, stats, stats2, worst
 
 
+def _nu_key(r):
+    """(domain, width, depth, Pe) of a no-uptake row (CSV text or numbers);
+    None width and depth for the rectangle."""
+    def num(v):
+        return None if v in ("", None) else round(float(v), 9)
+    return (r["Domain"], num(r["Sulcus Width (mm)"]),
+            num(r["Sulcus Depth (mm)"]), num(r["Peclet"]))
+
+
 def check_no_uptake_golden(rows):
-    """The six rows (reference sulcus and rectangle, each Pe) against the
-    committed artifact's; returns the worst error per column."""
+    """The 12 rows (the three geometries and the rectangle, each Pe)
+    against the committed artifact's; returns the worst error per
+    column."""
+    dims = {tuple(round(x, 9) for x in wd) for wd in NU_GEOMETRIES.values()}
     golden = [r for r in _csv_rows(GOLDEN_NU_CSV)
-              if r["Domain"] == "rectangle"
-              or (r["Sulcus Width (mm)"], r["Sulcus Depth (mm)"])
-              == ("0.5", "1.0")]
-
-    def key(r):
-        return r["Domain"], round(float(r["Peclet"]), 9)
-
-    if len(golden) != 6:
-        raise AssertionError(f"{len(golden)} golden rows, not 6")
-    q_in = {key(r)[1]: abs(float(r["Mouth Q_in"]))
+              if r["Domain"] == "rectangle" or _nu_key(r)[1:3] in dims]
+    if len(golden) != 3 * (len(NU_GEOMETRIES) + 1):
+        raise AssertionError(f"{len(golden)} golden rows")
+    # a sulcus row's net fluxes over its own |Mouth Q_in|; the rectangle's
+    # over the reference geometry's at the same Pe
+    q_in = {_nu_key(r): abs(float(r["Mouth Q_in"]))
             for r in golden if r["Domain"] == "sulcus"}
-    return _worst("no_uptake", {key(r): r for r in rows},
-                  {key(r): r for r in golden}, NU_REL_COLUMNS,
-                  {col: lambda gr: q_in[key(gr)[1]]
-                   for col in NU_NET_COLUMNS})
+    ref = tuple(round(x, 9) for x in NU_GEOMETRIES["reference"])
+
+    def scale(gr):
+        k = _nu_key(gr)
+        return q_in[k if k[0] == "sulcus" else ("sulcus", *ref, k[3])]
+
+    return _worst("no_uptake", {_nu_key(r): r for r in rows},
+                  {_nu_key(r): r for r in golden}, NU_REL_COLUMNS,
+                  {col: scale for col in NU_NET_COLUMNS})
+
+
+# the profile CSVs' coordinate columns: sample points, line places, and
+# the mesh's extent
+COORD_COLUMNS = ("x", "y", "x_min", "x_max", "y_min", "y_max")
+
+
+def _same_number(a, b):
+    """Two CSV cells of one number (e.g. "400" and "400.0")."""
+    try:
+        return float(a) == float(b)
+    except ValueError:
+        return False
+
+
+def _profile_err(v, ref):
+    return abs(v - ref) / max(abs(ref), C_FLOOR)
+
+
+def check_profile_csvs(prof_dir):
+    """Each profile geometry's two Profiles/ CSVs against the artifact's,
+    row for row: the same header, rows and text cells; sample coordinates
+    and line places to 1e-12 (of max(1, |value|)), c and the line
+    statistics to 1e-6 of max(|c|, C_FLOOR), counts exactly.  Returns the
+    worst errors, and the worst relative error of c where |c| >=
+    C_FLOOR."""
+    worst = {"coord": 0.0, "c": 0.0, "c_rel_above_floor": 0.0, "stats": 0.0}
+    n_rows = {}
+    for g in ("largest", "square_small"):
+        for name in (f"profiles_samples_{g}.csv", f"profiles_{g}.csv"):
+            got = _csv_rows(prof_dir / name)
+            want = _csv_rows(GOLDEN_NU_PROFILES / name)
+            if not got or list(got[0]) != list(want[0]):
+                raise AssertionError(f"{name}: header differs")
+            if len(got) != len(want):
+                raise AssertionError(f"{name}: {len(got)} rows, the "
+                                     f"artifact {len(want)}")
+            n_rows[name] = len(got)
+            for i, (a, b) in enumerate(zip(got, want)):
+                for col, ref in b.items():
+                    if a[col] == ref:
+                        continue
+                    if col in COORD_COLUMNS and ref != "" and a[col] != "":
+                        e = abs(float(a[col]) - float(ref)) / max(
+                            1.0, abs(float(ref)))
+                        worst["coord"] = max(worst["coord"], e)
+                    elif col == "c" or col.endswith("_c"):
+                        v, r = float(a[col]), float(ref)
+                        if not np.isfinite(v):
+                            raise AssertionError(f"{name} row {i} {col}: {v}")
+                        k = "c" if col == "c" else "stats"
+                        worst[k] = max(worst[k], _profile_err(v, r))
+                        if abs(r) >= C_FLOOR:
+                            worst["c_rel_above_floor"] = max(
+                                worst["c_rel_above_floor"],
+                                abs(v - r) / abs(r))
+                    elif not _same_number(a[col], ref):
+                        raise AssertionError(f"{name} row {i} {col}: "
+                                             f"{a[col]!r} vs {ref!r}")
+    print(f"[no_uptake] profile CSVs {n_rows}: worst coordinate diff "
+          f"{worst['coord']:.3e} (tol 1e-12), c {worst['c']:.3e} and line "
+          f"statistics {worst['stats']:.3e} of max(|c|, {C_FLOOR}) (tol "
+          f"1e-6); c relative where |c| >= {C_FLOOR}: "
+          f"{worst['c_rel_above_floor']:.3e}", flush=True)
+    if not (worst["coord"] <= 1e-12 and worst["c"] <= 1e-6
+            and worst["stats"] <= 1e-6):
+        raise AssertionError(f"profile CSVs off the artifact: {worst}")
+    return dict(worst, rows=n_rows)
 
 
 def phase_no_uptake(dev):
     from fenics_eff_uptake_tpu_torch.studies.no_uptake import \
         run_geometry_study
+    from fenics_eff_uptake_tpu_torch.utils import diskcache
 
+    geometries = list(NU_GEOMETRIES)
+    fresh_cache("no_uptake")
     zero_launches()
-    rows, stats = run_geometry_study(["reference"], PECLET, 0.02,
+    rows, stats = run_geometry_study(geometries, PECLET, 0.02,
                                      base_dir=str(OUT_DIR / "nu_first"),
                                      device=dev)
     launches = read_launches()
+    hits = cache_counts()
     print(f"[no_uptake] launches in the first run: {launches}", flush=True)
-    rows2, stats2 = run_geometry_study(["reference"], PECLET, 0.02,
+    diskcache.reset_stats()
+    rows2, stats2 = run_geometry_study(geometries, PECLET, 0.02,
                                        base_dir=str(OUT_DIR / "nu_steady"),
                                        device=dev, verbose=False)
+    hits2 = cache_counts()
+    print(f"[no_uptake] cache, first run: {hits}", flush=True)
+    print(f"[no_uptake] cache, steady run: {hits2}", flush=True)
     for tag, st in (("first", stats), ("steady", stats2)):
         for s in st:
             print(f"[no_uptake] {tag} {s['geometry']} ({s['cells']} cells, "
@@ -1115,7 +1276,8 @@ def phase_no_uptake(dev):
                   f"{s['stokes_solve_s']:.3f}s assembly "
                   f"{s['assembly_s']:.3f}s ml_setup {s['ml_setup_s']:.3f}s "
                   f"solve {s['solve_s']:.3f}s metrics {s['metrics_s']:.3f}s "
-                  f"total {s['total_s']:.3f}s", flush=True)
+                  f"profiles {s['profiles_s']:.3f}s total "
+                  f"{s['total_s']:.3f}s ({s['stokes_method']})", flush=True)
     for s in stats:
         print(f"[no_uptake] {s['geometry']}: MINRES {s['minres_iters']} "
               f"iters in {s['minres_passes']} passes, rel residual "
@@ -1136,15 +1298,31 @@ def phase_no_uptake(dev):
         if not max(s["rel_resnorm"]) <= 1e-11:
             raise AssertionError(f"transport rel residual "
                                  f"{max(s['rel_resnorm']):.3e} > 1e-11")
+        # the count bounds come from the card's records, which exist for
+        # the reference geometry and the rectangle
+        if s["geometry"] not in ("reference", "rectangle"):
+            continue
         if not s["minres_iters"] <= MINRES_BOUND:
             raise AssertionError(f"MINRES iterations {s['minres_iters']} > "
                                  f"{MINRES_BOUND}")
         if not all(i <= b for i, b in zip(s["iters"], BICGSTAB_BOUND)):
             raise AssertionError(f"BiCGStab iterations {s['iters']} above "
                                  f"{BICGSTAB_BOUND}")
+    for s, s2 in zip(stats, stats2):
+        if s2["iters"] != s["iters"]:
+            raise AssertionError(f"{s['geometry']}: iterations differ "
+                                 f"between runs: {s['iters']} vs "
+                                 f"{s2['iters']}")
     worst = check_no_uptake_golden(rows)
     if rows2 != rows:
         raise AssertionError("steady run's rows differ from the first's")
+    sub = Path("Geometry Comparison Analysis") / "Profiles"
+    worst["profiles"] = check_profile_csvs(OUT_DIR / "nu_first" / sub)
+    for f in sorted((OUT_DIR / "nu_first" / sub).glob("*.csv")):
+        if f.read_bytes() != (OUT_DIR / "nu_steady" / sub
+                              / f.name).read_bytes():
+            raise AssertionError(f"steady run's {f.name} differs from the "
+                                 "first's")
     return launches, stats, stats2, worst
 
 
@@ -1164,6 +1342,7 @@ def phase_adv_diff(dev):
         return out
 
     adv_diff.transport_batch = counted
+    fresh_cache("adv_diff")
     try:
         zero_launches()
         rows, stats = adv_diff.run_advdiff_step_validation(
@@ -1253,6 +1432,7 @@ def phase_no_adv_studies(dev):
     from fenics_eff_uptake_tpu_torch.studies.phase_b import (
         run_no_adv_mu_sweep)
 
+    fresh_cache("no_adv_studies")
     zero_launches()
     me_rows, me_stats = run_mu_eff_analysis(
         dev, base_dir=str(OUT_DIR / "mu_eff"), verbose=False)
@@ -1302,6 +1482,248 @@ def phase_no_adv_studies(dev):
                         {key(r): r for r in golden}, PB_COLUMNS,
                         {"flux_error_pct": lambda gr: 100.0}))
     return launches, stats, worst
+
+
+def phase_mesh_convergence(dev):
+    """The mesh-convergence study with the default ladder and the
+    realisation check, against the committed artifact."""
+    from fenics_eff_uptake_tpu_torch.studies.mesh_convergence import (
+        DEFAULT_LADDER, run_mesh_convergence)
+
+    fresh_cache("mesh_convergence")
+    zero_launches()
+    rows, meta, stats = run_mesh_convergence(
+        dev, realisation_check=True,
+        base_dir=str(OUT_DIR / "mesh_convergence"), verbose=False)
+    launches = read_launches()
+    print(f"[mesh_convergence] launches: {launches}", flush=True)
+    for s in stats:
+        print(f"[mesh_convergence] h={s['mesh_size']} ({s['cells']} cells, "
+              f"{s['ndofs']} P2 dofs, multigrid {s['multilevel']}): mesh "
+              f"{s['mesh_s']:.3f}s assembly {s['assembly_s']:.3f}s ml_setup "
+              f"{s['ml_setup_s']:.3f}s solve {s['solve_s']:.3f}s metrics "
+              f"{s['metrics_s']:.3f}s total {s['total_s']:.3f}s; CG iters "
+              f"{s['iters']} in {s['passes']} passes, max rel residual "
+              f"{max(s['rel_resnorm']):.3e}", flush=True)
+        if not max(s["rel_resnorm"]) <= 1e-11:
+            raise AssertionError(f"h={s['mesh_size']}: rel residual "
+                                 f"{max(s['rel_resnorm']):.3e} > 1e-11")
+        if s["multilevel"] and not max(s["iters"]) <= CG_BOUND:
+            raise AssertionError(f"h={s['mesh_size']}: CG iterations "
+                                 f"{s['iters']} > {CG_BOUND}")
+    if [s["multilevel"] for s in stats[:len(DEFAULT_LADDER)]] != [
+            h < 0.08 for h in DEFAULT_LADDER]:
+        raise AssertionError("the multigrid path was not taken where the "
+                             "hierarchy applies (h < 0.08)")
+    missing = never_launched(launches)
+    if missing:
+        raise AssertionError(f"kernels never launched by the mesh-"
+                             f"convergence study: {missing}")
+
+    def key(r):
+        return (round(float(r["mesh_size"]), 9),
+                round(float(r["mu_factor"]), 9))
+
+    golden = _csv_rows(GOLDEN_MC / "mesh_convergence_results.csv")
+    if len(rows) != 3 * len(DEFAULT_LADDER) or len(golden) != len(rows):
+        raise AssertionError(f"{len(rows)} rows vs {len(golden)} golden")
+    if [key(r) for r in rows] != [key(r) for r in golden]:
+        raise AssertionError("row order differs from the artifact's")
+    worst = _worst("mesh_convergence", {key(r): r for r in rows},
+                   {key(r): r for r in golden}, MC_COLUMNS)
+    want = json.loads((GOLDEN_MC / "study_metadata.json").read_text())
+    conv = {}
+    for mf, c in want["convergence"].items():
+        g = meta["convergence"][mf]
+        for k, ref in c.items():
+            e = abs(g[k] - ref) / abs(ref)
+            conv[f"{mf} {k}"] = e
+            print(f"[mesh_convergence] mu*={mf} {k}: {g[k]!r} (artifact "
+                  f"{ref!r}, rel diff {e:.3e}, tol 1e-4)", flush=True)
+    for mf, f in want["mesh_realisation_floor"].items():
+        g = meta["mesh_realisation_floor"][mf]
+        print(f"[mesh_convergence] realisation floor mu*={mf}: "
+              + ", ".join(f"{k} {g[k]:.6e} (artifact {v:.6e})"
+                          for k, v in f.items()), flush=True)
+    bad = {k: e for k, e in conv.items() if not e <= 1e-4}
+    if bad:
+        raise AssertionError(f"orders or limits off the artifact: {bad}")
+    worst["convergence"] = conv
+    return launches, stats, worst, meta
+
+
+# the setup-cache runs: the mu sweep, then the no-uptake study on the
+# reference geometry (and its rectangle)
+SETUP_CACHE_RUNS = ("cold", "disk", "disk_inproc", "memo")
+
+
+def setup_cache_run(dev, tag):
+    """One run of the mu sweep and the reference no-uptake study on the
+    current cache directory and memos.  Saves every column X of both
+    studies to build/chip_smoke/setup_cache_<tag>.npz; returns the stage
+    seconds, iterations, passes, CSV rows and cache counts."""
+    from fenics_eff_uptake_tpu_torch.studies import no_uptake, phase_a
+    from fenics_eff_uptake_tpu_torch.utils import diskcache
+
+    X = {}
+    nab, tb = phase_a.no_adv_batch, no_uptake.transport_batch
+
+    def nab_x(*a, **k):
+        res, st = nab(*a, **k)
+        X["mu_sweep"] = np.stack([np.asarray(r["c"].values) for r in res])
+        return res, st
+
+    def tb_x(mesh, *a, **k):
+        out = tb(mesh, *a, **k)
+        X[f"no_uptake_{mesh.domain_type}"] = out[0].cpu().numpy()
+        return out
+
+    diskcache.reset_stats()
+    phase_a.no_adv_batch, no_uptake.transport_batch = nab_x, tb_x
+    try:
+        t0 = time.time()
+        rows, st = phase_a.run_mu_sweep(
+            dev, 0.02, base_dir=str(OUT_DIR / f"sc_{tag}"), verbose=False)
+        nrows, nst = no_uptake.run_geometry_study(
+            ["reference"], PECLET, 0.02,
+            base_dir=str(OUT_DIR / f"sc_{tag}"), device=dev, verbose=False)
+        wall = time.time() - t0
+    finally:
+        phase_a.no_adv_batch, no_uptake.transport_batch = nab, tb
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    np.savez(OUT_DIR / f"setup_cache_{tag}.npz", **X)
+    stages = ("mesh_s", "assembly_s", "ml_setup_s", "solve_s", "metrics_s",
+              "total_s")
+    return json.loads(json.dumps({
+        "tag": tag, "wall_s": wall, "cache": cache_counts(),
+        "mu_sweep": {**{k: st[k] for k in stages},
+                     "s_per_point": st["total_s"] / B_SWEEP,
+                     "iters": st["iters"], "passes": st["passes"]},
+        "no_uptake": [{k: s[k] for k in (
+            "geometry", "mesh_s", "stokes_setup_s", "stokes_solve_s",
+            "assembly_s", "ml_setup_s", "solve_s", "metrics_s",
+            "profiles_s", "total_s", "iters", "passes", "minres_iters",
+            "stokes_method")} for s in nst],
+        "rows": {"mu_sweep": rows, "no_uptake": nrows}},
+        default=lambda v: v.item()))
+
+
+def _setup_cache_child(tag):
+    """``--setup-cache-child``: one setup-cache run in this fresh process,
+    its record written to build/chip_smoke/setup_cache_<tag>.json."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    from fenics_eff_uptake_tpu_torch.device import setup
+    rec = setup_cache_run(setup("cuda"), tag)
+    (OUT_DIR / f"setup_cache_{tag}.json").write_text(json.dumps(rec))
+
+
+def _print_setup_cache_run(rec):
+    tag, m = rec["tag"], rec["mu_sweep"]
+    print(f"[setup_cache] {tag}: wall {rec['wall_s']:.3f}s; mu sweep mesh "
+          f"{m['mesh_s']:.3f}s assembly {m['assembly_s']:.3f}s ml_setup "
+          f"{m['ml_setup_s']:.3f}s solve {m['solve_s']:.3f}s metrics "
+          f"{m['metrics_s']:.3f}s total {m['total_s']:.3f}s = "
+          f"{m['s_per_point']:.4f} s/point", flush=True)
+    for s in rec["no_uptake"]:
+        print(f"[setup_cache] {tag}: no-uptake {s['geometry']} mesh "
+              f"{s['mesh_s']:.3f}s stokes_setup {s['stokes_setup_s']:.3f}s "
+              f"stokes_solve {s['stokes_solve_s']:.3f}s assembly "
+              f"{s['assembly_s']:.3f}s ml_setup {s['ml_setup_s']:.3f}s "
+              f"solve {s['solve_s']:.3f}s metrics {s['metrics_s']:.3f}s "
+              f"profiles {s['profiles_s']:.3f}s total {s['total_s']:.3f}s "
+              f"({s['stokes_method']})", flush=True)
+    print(f"[setup_cache] {tag}: cache {rec['cache']}", flush=True)
+
+
+def phase_setup_cache(dev):
+    """Cold and disk-warm runs in child processes, then disk-warm and
+    memo-warm runs in this process (``SETUP_CACHE_RUNS``), held bit for
+    bit against each other."""
+    from fenics_eff_uptake_tpu_torch.utils import diskcache
+
+    d = Path(os.environ["FEU_SMOKE_CACHE_ROOT"]) / "setup_cache"
+    d.mkdir(parents=True, exist_ok=False)
+    recs = {}
+    for tag in SETUP_CACHE_RUNS[:2]:
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--setup-cache-child", tag], cwd=ROOT,
+            env=dict(os.environ, FEU_CACHE_DIR=str(d)),
+            capture_output=True, text=True, timeout=900)
+        log = OUT_DIR / f"setup_cache_{tag}.log"
+        log.write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            print((proc.stdout + proc.stderr)[-3000:], flush=True)
+            raise AssertionError(f"setup-cache child '{tag}' exited "
+                                 f"{proc.returncode}; see {log}")
+        recs[tag] = json.loads(
+            (OUT_DIR / f"setup_cache_{tag}.json").read_text())
+        recs[tag]["process_s"] = time.time() - t0
+    os.environ["FEU_CACHE_DIR"] = str(d)
+    diskcache.clear_memos()
+    zero_launches()
+    for tag in SETUP_CACHE_RUNS[2:]:
+        recs[tag] = setup_cache_run(dev, tag)
+    launches = read_launches()
+    missing = never_launched(launches)
+    if missing:
+        raise AssertionError(f"kernels never launched by the warm runs: "
+                             f"{missing}")
+    for tag in SETUP_CACHE_RUNS:
+        _print_setup_cache_run(recs[tag])
+    for tag in SETUP_CACHE_RUNS[:2]:
+        secs = recs[tag]["process_s"]
+        print(f"[setup_cache] {tag}: child process {secs:.1f}s from start "
+              "to exit", flush=True)
+
+    cold = np.load(OUT_DIR / "setup_cache_cold.npz")
+    if sorted(cold.files) != ["mu_sweep", "no_uptake_rectangular",
+                              "no_uptake_sulcus"]:
+        raise AssertionError(f"X of {cold.files}")
+    for tag in SETUP_CACHE_RUNS[1:]:
+        other = np.load(OUT_DIR / f"setup_cache_{tag}.npz")
+        for k in cold.files:
+            if not np.array_equal(cold[k], other[k]):
+                raise AssertionError(f"{tag}: X of {k} differs from the "
+                                     "cold run's")
+        r, c = recs[tag], recs["cold"]
+        if (r["mu_sweep"]["iters"] != c["mu_sweep"]["iters"]
+                or r["mu_sweep"]["passes"] != c["mu_sweep"]["passes"]
+                or [(s["iters"], s["passes"]) for s in r["no_uptake"]]
+                != [(s["iters"], s["passes"]) for s in c["no_uptake"]]):
+            raise AssertionError(f"{tag}: iterations or passes differ from "
+                                 "the cold run's")
+        if json.dumps(r["rows"]) != json.dumps(c["rows"]):
+            raise AssertionError(f"{tag}: CSV rows differ from the cold "
+                                 "run's")
+    shapes = ", ".join(f"{k} {cold[k].shape}" for k in cold.files)
+    print(f"[setup_cache] X ({shapes}), iterations, passes and CSV rows "
+          f"bit-equal across {', '.join(SETUP_CACHE_RUNS)}", flush=True)
+
+    def n(tag, t, kind):
+        return recs[tag]["cache"].get(t, {}).get(kind, 0)
+
+    for t in DISK_TAGS:
+        if n("cold", t, "miss") <= 0:
+            raise AssertionError(f"cold run: {t} {recs['cold']['cache']}")
+        for tag in ("disk", "disk_inproc"):
+            if n(tag, t, "disk") <= 0 or n(tag, t, "miss") != 0:
+                raise AssertionError(f"{tag} run: {t} "
+                                     f"{recs[tag]['cache']}")
+    for t, c in recs["memo"]["cache"].items():
+        if c["miss"] != 0:
+            raise AssertionError(f"memo-warm run missed {t}: {c}")
+    for t in ("port-mesh", "port-tsys", "port-mltransfer", "port-tbandplan",
+              "port-ainv"):
+        if n("memo", t, "memo") <= 0:
+            raise AssertionError(f"memo-warm run: no memo hit of {t}")
+    for r in recs.values():
+        del r["rows"]
+    return launches, recs
 
 
 def _busy_ms(fn):
@@ -1744,14 +2166,32 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile both paths (host and device)")
+    ap.add_argument("--setup-cache-child", choices=SETUP_CACHE_RUNS[:2],
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.time()
     if not (ROOT / "fenics_eff_uptake_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: fenics_eff_uptake_tpu_torch/ is not "
                          f"beside this script in {ROOT}; run it from a "
                          "checkout of the repository")
+    if args.setup_cache_child:
+        return _setup_cache_child(args.setup_cache_child)
     card = phase_device()
-    os.environ.setdefault("FEU_CACHE_DIR", str(ROOT / "build" / "cache"))
+    # a fresh cache root for this run, removed at its end: no run starts
+    # on another's entries
+    cache_root = (ROOT / "build" / "cache"
+                  / f"run-{os.getpid()}-{time.time_ns()}")
+    cache_root.mkdir(parents=True)
+    os.environ["FEU_SMOKE_CACHE_ROOT"] = str(cache_root)
+    os.environ["FEU_CACHE_DIR"] = str(cache_root / "kernels")
+    os.environ.pop("FEU_DISK_CACHE", None)
+    try:
+        _main(args, card, t_start)
+    finally:
+        shutil.rmtree(cache_root, ignore_errors=True)
+
+
+def _main(args, card, t_start):
     sys.path.insert(0, str(ROOT))
     import torch
     from fenics_eff_uptake_tpu_torch.device import setup
@@ -1787,6 +2227,9 @@ def main(argv=None):
                                                        phase_adv_diff)
     na_launches, na_stats, na_worst = timed("no_adv_studies",
                                             phase_no_adv_studies)
+    mc_launches, mc_stats, mc_worst, mc_meta = timed(
+        "mesh_convergence", phase_mesh_convergence)
+    sc_launches, sc_recs = timed("setup_cache", phase_setup_cache)
     cfg_rows, cfg_launches = timed("configs", phase_configs)
     if args.profile:
         phase_profile(dev)
@@ -1807,6 +2250,7 @@ def main(argv=None):
     }
     by_path = {"mu_sweep": launches, "no_uptake": nu_launches,
                "adv_diff": ad_launches, "no_adv_studies": na_launches,
+               "mesh_convergence": mc_launches, "setup_cache": sc_launches,
                "configs": cfg_launches}
     unlaunched = [n for n in meta if sum(p[n] for p in by_path.values()) <= 0]
     if unlaunched:
@@ -1839,6 +2283,10 @@ def main(argv=None):
                "adv_diff_golden_worst": ad_worst,
                "no_adv_studies": na_stats,
                "no_adv_studies_golden_worst": na_worst,
+               "mesh_convergence": mc_stats,
+               "mesh_convergence_golden_worst": mc_worst,
+               "mesh_convergence_metadata": mc_meta,
+               "setup_cache": sc_recs,
                "configs": cfg_rows, "phase_s": phase_s,
                "wall_s": time.time() - t_start}
     OUT_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,10 +1,10 @@
-"""Point evaluation and the velocity line metrics (host numpy).
+"""Point evaluation, line profiles and the velocity line metrics (host
+numpy).
 
-Copies of ``eval_function`` and ``compute_velocity_metrics`` from the JAX
+Copies of ``eval_function``, ``extract_line_profile``,
+``compute_conc_profiles`` and ``compute_velocity_metrics`` from the JAX
 package's ``analysis/profiles.py``: that module is numpy-only, but
-importing it runs ``analysis/__init__.py``, which loads jax.  The line
-profiles of the concentration (``compute_conc_profiles``) are not ported
-yet.
+importing it runs ``analysis/__init__.py``, which loads jax.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ import numpy as np
 from ..fem.elements import tabulate
 from .locate import PointLocator
 
-__all__ = ["eval_function", "compute_velocity_metrics"]
+__all__ = ["eval_function", "extract_line_profile", "compute_conc_profiles",
+           "compute_velocity_metrics"]
 
 
 def eval_function(fn, pts, locator: Optional[PointLocator] = None):
@@ -37,6 +38,75 @@ def eval_function(fn, pts, locator: Optional[PointLocator] = None):
         ce = vals_np[space.cell_dofs[safe_cells]].reshape(len(cells), -1, 2)
         out = np.einsum("ni,nia->na", phi, ce)
     return out, valid
+
+
+def extract_line_profile(fn, axis: str, location: float, span, n_points=100,
+                         locator: Optional[PointLocator] = None):
+    """(coords, values) of ``fn`` sampled at ``n_points`` even steps over
+    ``span`` along a horizontal (axis "x", y = location) or vertical (axis
+    "y", x = location) line; points outside the mesh are dropped."""
+    lo, hi = span
+    coords = np.linspace(lo, hi, n_points)
+    if axis == "x":
+        pts = np.stack([coords, np.full_like(coords, location)], axis=1)
+    else:
+        pts = np.stack([np.full_like(coords, location), coords], axis=1)
+    vals, valid = eval_function(fn, pts, locator)
+    return coords[valid], vals[valid]
+
+
+def compute_conc_profiles(c, mesh, params, domain_type, n_points=400):
+    """The standard line profiles of a concentration: per line its
+    statistics (``profiles``), its samples (``profiles_full``) and the
+    sampling metadata (``profiles_meta``), the reference's structure.
+    Horizontal lines at the sulcus middle (sulcus domains), the mouth
+    level and a quarter, half and three quarters of the channel height;
+    vertical lines at a quarter, half and three quarters of its length."""
+    L = float(getattr(params, "L", getattr(params, "L_dim", 1.0)))
+    H = float(getattr(params, "H", getattr(params, "H_dim", 1.0)))
+    locator = PointLocator(mesh)
+    if domain_type == "rectangular":
+        horiz = [(1e-6 * H, "mouth_level"), (0.25 * H, "lower_channel"),
+                 (0.50 * H, "mid_channel"), (0.75 * H, "upper_channel")]
+        x_range = (0.0, L)
+        y_range = (0.0, H)
+    else:
+        y_min = float(mesh.vertices[:, 1].min())
+        horiz = [(0.5 * y_min, "sulcus_mid"), (1e-6 * H, "mouth_level"),
+                 (0.25 * H, "lower_channel"), (0.50 * H, "mid_channel"),
+                 (0.75 * H, "upper_channel")]
+        x_range = (float(mesh.vertices[:, 0].min()),
+                   float(mesh.vertices[:, 0].max()))
+        y_range = (y_min, float(mesh.vertices[:, 1].max()))
+    vert = [(0.25 * L, "x_quarter"), (0.50 * L, "x_mid"),
+            (0.75 * L, "x_three_quarters")]
+
+    stats = {"horizontal": {}, "vertical": {}}
+    full = {"horizontal": {}, "vertical": {}}
+    for ltype, fixed, axis, span, lines in (
+            ("horizontal", "y", "x", x_range, horiz),
+            ("vertical", "x", "y", y_range, vert)):
+        for loc, name in lines:
+            pos, vs = extract_line_profile(c, axis, loc, span, n_points,
+                                           locator)
+            if vs.size == 0:
+                continue
+            stats[ltype][name] = {
+                fixed: float(loc), "min_c": float(vs.min()),
+                "max_c": float(vs.max()), "avg_c": float(vs.mean()),
+                "n_samples": int(vs.size)}
+            full[ltype][name] = {fixed: float(loc), axis: pos.tolist(),
+                                 "c": vs.tolist()}
+    return {
+        "profiles": stats,
+        "profiles_full": full,
+        "profiles_meta": {
+            "n_points": int(n_points),
+            "domain_type": domain_type,
+            "x_range": tuple(map(float, x_range)),
+            "y_range": tuple(map(float, y_range)),
+        },
+    }
 
 
 def compute_velocity_metrics(u, mesh, params, n_global=1000, seed=0):

@@ -20,8 +20,7 @@ from .meshing.generator import _mesh_from_arrays, _mesh_to_arrays
 from .meshing.geometry import SulcusGeometry
 from .meshing.mesh_data import MeshData
 from .ops.banded import band_spans
-from .ops.elemspmv import Scatter, make_tiles
-from .parallel.sweep import TransportSystem, _Block
+from .parallel.sweep import TransportSystem, _Block, system_from_arrays
 from .solvers.multilevel import (Level, MultilevelData, Transfer,
                                  TransferBands)
 
@@ -56,50 +55,13 @@ def _i32(a, device):
     return torch.tensor(np.asarray(a).astype(np.int32), device=device)
 
 
-def _block(d, name, device):
-    if f"{name}_A64" not in d:
-        return None
-    A64 = torch.tensor(np.asarray(d[f"{name}_A64"]), dtype=torch.float64,
-                       device=device)
-    ids = np.asarray(d[f"{name}_ids"])
-    perm = np.asarray(d[f"{name}_perm"])
-    ndofs = int(d[f"{name}_ndofs"])
-    rowptr = np.searchsorted(ids, np.arange(ndofs + 1))
-    dofs = _i32(d[f"{name}_dofs"], device)
-    return _Block.of(A64, A64.float(), dofs, Scatter(
-        perm=_i32(perm, device), ids_sorted=_i32(ids, device),
-        rowptr=_i32(rowptr, device), ndofs=ndofs,
-        tiles=make_tiles(np.asarray(d[f"{name}_dofs"]), perm, rowptr,
-                         device)))
-
-
 def transport_system_from_arrays(d, mesh, element, device) -> TransportSystem:
     """The port's TransportSystem (advective or not) from the dict of numpy
     arrays that the JAX package's ``parallel.sweep._system_to_arrays``
-    produces."""
-    device = torch.device(device)
-
-    def band(name):
-        v = d.get(name)
-        return None if v is None else torch.tensor(
-            np.asarray(v), dtype=torch.float32, device=device)
-
-    perm = d.get("perm")
-    iperm = d.get("iperm")
-    Kband, Advband = band("Kband"), band("Advband")
-    return TransportSystem(
-        K=_block(d, "K", device), R=_block(d, "R", device),
-        Adv=_block(d, "Adv", device), Advband=Advband,
-        Advspans=None if Advband is None else band_spans(Advband),
-        free=torch.tensor(np.asarray(d["free"], dtype=bool),
-                          device=device),
-        bc_values=torch.tensor(np.asarray(d["bc_values"]),
-                               dtype=torch.float64, device=device),
-        ndofs=int(d["ndofs"]),
-        space=FunctionSpace(mesh_from(mesh), element),
-        Kband=Kband, Kspans=None if Kband is None else band_spans(Kband),
-        perm=None if perm is None else np.asarray(perm),
-        iperm=None if iperm is None else np.asarray(iperm))
+    produces (``parallel.sweep.system_from_arrays``, which also restores
+    the port's own cache entries)."""
+    return system_from_arrays(
+        d, FunctionSpace(mesh_from(mesh), element), device)
 
 
 def robin_batch_from(sys: TransportSystem, R_batch) -> _Block:

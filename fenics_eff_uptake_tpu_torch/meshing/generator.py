@@ -1,7 +1,7 @@
 """From-scratch unstructured triangle mesher (replaces Gmsh, ref mesh.py);
 the port's copy of the JAX package's ``meshing/generator.py``, with its own
-native kernel binding (``meshing/native.py``) and its own small disk cache
-of finished meshes (``_load_cached`` / ``_store_cached``).
+native kernel binding (``meshing/native.py``); finished meshes are kept in
+the port's setup cache (``utils/diskcache.py``, tag ``port-mesh``).
 
 Pipeline per region (the channel rectangle and, for sulcus domains, the
 cavity below y=0 -- both CONVEX, see note):
@@ -25,8 +25,6 @@ hole-carving step needed.
 
 from __future__ import annotations
 
-import hashlib
-import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -36,8 +34,11 @@ from . import native
 from .geometry import SulcusGeometry, sample_curve, sample_segment
 from .mesh_data import MeshData, orient_ccw
 from .markers import build_mesh_data
+from ..utils.diskcache import cache_key_of, count, load_arrays, store_arrays
 
 __all__ = ["MeshGenerator", "generate_mesh", "structured_rectangle"]
+
+MESH_TAG = "port-mesh"
 
 
 # ---------------------------------------------------------------------------
@@ -176,45 +177,6 @@ def _mesh_from_arrays(d, geom, domain_type) -> MeshData:
                     y0_marker=d["y0_marker"], interior_y0=iy, geom=geom)
 
 
-def _cache_path(key: str) -> Optional[str]:
-    """The cache file of ``key`` under FEU_CACHE_DIR (default
-    ~/.cache/fenics_eff_uptake_tpu_torch), or None if FEU_DISK_CACHE=0 or
-    the directory cannot be made."""
-    if os.environ.get("FEU_DISK_CACHE", "1") == "0":
-        return None
-    d = os.environ.get("FEU_CACHE_DIR", os.path.join(
-        os.path.expanduser("~"), ".cache", "fenics_eff_uptake_tpu_torch"))
-    try:
-        os.makedirs(d, exist_ok=True)
-    except OSError:
-        return None
-    return os.path.join(d, f"port-mesh-{key}.npz")
-
-
-def _load_cached(path):
-    if path is None or not os.path.exists(path):
-        return None
-    try:
-        with np.load(path, allow_pickle=False) as z:
-            return {k: z[k] for k in z.files}
-    except Exception:       # a corrupt or partial file is a miss
-        return None
-
-
-def _store_cached(path, arrays):
-    if path is None:
-        return
-    tmp = f"{path}.{os.getpid()}.tmp.npz"
-    try:
-        np.savez(tmp, **arrays)
-        os.replace(tmp, path)
-    except OSError:
-        try:
-            os.remove(tmp)
-        except OSError:
-            pass
-
-
 def generate_mesh(width, height, sulcus_depth, sulcus_width, mesh_size,
                   refinement_factor=1, domain_type="sulcus",
                   n_smooth=4) -> MeshData:
@@ -224,12 +186,11 @@ def generate_mesh(width, height, sulcus_depth, sulcus_width, mesh_size,
     MeshData is persisted across processes (an .npz per argument set):
     study drivers regenerate the same meshes every run, and the native
     kernel + marker build cost ~0.7 s at h=0.02."""
-    key = hashlib.sha256(repr(
-        ("mesh-v1", float(width), float(height), float(sulcus_depth),
-         float(sulcus_width), float(mesh_size), int(refinement_factor),
-         domain_type, int(n_smooth))).encode()).hexdigest()
-    path = _cache_path(key)
-    hit = _load_cached(path)
+    key = cache_key_of("mesh-v1", float(width), float(height),
+                       float(sulcus_depth), float(sulcus_width),
+                       float(mesh_size), int(refinement_factor), domain_type,
+                       int(n_smooth))
+    hit = load_arrays(MESH_TAG, key)
     geom_c = SulcusGeometry(width=width, height=height,
                             sulcus_width=sulcus_width,
                             sulcus_depth=sulcus_depth,
@@ -239,10 +200,11 @@ def generate_mesh(width, height, sulcus_depth, sulcus_width, mesh_size,
           or sulcus_width <= 0 or sulcus_depth <= 0 else "sulcus")
     if hit is not None:
         return _mesh_from_arrays(hit, geom_c, dt)
+    count(MESH_TAG, "miss")
     md = _generate_mesh_impl(width, height, sulcus_depth, sulcus_width,
                              mesh_size, refinement_factor, domain_type,
                              n_smooth)
-    _store_cached(path, _mesh_to_arrays(md))
+    store_arrays(MESH_TAG, key, _mesh_to_arrays(md))
     return md
 
 

@@ -21,8 +21,12 @@ preconditioned MINRES, in the configuration the JAX package runs on a TPU:
 
 The divergence applies are an einsum and a segment sum in plain PyTorch, as
 they are XLA ops in the JAX package; the segment sums are the deterministic
-``planned_segment_sum``.  Shape buckets are not ported; the disk checkpoint
-of the solved field and the Schur (Uzawa) fallback are not ported yet.
+``planned_segment_sum``.  Shape buckets are not ported; the Schur (Uzawa)
+fallback is not ported yet.
+
+``stokes_solve`` keeps the solved field in the setup cache (tag
+``port-stokes``), as the JAX package's ``stokes_solve`` does: a converged
+field is stored, and a hit reloads it in place of the setup and solve.
 """
 
 from __future__ import annotations
@@ -43,9 +47,10 @@ from ..parallel.sweep import (apply_operator, build_transport_system,
 from ..solvers.minres import minres_tree
 from ..solvers.multilevel import (build_multilevel, level_meshes_for,
                                   make_ml_preconditioner)
+from ..utils.diskcache import cache_key_of, count, load_arrays, store_arrays
 
 __all__ = ["taylor_hood_spaces", "StokesSetup", "stokes_setup",
-           "saddle_solve", "stokes_solve_mg"]
+           "saddle_solve", "stokes_solve_mg", "stokes_solve", "STOKES_TAG"]
 
 # velocity walls: the inflow values ride in the lift G, so every Dirichlet
 # value of the velocity system is zero
@@ -316,4 +321,55 @@ def stokes_solve_mg(mesh: MeshData, H: float, device, rtol=OUTER_RTOL,
     info.update(method="minres+mg", setup_s=t1 - t0, solve_s=t2 - t1)
     u.solver_info = info
     p.solver_info = info
+    return u, p
+
+
+STOKES_TAG = "port-stokes"
+# the cycle options of stokes_setup, in the order they join the key
+_CYCLE_OPTIONS = ("ml_dtype", "transfer_dtype", "n_smooth", "coarse_inverse")
+
+
+def stokes_solve(mesh: MeshData, H: float, device, rtol=OUTER_RTOL,
+                 **cycle_options):
+    """``stokes_solve_mg`` behind the setup cache (tag ``port-stokes``,
+    the JAX package's ``stokes_solve`` checkpoint): keyed by the mesh, H,
+    the outer rtol, the precision (the mixed MINRES, the only one ported)
+    and the velocity hierarchy's cycle options.  A converged field is
+    stored with its report; one that did not converge never is.  A hit
+    returns the stored values with the stored report, its method marked
+    ``+cache``, setup_s the seconds of the load and solve_s 0."""
+    device = torch.device(device)
+    unknown = set(cycle_options) - set(_CYCLE_OPTIONS)
+    if unknown:
+        raise TypeError(f"unknown Stokes cycle options {sorted(unknown)}")
+    opts = {"ml_dtype": None, "transfer_dtype": None, "n_smooth": 1,
+            "coarse_inverse": "lapack", **cycle_options}
+    key = cache_key_of(
+        "stokes-v1", np.asarray(mesh.vertices), np.asarray(mesh.cells),
+        np.asarray(mesh.bc_marker), float(H), float(rtol), "mixed",
+        *[str(opts[k]) for k in _CYCLE_OPTIONS])
+    t0 = time.time()
+    hit = load_arrays(STOKES_TAG, key)
+    if hit is not None:
+        V, Q = taylor_hood_spaces(mesh)
+        info = {"outer_iters": int(hit["outer_iters"]),
+                "passes": int(hit["passes"]),
+                "resnorm": float(hit["resnorm"]),
+                "rel_resnorm": float(hit["rel_resnorm"]),
+                "converged": bool(hit["converged"]),
+                "method": str(hit["method"]) + "+cache",
+                "setup_s": time.time() - t0, "solve_s": 0.0}
+        u = Function(V, np.asarray(hit["u"], dtype=np.float64))
+        p = Function(Q, np.asarray(hit["p"], dtype=np.float64))
+        u.solver_info = p.solver_info = info
+        return u, p
+    count(STOKES_TAG, "miss")
+    u, p = stokes_solve_mg(mesh, H, device, rtol=rtol, **cycle_options)
+    info = u.solver_info
+    # a stored field is replayed for ever: only a converged one is kept
+    if info["converged"]:
+        store_arrays(STOKES_TAG, key, {
+            "u": np.asarray(u.values), "p": np.asarray(p.values),
+            **{k: info[k] for k in ("outer_iters", "passes", "resnorm",
+                                    "rel_resnorm", "converged", "method")}})
     return u, p

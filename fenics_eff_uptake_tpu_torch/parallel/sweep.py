@@ -57,13 +57,19 @@ from ..fem.assembly import (advection_block, make_bc, robin_facet_block,
                             stiffness_block)
 from ..fem.space import FunctionSpace
 from ..meshing.mesh_data import MARKERS, MeshData
-from ..ops.band_plans import best_bandwidth_permutation, build_band_plan
+from ..ops.band_plans import (BandPlan, best_bandwidth_permutation,
+                              build_band_plan)
 from ..ops.banded import band_apply, band_from_elements, band_spans
-from ..ops.elemspmv import (ElementKernel, Scatter, element_apply_plain,
-                            make_scatter, make_segment_plan,
+from ..ops.elemspmv import (CHUNK_SLOTS, FILL_TILES, MIN_TILE_ROWS,
+                            TILE_ROWS, ElementKernel, Scatter, TilePlan,
+                            _i32, element_apply_plain, make_scatter,
+                            make_segment_plan, make_tiles,
                             planned_segment_sum)
+from ..utils.diskcache import (Memo, cache_key_of, count, disk_enabled,
+                               load_arrays, store_arrays, timed)
 
 __all__ = ["TransportSystem", "build_transport_system", "system_to",
+           "system_from_arrays",
            "unpermute_columns", "robin_matrices_for_mu", "OperatorArgs",
            "operator_args", "apply_operator", "operator_rhs", "fine_dinv",
            "solve_sweep", "BAND_TILE", "PRECISIONS"]
@@ -229,6 +235,123 @@ def unpermute_columns(sys: TransportSystem, Xcols):
     return Xcols[:, idx]
 
 
+TSYS_TAG = "port-tsys"
+# the fine and level systems of the few geometries a study step holds (the
+# JAX package's _TSYS_MEMO cap); a fine entry holds its bands on the device
+_TSYS_MEMO = Memo(TSYS_TAG, cap=24)
+
+
+def _system_key(mesh: MeshData, element, u_values, u_space, dirichlet,
+                with_robin):
+    """Content key of an assembled system: every input of
+    ``build_transport_system`` and the plan constants its arrays depend
+    on."""
+    if dirichlet is None:
+        bc = "default"
+    else:
+        bc = repr([(int(m), float(v)) for m, v in dirichlet])
+    return cache_key_of(
+        "tsys-v1", np.asarray(mesh.vertices), np.asarray(mesh.cells),
+        np.asarray(mesh.bc_marker), np.asarray(mesh.boundary.edges),
+        np.asarray(mesh.boundary.cell), element,
+        None if u_values is None else np.asarray(u_values, np.float64),
+        None if u_space is None else (u_space.element, u_space.vs),
+        bc, bool(with_robin), BAND_TILE, TILE_ROWS, MIN_TILE_ROWS,
+        FILL_TILES, CHUNK_SLOTS)
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _system_to_arrays(sys: TransportSystem, plan: BandPlan):
+    """The host arrays of a system: its blocks' f64 matrices, dof maps,
+    scatter and tile plans, the dof permutation, constraints and the band
+    plan (the bands themselves are made again from it)."""
+    out = {"ndofs": int(sys.ndofs), "free": _np(sys.free),
+           "bc_values": _np(sys.bc_values), "perm": sys.perm,
+           "iperm": sys.iperm, "plan_perm": plan.perm,
+           "plan_ids": plan.ids_sorted,
+           "plan_dims": np.asarray([plan.tiles, plan.tile, plan.width,
+                                    plan.halo])}
+    for name in ("K", "Adv", "R"):
+        b = getattr(sys, name)
+        if b is None:
+            continue
+        sc, tp = b.scatter, b.scatter.tiles
+        out.update({
+            f"{name}_A64": _np(b.A64), f"{name}_dofs": _np(b.dofs),
+            f"{name}_perm": _np(sc.perm), f"{name}_ids": _np(sc.ids_sorted),
+            f"{name}_rowptr": _np(sc.rowptr), f"{name}_ndofs": int(sc.ndofs),
+            f"{name}_tile_ints": np.asarray(tp[6:])})
+        for f in TilePlan._fields[:6]:
+            out[f"{name}_tile_{f}"] = _np(getattr(tp, f))
+    return out
+
+
+def _block_from_arrays(d, name, device) -> Optional[_Block]:
+    """Block ``name`` of a system's arrays: the stored plans where they
+    are given (this package's cache), else the scatter's row pointers and
+    kernel C's tiles made from the sorted scatter (the JAX package's
+    arrays, ``convert``)."""
+    if f"{name}_A64" not in d:
+        return None
+    A64 = torch.tensor(np.asarray(d[f"{name}_A64"]), dtype=torch.float64,
+                       device=device)
+    dofs = np.asarray(d[f"{name}_dofs"])
+    perm = np.asarray(d[f"{name}_perm"])
+    ids = np.asarray(d[f"{name}_ids"])
+    ndofs = int(d[f"{name}_ndofs"])
+    if f"{name}_rowptr" in d:
+        rowptr = np.asarray(d[f"{name}_rowptr"])
+        tiles = TilePlan(
+            *[_i32(d[f"{name}_tile_{f}"], device)
+              for f in TilePlan._fields[:6]],
+            *[int(v) for v in d[f"{name}_tile_ints"]])
+    else:
+        rowptr = np.searchsorted(ids, np.arange(ndofs + 1))
+        tiles = make_tiles(dofs, perm, rowptr, device)
+    scatter = Scatter(perm=_i32(perm, device), ids_sorted=_i32(ids, device),
+                      rowptr=_i32(rowptr, device), ndofs=ndofs, tiles=tiles)
+    return _Block.of(A64, A64.float(), _i32(dofs, device), scatter)
+
+
+def system_from_arrays(d, space: FunctionSpace, device) -> TransportSystem:
+    """A system from its host arrays on ``device``: ``_system_to_arrays``'
+    (the bands scattered again from the stored plan, as a build scatters
+    them) or the JAX package's ``_system_to_arrays`` (dense ``Kband`` and
+    ``Advband`` given).  Each band gets its ``band_spans``."""
+    device = torch.device(device)
+    K, Adv = _block_from_arrays(d, "K", device), \
+        _block_from_arrays(d, "Adv", device)
+    if "plan_perm" in d:
+        t, r, w, halo = (int(v) for v in d["plan_dims"])
+        plan = BandPlan(perm=np.asarray(d["plan_perm"]),
+                        ids_sorted=np.asarray(d["plan_ids"]), tiles=t,
+                        tile=r, width=w, halo=halo)
+        Kband = band_from_elements(K.A32, plan)
+        Advband = None if Adv is None else band_from_elements(Adv.A32, plan)
+    else:
+        Kband, Advband = (
+            None if d.get(k) is None else torch.tensor(
+                np.asarray(d[k]), dtype=torch.float32, device=device)
+            for k in ("Kband", "Advband"))
+
+    def host(k):
+        v = d.get(k)
+        return None if v is None else np.asarray(v)
+
+    return TransportSystem(
+        K=K, R=_block_from_arrays(d, "R", device), Adv=Adv,
+        free=torch.tensor(np.asarray(d["free"], dtype=bool), device=device),
+        bc_values=torch.tensor(np.asarray(d["bc_values"]),
+                               dtype=torch.float64, device=device),
+        ndofs=int(d["ndofs"]), space=space, Kband=Kband,
+        Kspans=None if Kband is None else band_spans(Kband),
+        perm=host("perm"), iperm=host("iperm"), Advband=Advband,
+        Advspans=None if Advband is None else band_spans(Advband))
+
+
 def build_transport_system(mesh: MeshData, device, element="P2",
                            u_values=None, u_space=None, dirichlet=None,
                            with_robin=True) -> TransportSystem:
@@ -240,8 +363,40 @@ def build_transport_system(mesh: MeshData, device, element="P2",
     of K and Adv on K's plan (Adv has K's dofs), each with its
     ``band_spans``.
 
-    Padding dofs are constrained identity rows with zero right-hand side."""
+    Padding dofs are constrained identity rows with zero right-hand side.
+
+    The result is content-memoised in this process per (inputs, device),
+    and its host arrays are kept in the setup cache (tag ``port-tsys``): a
+    disk hit binds the blocks' kernels and scatters the bands again on
+    ``device`` from the stored plan, and gives the build's tensors bit
+    for bit."""
     device = torch.device(device)
+    key = _system_key(mesh, element, u_values, u_space, dirichlet,
+                      with_robin)
+    memo_key = (key, str(device))
+    hit = _TSYS_MEMO.get(memo_key)
+    if hit is not None:
+        if hit.space.mesh is not mesh:
+            hit = hit._replace(space=FunctionSpace(mesh, element))
+        return hit
+    d = load_arrays(TSYS_TAG, key)
+    if d is not None:
+        return _TSYS_MEMO.put(memo_key, system_from_arrays(
+            d, FunctionSpace(mesh, element), device))
+    count(TSYS_TAG, "miss")
+    sys, plan = _assemble_system(mesh, device, element, u_values, u_space,
+                                 dirichlet, with_robin)
+    if disk_enabled():
+        with timed(TSYS_TAG, "write"):      # the copies to the host
+            arrays = _system_to_arrays(sys, plan)
+        store_arrays(TSYS_TAG, key, arrays)
+    return _TSYS_MEMO.put(memo_key, sys)
+
+
+def _assemble_system(mesh, device, element, u_values, u_space, dirichlet,
+                     with_robin):
+    """(the assembled system, its band plan): ``build_transport_system``'s
+    build on a miss."""
     space = FunctionSpace(mesh, element)
     bottom = mesh.bc_marker == MARKERS["bottom"]
     K_e, K_dofs = stiffness_block(space, device)
@@ -275,7 +430,8 @@ def build_transport_system(mesh: MeshData, device, element="P2",
         bc_values=torch.as_tensor(bc_values[perm], dtype=torch.float64,
                                   device=device),
         ndofs=ndofs, space=space, Kband=Kband, Kspans=band_spans(Kband),
-        perm=perm, iperm=iperm, Adv=Adv, Advband=Advband, Advspans=Advspans)
+        perm=perm, iperm=iperm, Adv=Adv, Advband=Advband,
+        Advspans=Advspans), plan
 
 
 def robin_matrices_for_mu(sys: TransportSystem, mu):

@@ -55,15 +55,16 @@ import torch
 import torch.nn.functional as F
 
 from ..fem.space import FunctionSpace
-from ..meshing.generator import generate_mesh
-from ..ops.band_plans import aligned_transfer_plans
+from ..meshing.generator import MESH_TAG, generate_mesh
+from ..ops.band_plans import RectBandPlan, aligned_transfer_plans
 from ..ops.banded import (band_apply, band_spans, rect_band_apply,
                           rect_band_values)
 from ..ops.elemspmv import make_segment_plan, planned_segment_sum
 from ..fem.assembly import robin_facet_block
 from ..meshing.mesh_data import MARKERS
-from ..parallel.sweep import (TransportSystem, _Block,
+from ..parallel.sweep import (TransportSystem, _Block, _np,
                               build_transport_system, fine_dinv, system_to)
+from ..utils.diskcache import Memo, cache_key_of, cached_arrays, count
 
 __all__ = ["Transfer", "TransferBands", "Level", "MultilevelData",
            "level_meshes_for", "level_velocities", "level_robin_matrices",
@@ -132,18 +133,31 @@ class MultilevelData(NamedTuple):
                               # the columns, and ("Ainv64", B), which does
 
 
+_LEVEL_MESH_MEMO = Memo(MESH_TAG, cap=64)
+
+
 def level_meshes_for(mesh):
     """The fine mesh itself (nested P1 level) followed by coarser meshes of
-    the same geometry at h * LEVEL_FACTORS, capped at LEVEL_CAP * height."""
+    the same geometry at h * LEVEL_FACTORS, capped at LEVEL_CAP * height;
+    each coarser mesh is memoised in this process by its generation
+    arguments (the JAX package's ``_LEVEL_MESH_CACHE``), so a rebuild gets
+    the same MeshData objects."""
     g = mesh.geom
     out = [mesh]
     for f in LEVEL_FACTORS:
-        out.append(generate_mesh(
-            width=g.width, height=g.height, sulcus_depth=g.sulcus_depth,
-            sulcus_width=g.sulcus_width,
-            mesh_size=min(g.mesh_size * f, LEVEL_CAP * g.height),
-            refinement_factor=1, domain_type=mesh.domain_type))
+        kw = dict(width=g.width, height=g.height,
+                  sulcus_depth=g.sulcus_depth, sulcus_width=g.sulcus_width,
+                  mesh_size=min(g.mesh_size * f, LEVEL_CAP * g.height),
+                  refinement_factor=1, domain_type=mesh.domain_type)
+        key = tuple(sorted(kw.items()))
+        m = _LEVEL_MESH_MEMO.get(key)
+        out.append(m if m is not None
+                   else _LEVEL_MESH_MEMO.put(key, generate_mesh(**kw)))
     return out
+
+
+TRANSFER_TAG = "port-mltransfer"
+_INTERP_MEMO = Memo(TRANSFER_TAG, cap=12)   # ~5-15 MB per fine entry
 
 
 def _interp(fine_coords, coarse_mesh, free_fine, n_fine_out, n_coarse_out,
@@ -153,14 +167,44 @@ def _interp(fine_coords, coarse_mesh, free_fine, n_fine_out, n_coarse_out,
     hint_cells: the owning coarse cell of every fine point, known for the
     nested same-mesh level (skips point location).  Rows of constrained
     fine dofs and padding rows get zero weights; columns are mapped into
-    the coarse system's numbering."""
+    the coarse system's numbering.
+
+    Pure in its inputs, so content-memoised in this process and kept in
+    the setup cache (tag ``port-mltransfer``), keyed as the JAX package
+    keys it, and by the hint too (a point on an edge shared by two cells
+    may take either)."""
+    fine_coords = np.asarray(fine_coords)
+    free_np = np.asarray(free_fine)
+    o2n = np.asarray(coarse_old2new)
+    hint = None if hint_cells is None else np.asarray(hint_cells)
+    key = cache_key_of("mltransfer-v1", fine_coords,
+                       np.asarray(coarse_mesh.vertices),
+                       np.asarray(coarse_mesh.cells), free_np,
+                       int(n_fine_out), int(n_coarse_out), o2n, hint)
+    hit = _INTERP_MEMO.get(key)
+    if hit is not None:
+        return hit
+
+    def build():
+        cols, lam = _locate_transfer(fine_coords, coarse_mesh, free_np,
+                                     n_fine_out, o2n, hint)
+        return {"cols": cols, "weights": lam}
+
+    d, _ = cached_arrays(TRANSFER_TAG, key, build)
+    return _INTERP_MEMO.put(key, Transfer(
+        cols=np.asarray(d["cols"], dtype=np.int32),
+        weights=np.asarray(d["weights"], dtype=np.float32),
+        n_coarse=int(n_coarse_out)))
+
+
+def _locate_transfer(fine_coords, coarse_mesh, free_np, n_fine_out, o2n,
+                     hint_cells):
+    """(cols (n_fine_out, 3) int32, weights f32) of ``_interp``."""
     from scipy.spatial import cKDTree
 
     from ..analysis.locate import PointLocator
-    fine_coords = np.asarray(fine_coords)
-    free_np = np.asarray(free_fine)
     if hint_cells is not None:
-        cells = np.asarray(hint_cells)
+        cells = hint_cells
         tri = coarse_mesh.cells[cells]
         v = coarse_mesh.vertices
         a = v[tri[:, 0]]
@@ -191,14 +235,52 @@ def _interp(fine_coords, coarse_mesh, free_fine, n_fine_out, n_coarse_out,
         cols = np.concatenate(
             [cols, np.zeros((n_fine_out - nf, 3), cols.dtype)])
         lam = np.concatenate([lam, np.zeros((n_fine_out - nf, 3))])
-    cols = np.asarray(coarse_old2new)[cols]
-    return Transfer(cols=cols.astype(np.int32),
-                    weights=lam.astype(np.float32),
-                    n_coarse=int(n_coarse_out))
+    return o2n[cols].astype(np.int32), lam.astype(np.float32)
 
 
-def _np(t):
-    return t.detach().cpu().numpy()
+TBANDPLAN_TAG = "port-tbandplan"
+_TBAND_PLAN_MEMO = Memo(TBANDPLAN_TAG, cap=12)
+
+
+def _transfer_plans(cols, weights, n_fine, n_coarse):
+    """``aligned_transfer_plans`` of one transfer, content-memoised in this
+    process and kept in the setup cache (tag ``port-tbandplan``): pure in
+    (cols, weights, sizes), and ~0.05-0.1 s of host argsorts per level."""
+    cols, weights = np.asarray(cols), np.asarray(weights)
+    key = cache_key_of("tbandplan-v1", cols, weights, int(n_fine),
+                       int(n_coarse))
+    hit = _TBAND_PLAN_MEMO.get(key)
+    if hit is not None:
+        return hit or None     # False: a transfer without locality
+
+    def build():
+        plans = aligned_transfer_plans(cols, weights, n_fine, n_coarse)
+        if plans is None:
+            return {"none": np.asarray([1])}
+        p_p, p_r, sig, isig = plans
+        out = {"sig": sig, "isig": isig}
+        for t, pl in (("p", p_p), ("r", p_r)):
+            out.update({f"{t}_offs": pl.offs, f"{t}_ids": pl.ids,
+                        f"{t}_perm": pl.perm, f"{t}_dims": np.asarray(
+                            [pl.tiles, pl.tile, pl.width, pl.n_rows_pad,
+                             pl.n_cols_pad])})
+        return out
+
+    d, _ = cached_arrays(TBANDPLAN_TAG, key, build)
+    if "none" in d:
+        plans = None
+    else:
+        def plan(t):
+            tiles, tile, width, nrp, ncp = (int(v) for v in d[f"{t}_dims"])
+            return RectBandPlan(offs=np.asarray(d[f"{t}_offs"]),
+                                ids=np.asarray(d[f"{t}_ids"]),
+                                perm=np.asarray(d[f"{t}_perm"]), tiles=tiles,
+                                tile=tile, width=width, n_rows_pad=nrp,
+                                n_cols_pad=ncp)
+        plans = (plan("p"), plan("r"), np.asarray(d["sig"]),
+                 np.asarray(d["isig"]))
+    _TBAND_PLAN_MEMO.put(key, plans or False)
+    return plans
 
 
 NS_ITERS = 35                # Newton-Schulz doublings (the JAX package's)
@@ -227,6 +309,12 @@ def newton_schulz_inverse(A, iters=NS_ITERS):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+AINV_TAG = "port-ainv"
+# (B, nc, nc) f32 inverses on the device and their f64 operators on the
+# host, a few MB each (the JAX package's _AINV_DEV_MEMO cap)
+_AINV_MEMO = Memo(AINV_TAG, cap=4)
+
+
 def _coarse_inverses(csys: TransportSystem, D_vec, mu_vec,
                      robin_matrices=None, method="lapack", device="cpu"):
     """(Ainv (B, nc, nc) f32 on ``device``, the operators themselves
@@ -239,9 +327,35 @@ def _coarse_inverses(csys: TransportSystem, D_vec, mu_vec,
     worst max|I - A X| goes into info (read synchronously; above
     NS_DEGRADED a RuntimeWarning says so).
     robin_matrices: (B, F, nd, nd) numpy per-sample Robin matrices on
-    csys.R's facets, in place of mu_b * R."""
+    csys.R's facets, in place of mu_b * R.
+
+    Content-memoised in this process (the JAX package's
+    ``_AINV_DEV_MEMO``): keyed by the coarse blocks, the Robin batch,
+    ``free``, D, mu, the method (and its iterations) and the device; a hit
+    returns the same tensors, which no cycle writes."""
     if method not in ("lapack", "newton_schulz"):
         raise ValueError(f"unknown coarse_inverse {method!r}")
+    blocks = [a for b in (csys.K, csys.Adv, csys.R)
+              for a in ((None, None) if b is None
+                        else (_np(b.A64), _np(b.dofs)))]
+    key = cache_key_of(
+        "ainv-v1", *blocks,
+        None if robin_matrices is None else np.asarray(robin_matrices,
+                                                      np.float64),
+        _np(csys.free), np.asarray(D_vec, np.float64),
+        np.asarray(mu_vec, np.float64), method,
+        NS_ITERS if method == "newton_schulz" else None, str(device))
+    hit = _AINV_MEMO.get(key)
+    if hit is not None:
+        return hit
+    count(AINV_TAG, "miss")
+    return _AINV_MEMO.put(key, _coarse_inverses_of(
+        csys, D_vec, mu_vec, robin_matrices, method, device))
+
+
+def _coarse_inverses_of(csys, D_vec, mu_vec, robin_matrices, method,
+                        device):
+    """``_coarse_inverses``' build on a memo miss."""
     nc = csys.ndofs
 
     def dense_of(block, Ae=None):
@@ -361,8 +475,8 @@ def build_multilevel(sys: TransportSystem, level_meshes, D_values,
              for s, rb in zip([sys] + lsys[:-1], Rb_smooth)]
     levels = []
     for l, tr in enumerate(transfers):
-        plans = aligned_transfer_plans(tr.cols, tr.weights,
-                                       level_sys[l].ndofs, tr.n_coarse)
+        plans = _transfer_plans(tr.cols, tr.weights, level_sys[l].ndofs,
+                                tr.n_coarse)
         if plans is None:
             raise ValueError(f"level {l} transfer has no index locality; "
                              "the windowed-band form does not apply")

@@ -22,12 +22,13 @@ import torch
 from ..analysis.batched_metrics import build_sweep_metrics, metrics_to_dicts
 from ..device import setup
 from ..fem.space import Function
-from ..meshing.generator import generate_mesh
-from ..models.stokes_flow import stokes_solve_mg
+from ..meshing.generator import MESH_TAG, generate_mesh
+from ..models.stokes_flow import stokes_solve
 from ..params import Parameters
 from ..parallel.sweep import (build_transport_system,
                               robin_matrices_for_mu, solve_sweep)
 from ..solvers.multilevel import build_multilevel_for
+from ..utils.diskcache import Memo
 
 __all__ = ["make_no_adv_params", "make_mesh", "sweep_mus", "no_adv_batch",
            "stokes_for_study", "transport_batch",
@@ -50,11 +51,21 @@ def make_no_adv_params(mu_factor=1.0, sulci_w_dim=None, sulci_h_dim=None,
     return p
 
 
+_MESH_MEMO = Memo(MESH_TAG, cap=64)
+
+
 def make_mesh(geom_params: Parameters, domain_type: str = "sulcus"):
     """The study mesh of one geometry (the shared host mesher, as
-    ``simulation.get_mesh`` builds it)."""
-    return generate_mesh(domain_type=domain_type,
-                         **geom_params.get_mesh_generator_params())
+    ``simulation.get_mesh`` builds it), memoised in this process by its
+    generation arguments as ``get_mesh`` memoises it: a study that comes
+    back to a geometry gets the same MeshData, and with it the memoised
+    systems built on it."""
+    kw = dict(domain_type=domain_type,
+              **geom_params.get_mesh_generator_params())
+    key = tuple(sorted(kw.items()))
+    mesh = _MESH_MEMO.get(key)
+    return mesh if mesh is not None else _MESH_MEMO.put(
+        key, generate_mesh(**kw))
 
 
 def sweep_mus(geom_params: Parameters, mu_factors: List[float]):
@@ -179,10 +190,11 @@ def no_adv_batch(geom_params: Parameters, mu_factors: List[float],
 
 def stokes_for_study(mesh, H, device, **cycle_options):
     """The study's Stokes field (u, p) on ``device``, solved as the JAX
-    package's ``stokes_solve`` does (MINRES + MG, outer rtol 1e-9); the
-    solver report, with its setup and solve seconds, is ``u.solver_info``.
-    ``cycle_options``: the velocity hierarchy's (``stokes_setup``)."""
-    return stokes_solve_mg(mesh, H, setup(device), **cycle_options)
+    package's ``stokes_solve`` does (MINRES + MG, outer rtol 1e-9, the
+    field kept in the setup cache); the solver report, with its setup and
+    solve seconds, is ``u.solver_info``.  ``cycle_options``: the velocity
+    hierarchy's (``stokes_setup``)."""
+    return stokes_solve(mesh, H, setup(device), **cycle_options)
 
 
 def transport_batch(mesh, u, D_batch, mu_batch, device, rtol=1e-12,

@@ -5,9 +5,13 @@ Per mesh ONE Stokes solve feeds every Pe (the nondimensional velocity is
 Pe-independent), and the Pe transport solves (mu = 0, D* = 1/Pe per column)
 are ONE batched BiCGStab.  Writes ``geometry_comparison_results.csv`` with
 the JAX package's columns in its order (sulcus rows, rectangle rows, then
-the ratio columns joined against the rectangle of the same Pe) and
-``study_metadata.json``.  No pandas: the grouping and the ratio join are
-plain Python.  The profile CSVs and the plots are not ported yet.
+the ratio columns joined against the rectangle of the same Pe),
+``study_metadata.json`` and, for the geometries of ``PROFILE_GEOMETRIES``,
+the line profiles of every Pe with the rectangle's overlaid:
+``Profiles/profiles_samples_<geometry>.csv`` (one row per sample point) and
+``Profiles/profiles_<geometry>.csv`` (min, max and mean per line), with the
+JAX package's names, columns and row order.  No pandas: the grouping and
+the ratio join are plain Python.  The plots are not ported yet.
 
     python -m fenics_eff_uptake_tpu_torch.studies.no_uptake \\
         [--geometries reference,square_small] [--peclet 0.1,1,10] \\
@@ -23,16 +27,20 @@ import time
 import numpy as np
 
 from ..analysis.batched_metrics import build_sweep_metrics, metrics_to_dicts
-from ..analysis.profiles import compute_velocity_metrics
+from ..analysis.profiles import compute_conc_profiles, compute_velocity_metrics
+from ..fem.space import Function
 from ..params import Parameters, create_geometry_variations
 from .common import (_sync, create_study_dir, make_mesh, save_csv,
                      save_metadata, stokes_for_study, transport_batch)
 
 __all__ = ["run_geometry_study", "run_rectangular_baselines",
-           "add_ratio_metrics", "PECLET_NUMBERS", "RATIO_COLUMNS",
+           "add_ratio_metrics", "collect_profile_rows",
+           "export_profile_samples_csv_sulci", "export_profile_stats_csv",
+           "PECLET_NUMBERS", "PROFILE_GEOMETRIES", "RATIO_COLUMNS",
            "BASE_DIR"]
 
 PECLET_NUMBERS = [0.1, 1.0, 10.0]
+PROFILE_GEOMETRIES = ["largest", "square_small"]
 BASE_DIR = "Results/No Uptake Simulations"
 RATIO_COLUMNS = ["Concentration_Ratio", "Channel_Conc_Ratio",
                  "Intradomain_Enrichment", "VR_mid_avg", "VR_mid_max",
@@ -121,9 +129,13 @@ def _rect_row(params, mm, fm, vm):
 
 
 def _domain_runs(params_list, domain_type, device, verbose,
-                 solver_options=None, stokes_options=None):
+                 solver_options=None, stokes_options=None,
+                 profile_key=None):
     """Stokes + batched transport + metrics on one domain for all Pe of
-    ``params_list`` (one geometry).  Returns (rows, stats)."""
+    ``params_list`` (one geometry).  With ``profile_key``, also the line
+    profiles of every Pe column, labelled with that key
+    (``collect_profile_rows``).  Returns (rows, stats, profile rows, one
+    list per Pe; None without ``profile_key``)."""
     t0 = time.time()
     p0 = params_list[0]
     mesh = make_mesh(p0, domain_type)
@@ -144,15 +156,24 @@ def _domain_runs(params_list, domain_type, device, verbose,
     rows = [make_row(p, mm, fm, vm)
             for p, mm, fm in zip(params_list, mass_list, flux_list)]
     t_end = _sync(X.device)
+    profiles = None
+    if profile_key is not None:
+        Xh = X.cpu().numpy()
+        profiles = [collect_profile_rows(
+            Function(sys.space, Xh[i]), mesh, p, profile_key, profile_key,
+            domain_type=domain_type) for i, p in enumerate(params_list)]
+    t_prof = time.time()
     stats = {
         "domain": domain_type, "cells": int(mesh.num_cells),
         "ndofs": int(sys.space.ndofs), "mesh_s": t_mesh - t0,
         "stokes_setup_s": si["setup_s"], "stokes_solve_s": si["solve_s"],
         "stokes_s": t_stokes - t_mesh, "assembly_s": ts["assembly_s"],
         "ml_setup_s": ts["ml_setup_s"], "solve_s": ts["solve_s"],
-        "metrics_s": t_end - t_solve, "total_s": t_end - t0,
+        "metrics_s": t_end - t_solve, "profiles_s": t_prof - t_end,
+        "total_s": t_end - t0,
         "minres_iters": si["outer_iters"], "minres_passes": si["passes"],
         "stokes_rel_resnorm": si["rel_resnorm"],
+        "stokes_method": si["method"],
         "iters": info["iters"].tolist(), "passes": info.get("passes"),
         "rel_resnorm": info["true_rel_resnorm"].tolist(),
         "multilevel": ts["multilevel"],
@@ -164,19 +185,96 @@ def _domain_runs(params_list, domain_type, device, verbose,
               f"{stats['total_s']:.2f}s "
               f"(MINRES {si['outer_iters']} iters / {si['passes']} passes, "
               f"BiCGStab iters={stats['iters']}, passes={info.get('passes')})")
-    return rows, stats
+    return rows, stats, profiles
 
 
 def run_rectangular_baselines(peclet_numbers=None, mesh_size_dim=None,
                               device="cuda", verbose=True,
-                              solver_options=None, stokes_options=None):
+                              solver_options=None, stokes_options=None,
+                              collect_profiles=False):
     """The rectangle's rows for every Pe: one Stokes solve, one batched
-    transport solve.  Returns (rows, stats)."""
+    transport solve.  Returns (rows, stats); with ``collect_profiles``,
+    (rows, stats, the rectangle's profile rows of every Pe), the overlay
+    of the profile CSVs."""
     pes = list(peclet_numbers or PECLET_NUMBERS)
     params_list = [_make_params(pe, mesh_size_dim=mesh_size_dim)
                    for pe in pes]
-    return _domain_runs(params_list, "rectangular", device, verbose,
-                        solver_options, stokes_options)
+    rows, stats, profiles = _domain_runs(
+        params_list, "rectangular", device, verbose, solver_options,
+        stokes_options, "rectangle" if collect_profiles else None)
+    if collect_profiles:
+        return rows, stats, [r for rs in profiles for r in rs]
+    return rows, stats
+
+
+def collect_profile_rows(c, mesh, params, geometry_key, config_name,
+                         domain_type="sulcus"):
+    """One row per sample point of ``compute_conc_profiles``' lines: the
+    horizontal lines first, then the vertical ones, each point in order."""
+    prof = compute_conc_profiles(c, mesh, params, domain_type)
+    meta = prof["profiles_meta"]
+    x_rng, y_rng = meta.get("x_range"), meta.get("y_range")
+    rows = []
+    for ltype, coord_key in (("horizontal", "x"), ("vertical", "y")):
+        for name, payload in prof["profiles_full"][ltype].items():
+            fixed = payload["y" if ltype == "horizontal" else "x"]
+            for i, (cc, vv) in enumerate(zip(payload[coord_key],
+                                             payload["c"])):
+                rows.append({
+                    "Domain": domain_type, "Geometry": geometry_key,
+                    "Config": config_name, "Peclet": params.Pe,
+                    "LineType": ltype, "LineName": name, "Index": i,
+                    "x": cc if ltype == "horizontal" else fixed,
+                    "y": fixed if ltype == "horizontal" else cc,
+                    "c": vv, "n_points": meta.get("n_points"),
+                    "x_min": None if x_rng is None else x_rng[0],
+                    "x_max": None if x_rng is None else x_rng[1],
+                    "y_min": None if y_rng is None else y_rng[0],
+                    "y_max": None if y_rng is None else y_rng[1],
+                })
+    return rows
+
+
+def _by_geometry(profile_runs):
+    out = {}
+    for run in profile_runs:
+        out.setdefault(run["geometry"], []).append(run["rows"])
+    return out
+
+
+def export_profile_samples_csv_sulci(profile_runs, out_dir):
+    """``profiles_samples_<geometry>.csv`` per geometry: the rows of its
+    runs in order.  ``profile_runs``: dicts of ``geometry`` and ``rows``
+    (``collect_profile_rows``)."""
+    for gkey, runs in _by_geometry(profile_runs).items():
+        save_csv([r for rows in runs for r in rows],
+                 os.path.join(out_dir, f"profiles_samples_{gkey}.csv"))
+
+
+def export_profile_stats_csv(profile_runs, out_dir):
+    """``profiles_<geometry>.csv`` per geometry: per run, one row per
+    (line type, line, Pe) in that sorted order, with the line's place and
+    the min, max and mean of its samples."""
+    for gkey, runs in _by_geometry(profile_runs).items():
+        out = []
+        for rows in runs:
+            groups = {}
+            for r in rows:
+                groups.setdefault((r["LineType"], r["LineName"],
+                                   r["Peclet"]), []).append(r)
+            for (ltype, name, pe) in sorted(groups):
+                sub = groups[ltype, name, pe]
+                c = np.array([r["c"] for r in sub], dtype=np.float64)
+                horiz = ltype == "horizontal"
+                out.append({
+                    "Geometry": gkey, "Peclet": pe, "line_type": ltype,
+                    "name": name,
+                    "x": None if horiz else float(sub[0]["x"]),
+                    "y": float(sub[0]["y"]) if horiz else None,
+                    "min_c": float(c.min()), "max_c": float(c.max()),
+                    "avg_c": float(c.mean()), "n_samples": len(sub)})
+        if out:
+            save_csv(out, os.path.join(out_dir, f"profiles_{gkey}.csv"))
 
 
 def _div(a, b):
@@ -236,22 +334,33 @@ def run_geometry_study(geometries=None, peclet_numbers=None,
                                          max_width=1.0)
     if geometries is not None:
         configs = {k: v for k, v in configs.items() if k in geometries}
-    rows, stats = [], []
+    rows, stats, profile_runs = [], [], []
     for gkey, gcfg in configs.items():
         params_list = [_make_params(pe, gcfg["sulci_w_dim"],
                                     gcfg["sulci_h_dim"], mesh_size_dim)
                        for pe in pes]
-        r, st = _domain_runs(params_list, "sulcus", device, verbose,
-                             solver_options, stokes_options)
+        r, st, prof = _domain_runs(
+            params_list, "sulcus", device, verbose, solver_options,
+            stokes_options, gkey if gkey in PROFILE_GEOMETRIES else None)
         rows += r
         stats.append(dict(st, geometry=gkey))
-    r, st = run_rectangular_baselines(pes, mesh_size_dim, device, verbose,
-                                      solver_options, stokes_options)
+        profile_runs += [{"geometry": gkey, "rows": p} for p in prof or []]
+    rect = run_rectangular_baselines(pes, mesh_size_dim, device, verbose,
+                                     solver_options, stokes_options,
+                                     collect_profiles=bool(profile_runs))
+    r, st = rect[:2]
     rows += r
     stats.append(dict(st, geometry="rectangle"))
+    # the rectangle's curves overlay every profile geometry's samples
+    for gkey in dict.fromkeys(run["geometry"] for run in profile_runs):
+        profile_runs.append({"geometry": gkey, "rows": rect[2]})
     add_ratio_metrics(rows)
     save_csv(rows, os.path.join(study_dir,
                                 "geometry_comparison_results.csv"))
+    if profile_runs:
+        prof_dir = os.path.join(study_dir, "Profiles")
+        export_profile_samples_csv_sulci(profile_runs, prof_dir)
+        export_profile_stats_csv(profile_runs, prof_dir)
     save_metadata({
         "study_type": "No-Uptake Geometry Comparison",
         "peclet_numbers": pes, "n_geometries": len(configs),
