@@ -55,7 +55,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    form on the fine Robin block at B = 20, on the fine and mid Robin
    blocks at B = 3, and in the per-sample form at B = 9: each bf16 form
    at the largest shapes and at both batch widths at which the configs
-   phase launches it.  Bounds count 2-byte bands and X;
+   phase launches it.  At B = 1, the per-run models' width: A on the
+   mu sweep's fine K band (with and without coef), on its mid band and on
+   the rectangle's advection band; B on the fine restriction and
+   prolongation; C in f64 on K (full) and on the Robin block (out=), and
+   the per-sample f64 Robin block of one column (out=).
+   Bounds count 2-byte bands and X;
    the library calls are the cuBLAS bmm on bf16 windows (f32 output where
    the kernel's is) and, for C, the f32 cuSPARSE call on upcast operands.
    Tolerances: an f32 output within 1e-5 of the row's sum of |terms|; a
@@ -144,7 +149,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and CSV rows are bit-equal across the four runs and that the warm runs
    hit (disk hits in (b) and (c), memo hits in (d)) and missed nothing.
 
-Every study phase (4-7, 9) starts on an empty cache directory of its own
+11. per_run: ``simulation.run_simulation`` at h = 0.02 in its three
+   modes, each run twice (cold, then memo-warm, its timings printed):
+   no-adv on the mu sweep's sulcus for three rows of
+   examples/phase_a_tpu_h0.02 (Mu_Eff_Simulation, Mu_Eff_Opening,
+   Total_Mass, Mouth_Flux_Total within 1e-6 relative; CG <= 40), no-uptake
+   on the reference geometry at Pe = 1 against its row of
+   examples/no_uptake_tpu_h0.02 (the phase-5 gates; BiCGStab within the
+   Pe = 1 bound), adv-diff there at Pe = 1, mu factor 1 against the port's
+   batched path on the same mesh, velocity and coefficients (1e-9
+   relative); every transport residual <= 1e-11, the warm run's c equal
+   to the cold's; kernels A, B and C (full and out=) launched by the three
+   modes at B = 1.  Then GMRES (``advdiff_solve(solver="auto")``, Pe = 40,
+   the 16 x 8 rectangle) against BiCGStab (1e-8) with its true residual
+   <= 1e-13, and the Stokes options on the 5 x 1 sulcus at h = 0.15: the
+   Schur fallback (f64) against MINRES + MG (u 1e-8, p 1e-6),
+   the outlet pin (p 1e-5 of max |p|, u 1e-5), and f64 against mixed
+   MINRES at h = 0.05 on the reference geometry (u 1e-8, p 1e-6 of max
+   |p|).
+
+Every study phase (4-7, 9, 11) starts on an empty cache directory of its own
 with the memos emptied, so its first run is cold and its steady run warm;
 the directories lie under a fresh build/cache/run-* of this run, removed
 at its end.
@@ -774,6 +798,34 @@ def phase_kernels(dev):
     out["element_apply bf16"] = [element_case(
         "R", sys_.R.with_bf16(), rnd(sys_.ndofs, bf16), coef32.to(bf16),
         1e-5, "out")]
+    # B = 1, the per-run models' width (run_simulation): A on the fine K
+    # band with and without coef and on the mid band, B on the fine
+    # transfers, C on f64 K (full) and the f64 Robin block (out=); the
+    # same tolerances as at B = 20
+    coef1 = torch.rand(1, generator=g, device=dev) + 0.5
+
+    def rnd1(n, dtype):
+        return torch.rand((n, 1), generator=g, device=dev,
+                          dtype=dtype) * 2 - 1
+
+    for label, s, coef in (("fine", sys_, coef1), ("fine", sys_, None),
+                           ("mid", ml.levels[1].sys, coef1)):
+        band = s.Kband
+        out["band_apply"].append(band_case(
+            f"A {label} band {tuple(band.shape)} B=1"
+            + ("" if coef is not None else " no coef"), band, s.Kspans,
+            rnd1(band.shape[0] * band.shape[1], torch.float32), coef))
+    for label, band, offs, spans, rows in (
+            ("restrict", tb.r, tb.ro, tb.rs, tb.pad_r),
+            ("prolong", tb.p, tb.po, tb.ps, tb.pad_p)):
+        out["rect_band_apply"].append(rect_case(
+            f"B fine {label} {tuple(band.shape)} B=1", band, offs, spans,
+            rnd1(rows, torch.float32)))
+    for label, blk, form in (("f64 K", sys_.K, "full"),
+                             ("f64 R", sys_.R, "out")):
+        out["element_apply"].append(element_case(
+            label, blk, rnd1(blk.ndofs, torch.float64),
+            coef1.to(torch.float64), 1e-12, form))
     del sys_, ml
     torch.cuda.empty_cache()
     return out
@@ -928,10 +980,10 @@ def phase_kernels_advdiff(dev):
     rectangle at h = 0.02, B = 9): the fine Robin batch in f64 (the true
     residuals'; out= and full) and in f32 (every inner apply and fine
     smoothing), and both mid levels' batches in f32 (their smoothing).
-    f64 1e-12, f32 2e-5 (summation order), as C's other cases.  Then the
-    fine batch in bf16, and kernel A in f32 on the rectangle's fine
-    advection band at B = 9.  Returns (per-sample cases, A's case, C's
-    bf16 case)."""
+    f64 1e-12, f32 2e-5 (summation order), as C's other cases; the fine
+    block of one column (B = 1) in f64 out=.  Then the fine batch in bf16,
+    and kernel A in f32 on the rectangle's fine advection band at B = 9
+    and B = 1.  Returns (per-sample cases, A's cases, C's bf16 case)."""
     import torch
     sys_, ml, Rb, D = rect_step_setup(dev)
     B = len(D)
@@ -952,15 +1004,21 @@ def phase_kernels_advdiff(dev):
              "out")):
         cases.append(element_case(label, blk, rnd(blk.ndofs, dtype), None,
                                   rtol, form))
+    # B = 1: one run with a callable mu (its per-sample Robin block, f64
+    # out=, the true residuals')
+    one = sys_.R.per_sample(Rb[:1])
+    X1 = rnd(one.ndofs, torch.float64)[:, :1].contiguous()
+    cases.append(element_case("f64 R B=1", one, X1, None, 1e-12, "out"))
     c16 = element_case("R", fine.with_bf16(),
                        rnd(fine.ndofs, torch.bfloat16), None, 1e-5, "out")
     band = sys_.Advband
-    a9 = band_case(f"A rectangle Adv band {tuple(band.shape)} B={B}", band,
-                   sys_.Advspans,
-                   rnd(band.shape[0] * band.shape[1], torch.float32), None)
+    X = rnd(band.shape[0] * band.shape[1], torch.float32)
+    a_cases = [band_case(f"A rectangle Adv band {tuple(band.shape)} B={nb}",
+                         band, sys_.Advspans, X[:, :nb].contiguous(), None)
+               for nb in (B, 1)]
     del sys_, ml, Rb
     torch.cuda.empty_cache()
-    return cases, a9, c16
+    return cases, a_cases, c16
 
 
 def _csv_rows(path):
@@ -1422,6 +1480,238 @@ def phase_adv_diff(dev):
     if rows2 != rows:
         raise AssertionError("steady run's rows differ from the first's")
     return launches, stats, stats2, worst
+
+
+PER_RUN_CONFIGS = ("small_uptake_mu_0.1x", "small_uptake_mu_1.0x",
+                   "high_uptake_mu_150.0x")
+# the no-uptake row of the reference geometry at Pe = 1 in the artifact
+PER_RUN_NU_KEY = ("sulcus", 0.5, 1.0, 1.0)
+PER_RUN_STAGES = ("mesh", "stokes", "transport", "metrics", "mu_eff",
+                  "mesh_io")
+
+
+def _per_run_timings(tag, res):
+    t = res["timings"]
+    print(f"[per_run] {tag}: " + " ".join(
+        f"{k} {t[k]:.3f}s" for k in PER_RUN_STAGES if k in t)
+        + f" total {sum(t.values()):.3f}s; solve {res['c'].solver_info}",
+        flush=True)
+    return {k: t.get(k) for k in PER_RUN_STAGES}
+
+
+def _rel_walk(a, b, path=""):
+    """Worst relative difference of two metric dicts of one key tree."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{path}: keys {set(a) ^ set(b)}")
+        return max([0.0] + [_rel_walk(a[k], b[k], f"{path}/{k}")
+                            for k in a])
+    if a is None or b is None:
+        if (a is None) != (b is None):
+            raise AssertionError(f"{path}: {a} vs {b}")
+        return 0.0
+    a, b = float(a), float(b)
+    if np.isnan(b):
+        return 0.0 if np.isnan(a) else float("inf")
+    return abs(a - b) / max(abs(b), 1e-300) if b != 0 else abs(a)
+
+
+def phase_per_run(dev):
+    """The per-run API at h = 0.02: run_simulation in its three modes
+    (no-adv on three rows of the mu sweep, no-uptake and adv-diff on the
+    reference geometry at Pe = 1), each cold and memo-warm, held against
+    the artifacts and the port's batched path; then GMRES at Pe = 40 and
+    the Stokes options (Schur, the outlet pin, f64 MINRES)."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.analysis.batched_metrics import (
+        build_sweep_metrics, metrics_to_dicts)
+    from fenics_eff_uptake_tpu_torch.meshing.generator import (
+        generate_mesh, structured_rectangle)
+    from fenics_eff_uptake_tpu_torch.models.advdiff import advdiff_solve
+    from fenics_eff_uptake_tpu_torch.models.stokes_flow import (
+        stokes_solve, stokes_solve_mg, stokes_solve_schur)
+    from fenics_eff_uptake_tpu_torch.simulation import run_simulation
+    from fenics_eff_uptake_tpu_torch.studies.adv_diff import (
+        create_base_parameters)
+    from fenics_eff_uptake_tpu_torch.studies.common import (
+        make_mesh, make_no_adv_params, transport_batch)
+    from fenics_eff_uptake_tpu_torch.studies.no_uptake import (
+        _make_params, _sulcus_row)
+    from fenics_eff_uptake_tpu_torch.studies.phase_a import _mu_eff_columns
+
+    fresh_cache("per_run")
+    root = OUT_DIR / "per_run"
+    golden = {r["Config"]: r for r in _csv_rows(GOLDEN_CSV)}
+    factors = {c: float(golden[c]["Mu_Factor"]) for c in PER_RUN_CONFIGS}
+    nu_params = _make_params(1.0, *NU_GEOMETRIES["reference"], 0.02)
+    ad_params = create_base_parameters(1.0, 1.0, 0.02)
+    stats = {"timings": {}, "solver": {}}
+
+    def runs(tag):
+        out = {}
+        for cfg in PER_RUN_CONFIGS:
+            p = make_no_adv_params(factors[cfg], sulci_w_dim=0.25,
+                                   sulci_h_dim=0.25, mesh_size_dim=0.02)
+            out[cfg] = run_simulation("no-adv", "Phase A", cfg, "sulcus",
+                                      p, device=dev, verbose=False,
+                                      results_root=str(root / tag))
+        out["no-uptake"] = run_simulation(
+            "no-uptake", "Geometry", "reference_pe1", "sulcus", nu_params,
+            device=dev, verbose=False, results_root=str(root / tag))
+        out["adv-diff"] = run_simulation(
+            "adv-diff", "Validation", "sulcus_pe1_mu1", "sulcus", ad_params,
+            device=dev, verbose=False, results_root=str(root / tag))
+        for name, res in out.items():
+            stats["timings"][f"{tag} {name}"] = _per_run_timings(
+                f"{tag} {name}", res)
+        return out
+
+    zero_launches()
+    cold = runs("cold")
+    launches = read_launches()
+    print(f"[per_run] launches of the three modes (cold): {launches}",
+          flush=True)
+    warm = runs("warm")
+    missing = never_launched(launches)
+    if missing:
+        raise AssertionError(f"kernels never launched by the per-run "
+                             f"path: {missing}")
+
+    # gates: residuals and counts, then the artifacts' rows
+    for name, res in cold.items():
+        info = res["c"].solver_info
+        stats["solver"][name] = info
+        if not (info["converged"] and info["rel_resnorm"] <= 1e-11):
+            raise AssertionError(f"{name}: transport {info}")
+        if not info["multilevel"]:
+            raise AssertionError(f"{name}: no multigrid")
+        if res is cold["no-uptake"] and not info["iters"] <= \
+                BICGSTAB_BOUND[PECLET.index(1.0)]:
+            raise AssertionError(f"no-uptake BiCGStab {info['iters']} > "
+                                 f"{BICGSTAB_BOUND[PECLET.index(1.0)]}")
+        if name in PER_RUN_CONFIGS and not info["iters"] <= CG_BOUND:
+            raise AssertionError(f"{name}: CG {info['iters']} > {CG_BOUND}")
+        if not torch.equal(torch.as_tensor(warm[name]["c"].values),
+                           torch.as_tensor(res["c"].values)):
+            raise AssertionError(f"{name}: the memo-warm run's c differs")
+    worst = _worst("per_run no-adv",
+                   {c: _mu_eff_columns(cold[c]) for c in PER_RUN_CONFIGS},
+                   {c: golden[c] for c in PER_RUN_CONFIGS},
+                   ("Mu_Eff_Simulation", "Mu_Eff_Opening", "Total_Mass",
+                    "Mouth_Flux_Total"))
+    nu = cold["no-uptake"]
+    row = _sulcus_row(nu_params, nu["mass_metrics"], nu["flux_metrics"],
+                      nu["vel_metrics"])
+    nu_golden = {_nu_key(r): r for r in _csv_rows(GOLDEN_NU_CSV)}
+    key = _nu_key(row)
+    if key != PER_RUN_NU_KEY:
+        raise AssertionError(f"no-uptake row key {key}")
+    q_in = abs(float(nu_golden[key]["Mouth Q_in"]))
+    worst.update(_worst(
+        "per_run no-uptake", {key: row}, {key: nu_golden[key]},
+        tuple(c for c in NU_REL_COLUMNS if c in row),
+        {c: (lambda gr: q_in) for c in NU_NET_COLUMNS}))
+
+    # adv-diff against the port's batched path on the same mesh, velocity
+    # and coefficients (B = 1, batched metrics)
+    ad = cold["adv-diff"]
+    mesh = make_mesh(ad_params, "sulcus")
+    X, info, sys_, _ = transport_batch(mesh, ad["u"], [ad_params.D],
+                                       [ad_params.mu], dev, rtol=1e-13)
+    sm = build_sweep_metrics(sys_.space, mesh, ad_params.D, dev, u=ad["u"])
+    fl, ml_, me = metrics_to_dicts(sm, mesh, X, [ad_params.mu], [ad_params])
+    ad_err = {"flux": _rel_walk(ad["flux_metrics"], fl[0]),
+              "mass": _rel_walk(ad["mass_metrics"], ml_[0]),
+              "mu_eff": _rel_walk(ad["mu_eff_comparison"], me[0])}
+    print(f"[per_run] adv-diff against the batched path: worst rel diff "
+          f"{ad_err} (tol 1e-9)", flush=True)
+    if not max(ad_err.values()) <= 1e-9:
+        raise AssertionError(f"adv-diff off the batched path: {ad_err}")
+    worst["adv_diff_vs_batched"] = ad_err
+
+    # GMRES at Pe = 40 (the JAX test's case), against BiCGStab
+    md = structured_rectangle(2.0, 1.0, 16, 8)
+    u, _ = stokes_solve(md, 1.0, dev)
+    t0 = time.time()
+    c_g = advdiff_solve(md, u, dev, D=1.0 / 40.0, mu=1.0, solver="auto")
+    torch.cuda.synchronize()
+    t_g = time.time() - t0
+    c_b = advdiff_solve(md, u, dev, D=1.0 / 40.0, mu=1.0, solver=None)
+    gi = c_g.solver_info
+    d_gb = float((c_g.values - c_b.values).abs().max())
+    print(f"[per_run] GMRES at Pe = 40: {gi['iters']} iterations in "
+          f"{t_g:.3f}s, true rel residual {gi['rel_resnorm']:.3e}; "
+          f"|c_gmres - c_bicgstab| {d_gb:.3e} (tol 1e-8; BiCGStab "
+          f"{c_b.solver_info['iters']} iterations)", flush=True)
+    if gi.get("method") != "gmres" or not gi["converged"]:
+        raise AssertionError(f"GMRES: {gi}")
+    if not (d_gb < 1e-8 and gi["rel_resnorm"] <= 1e-13):
+        raise AssertionError(f"GMRES off: diff {d_gb}, {gi}")
+    stats["gmres"] = {"iters": gi["iters"], "seconds": t_g,
+                      "rel_resnorm": gi["rel_resnorm"], "diff": d_gb}
+
+    # the Stokes options on the JAX test's sulcus mesh, then f64 MINRES
+    # at h = 0.05 on the reference geometry
+    smesh = generate_mesh(width=5.0, height=1.0, sulcus_depth=0.3,
+                          sulcus_width=0.3, mesh_size=0.15,
+                          refinement_factor=1, domain_type="sulcus")
+    so = {}
+    t0 = time.time()
+    u1, p1 = stokes_solve_mg(smesh, 1.0, dev, rtol=1e-11)
+    # the Schur path in f64 (its mixed form, 6x the inner iterations and
+    # 17-30 s here, is held to MG by the card's tests:
+    # test_stokes_schur_mixed_on_card_matches_mg)
+    t1 = time.time()
+    u0, p0 = stokes_solve_schur(smesh, 1.0, dev, precision="f64")
+    du = float(np.abs(u0.values - u1.values).max())
+    dp = float(np.abs(p0.values - p1.values).max())
+    i0 = u0.solver_info
+    print(f"[per_run] Stokes Schur f64 against MG: du {du:.3e} (tol 1e-8) "
+          f"dp {dp:.3e} (tol 1e-6); outer {i0['outer_iters']} inner "
+          f"{i0['inner_iters']} in {time.time() - t1:.3f}s", flush=True)
+    if not (i0["converged"] and du < 1e-8 and dp < 1e-6):
+        raise AssertionError(f"Stokes Schur: du {du} dp {dp} {i0}")
+    so["schur f64"] = {"du": du, "dp": dp, "outer": i0["outer_iters"],
+                       "inner": i0["inner_iters"], "s": time.time() - t1}
+    u2, p2 = stokes_solve_mg(smesh, 1.0, dev, rtol=1e-11,
+                             pin_outlet_pressure=True)
+    scale = float(np.abs(p1.values).max())
+    dp = float(np.abs(p2.values - p1.values).max()) / scale
+    du = float(np.abs(u2.values - u1.values).max())
+    print(f"[per_run] Stokes outlet pin: dp / max|p| {dp:.3e} du {du:.3e} "
+          "(tol 1e-5 each)", flush=True)
+    if not (dp < 1e-5 and du < 1e-5):
+        raise AssertionError(f"Stokes pin: dp {dp} du {du}")
+    so["pin"] = {"dp_rel": dp, "du": du}
+    rmesh = make_mesh(_make_params(1.0, *NU_GEOMETRIES["reference"], 0.05),
+                      "sulcus")
+    res = {}
+    for prec in ("mixed", "f64"):
+        t1 = time.time()
+        res[prec] = stokes_solve_mg(rmesh, 1.0, dev, rtol=1e-11,
+                                    precision=prec)
+        info = res[prec][0].solver_info
+        print(f"[per_run] Stokes MG {prec} at h = 0.05: MINRES "
+              f"{info['outer_iters']} in {info['passes']} passes, rel "
+              f"residual {info['rel_resnorm']:.3e}, {time.time() - t1:.3f}s",
+              flush=True)
+        if not info["converged"]:
+            raise AssertionError(f"Stokes {prec}: {info}")
+        so[f"mg {prec}"] = {"iters": info["outer_iters"],
+                            "rel_resnorm": info["rel_resnorm"],
+                            "s": time.time() - t1}
+    (um, pm), (uf, pf) = res["mixed"], res["f64"]
+    du = float(np.abs(uf.values - um.values).max())
+    dp = float(np.abs(pf.values - pm.values).max()
+               / np.abs(pm.values).max())
+    print(f"[per_run] Stokes f64 against mixed: du {du:.3e} (tol 1e-8) "
+          f"dp / max|p| {dp:.3e} (tol 1e-6); options in "
+          f"{time.time() - t0:.1f}s", flush=True)
+    if not (du < 1e-8 and dp < 1e-6):
+        raise AssertionError(f"Stokes f64 vs mixed: du {du} dp {dp}")
+    so["f64 vs mixed"] = {"du": du, "dp_rel": dp}
+    stats["stokes_options"] = so
+    return launches, stats, worst
 
 
 def phase_no_adv_studies(dev):
@@ -2216,9 +2506,9 @@ def _main(args, card, t_start):
     cases = timed("kernels", phase_kernels)
     for name, cs in timed("kernels_flow", phase_kernels_flow).items():
         cases[name] += cs
-    cases[PER_SAMPLE], a9, c16 = timed("kernels_advdiff",
-                                       phase_kernels_advdiff)
-    cases["band_apply"].append(a9)
+    cases[PER_SAMPLE], a_cases, c16 = timed("kernels_advdiff",
+                                            phase_kernels_advdiff)
+    cases["band_apply"] += a_cases
     cases["element_apply bf16"].append(c16)
     launches, stats, stats2, worst = timed("slice", phase_slice)
     nu_launches, nu_stats, nu_stats2, nu_worst = timed("no_uptake",
@@ -2231,6 +2521,7 @@ def _main(args, card, t_start):
         "mesh_convergence", phase_mesh_convergence)
     sc_launches, sc_recs = timed("setup_cache", phase_setup_cache)
     cfg_rows, cfg_launches = timed("configs", phase_configs)
+    pr_launches, pr_stats, pr_worst = timed("per_run", phase_per_run)
     if args.profile:
         phase_profile(dev)
 
@@ -2251,7 +2542,7 @@ def _main(args, card, t_start):
     by_path = {"mu_sweep": launches, "no_uptake": nu_launches,
                "adv_diff": ad_launches, "no_adv_studies": na_launches,
                "mesh_convergence": mc_launches, "setup_cache": sc_launches,
-               "configs": cfg_launches}
+               "configs": cfg_launches, "per_run": pr_launches}
     unlaunched = [n for n in meta if sum(p[n] for p in by_path.values()) <= 0]
     if unlaunched:
         raise AssertionError(f"kernels no path launched: {unlaunched}")
@@ -2287,7 +2578,8 @@ def _main(args, card, t_start):
                "mesh_convergence_golden_worst": mc_worst,
                "mesh_convergence_metadata": mc_meta,
                "setup_cache": sc_recs,
-               "configs": cfg_rows, "phase_s": phase_s,
+               "configs": cfg_rows, "per_run": pr_stats,
+               "per_run_worst": pr_worst, "phase_s": phase_s,
                "wall_s": time.time() - t_start}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))

@@ -1,7 +1,10 @@
 """Facet quadrature tables (counterpart of ``analysis/facets.py``).
 
 Built in host numpy, as the JAX package builds them; the batched metrics
-move them to the device once.
+move them to the device once.  The per-run evaluations (``eval``,
+``eval_grad``, ``integrate``) take a field's values as a tensor (on any
+device) or a numpy array (taken as a CPU tensor) and compute in f64 on
+the values' device.
 """
 
 from __future__ import annotations
@@ -9,12 +12,27 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..fem.elements import _EDGE_VERTS, _REF_VERTS, tabulate, tabulate_grad
 from ..fem.quadrature import interval_rule
 from ..fem.space import FunctionSpace
 
-__all__ = ["FacetQuad", "build_facet_quad"]
+__all__ = ["FacetQuad", "build_facet_quad", "as_values"]
+
+
+def as_values(values):
+    """A field's dof values as an f64 tensor: a tensor stays on its
+    device, a numpy array becomes a CPU tensor."""
+    if isinstance(values, torch.Tensor):
+        return values.to(torch.float64)
+    return torch.as_tensor(np.asarray(values), dtype=torch.float64)
+
+
+def _on(a, like):
+    return torch.as_tensor(a, device=like.device,
+                           dtype=like.dtype if np.asarray(a).dtype.kind == "f"
+                           else None)
 
 _CYC_A = np.array([1, 2, 0])
 _CYC_B = np.array([2, 0, 1])
@@ -31,11 +49,34 @@ class FacetQuad(NamedTuple):
     cells: np.ndarray         # (F,) owner cells
     x: np.ndarray             # (F, Q, 2) physical quadrature points
 
+    def eval(self, values):
+        """Scalar field at the quadrature points: (F, Q) on the values'
+        device."""
+        v = as_values(values)
+        ce = v[_on(self.cell_dofs, v)]
+        return torch.einsum("fqi,fi->fq", _on(self.phi, v), ce)
+
+    def eval_grad(self, values):
+        """Scalar field gradient at the quadrature points: (F, Q, 2)."""
+        v = as_values(values)
+        ce = v[_on(self.cell_dofs, v)]
+        return torch.einsum("fqia,fi->fqa", _on(self.grad, v), ce)
+
+    def integrate(self, density):
+        """sum_f length_f sum_q w_q density[f, q] (density (F, Q) f64
+        tensor): a 0-d tensor on its device."""
+        return torch.einsum("q,fq,f->", _on(self.qw, density), density,
+                            _on(self.length, density))
+
+    @property
+    def total_length(self):
+        return float(np.sum(self.length))
+
     def eval_vector(self, values, vspace: FunctionSpace):
-        """Interleaved vector field (numpy values on ``vspace``, same mesh)
-        at the quadrature points: (F, Q, 2)."""
+        """Interleaved vector field (values on ``vspace``, same mesh) at
+        the quadrature points: (F, Q, 2) host numpy."""
         vd = np.asarray(vspace.cell_dofs)[self.cells]     # (F, 2 nd)
-        ce = np.asarray(values)[vd].reshape(vd.shape[0], -1, 2)
+        ce = as_values(values).cpu().numpy()[vd].reshape(vd.shape[0], -1, 2)
         return np.einsum("fqi,fia->fqa", self.phi, ce)
 
 

@@ -11,9 +11,17 @@ builds the operator block from the pair):
   Robin facet mu phi phi            degree 4 (1-D Gauss) for unit mu, at
                                     least 6 for a callable mu(x)
   divergence -psi_k d_b phi_j       degree 3, rectangular (P1 x vector P2)
+  vector stiffness kron(K, I_2)     degree 2, interleaved (N, 12, 12) (host
+                                    use and tests: the Stokes solves apply
+                                    the scalar K on (ns, 2) columns)
+  load vector int f phi_i           degree 4 (the MMS tests)
 
-Meshes, dof maps, quadrature rules and basis tables come from the JAX
-package's host modules, which never load jax.  Unlike the JAX assembly,
+``make_bc``, ``constrained_operator`` and ``constrained_rhs`` are the
+Dirichlet elimination of the JAX package: identity rows on the constrained
+dofs, their values lifted into the right-hand side.
+
+Meshes, dof maps, quadrature rules and basis tables come from the port's
+copies of the JAX package's host modules.  Unlike the JAX assembly,
 nothing is padded to shape buckets: those only kept TPU compile keys stable.
 """
 
@@ -28,9 +36,10 @@ from .elements import _EDGE_VERTS, _REF_VERTS, tabulate, tabulate_grad
 from .quadrature import interval_rule, triangle_rule
 from .space import FunctionSpace
 
-__all__ = ["cell_geometry", "stiffness_block", "mass_block",
-           "advection_block", "divergence_block", "robin_facet_block",
-           "BCData", "make_bc"]
+__all__ = ["cell_geometry", "stiffness_block", "vector_stiffness_block",
+           "mass_block", "advection_block", "divergence_block",
+           "robin_facet_block", "load_vector", "BCData", "make_bc",
+           "constrained_operator", "constrained_rhs"]
 
 _F64 = torch.float64
 
@@ -94,6 +103,42 @@ def stiffness_block(space: FunctionSpace, device):
     K = _stiffness_dev(*_cell_args(space.mesh, device), _t(qw, device),
                        _t(tabulate_grad(space.element, qp), device))
     return K, np.asarray(space.cell_dofs)
+
+
+def vector_stiffness_block(vspace: FunctionSpace, device, coeff=1.0):
+    """The vector Laplacian int grad(u) : grad(v) dx on a vector space in
+    the interleaved layout (dof 2 j + b): A_e = kron(K_e, I_2) * coeff.
+
+    Returns (A_e (T, 2 nd, 2 nd) f64 tensor, interleaved cell dofs (T, 2 nd)
+    numpy)."""
+    qp, qw = triangle_rule(2)
+    K = _stiffness_dev(*_cell_args(vspace.mesh, device), _t(qw, device),
+                       _t(tabulate_grad(vspace.element, qp), device))
+    K = K * float(coeff)
+    T, nd, _ = K.shape
+    A = torch.zeros((T, 2 * nd, 2 * nd), dtype=K.dtype, device=K.device)
+    A[:, 0::2, 0::2] = K
+    A[:, 1::2, 1::2] = K
+    return A, np.asarray(vspace.cell_dofs)
+
+
+def load_vector(space: FunctionSpace, f_callable, device, degree=4):
+    """b_i = int f(x, y) phi_i dx, f a vectorised callable of the
+    coordinates: (ndofs,) f64 tensor."""
+    mesh = space.mesh
+    verts, cells = _cell_args(mesh, device)
+    detJ, _ = cell_geometry(verts, cells)
+    qp, qw = triangle_rule(degree)
+    lam = np.concatenate([1 - qp.sum(1, keepdims=True), qp], axis=1)
+    xq = np.einsum("qv,tva->tqa", lam, mesh.vertices[mesh.cells])
+    fq = _t(np.asarray(f_callable(xq[..., 0], xq[..., 1]),
+                       dtype=np.float64), device)
+    be = torch.einsum("q,tq,qi,t->ti", _t(qw, device), fq,
+                      _t(tabulate(space.element, qp), device), detJ)
+    b = torch.zeros(space.ndofs, dtype=_F64, device=device)
+    idx = torch.as_tensor(np.asarray(space.cell_dofs).reshape(-1),
+                          dtype=torch.long, device=device)
+    return b.index_add_(0, idx, be.reshape(-1))
 
 
 def _cell_args(mesh, device):
@@ -204,14 +249,61 @@ class BCData(NamedTuple):
     values: np.ndarray      # (ndofs,) bc value where constrained, else 0
 
 
-def make_bc(space: FunctionSpace, marker_value_pairs) -> BCData:
-    """Dirichlet data from (marker_id, value) pairs on the bc markers of a
-    scalar space (scalar values: the transport problem's)."""
-    marker = space.mesh.bc_marker
+def make_bc(space: FunctionSpace, marker_value_pairs,
+            marker_array=None) -> BCData:
+    """Dirichlet data from (marker_id, value) pairs on the bc markers
+    (``marker_array``: other facet markers in their place).  A value is a
+    number, or a vectorised callable value(x, y) of the dof coordinates
+    giving (len(dofs),) on a scalar space and (len(dofs), 2) on a vector
+    one; a vector space constrains both components of each dof (interleaved
+    2 j + b)."""
+    mesh = space.mesh
+    marker = mesh.bc_marker if marker_array is None else marker_array
     free = np.ones(space.ndofs, dtype=bool)
     vals = np.zeros(space.ndofs)
     for marker_id, value in marker_value_pairs:
         dofs = space.boundary_scalar_dofs(marker == marker_id)
-        free[dofs] = False
-        vals[dofs] = float(value)
+        gdofs = (dofs if space.vs == 1
+                 else np.concatenate([2 * dofs, 2 * dofs + 1]))
+        free[gdofs] = False
+        if np.isscalar(value):
+            vals[gdofs] = float(value)
+            continue
+        coords = space.dof_coords[dofs]
+        v = np.asarray(value(coords[:, 0], coords[:, 1]))
+        if space.vs == 1:
+            vals[gdofs] = v
+        else:
+            vals[2 * dofs] = v[:, 0]
+            vals[2 * dofs + 1] = v[:, 1]
     return BCData(free=free, values=vals)
+
+
+def constrained_operator(op, bc: BCData):
+    """x -> A x on the free dofs, identity on the constrained ones; ``op``
+    a callable on (ndofs,) tensors (or an object with ``apply``)."""
+    apply = getattr(op, "apply", op)
+    free_on = {}                 # the mask, copied once per device
+
+    def constrained(x):
+        free = free_on.get(x.device)
+        if free is None:
+            free = free_on[x.device] = torch.as_tensor(bc.free,
+                                                       device=x.device)
+        y = apply(torch.where(free, x, 0.0))
+        return torch.where(free, y, x)
+
+    return constrained
+
+
+def constrained_rhs(op, bc: BCData, b=None, device="cpu"):
+    """Right-hand side of the eliminated system: b - A g on the free dofs,
+    g (the boundary values) on the constrained ones, as an f64 tensor on
+    ``b``'s device (else ``device``)."""
+    apply = getattr(op, "apply", op)
+    dev = b.device if b is not None else torch.device(device)
+    g = torch.as_tensor(bc.values, dtype=_F64, device=dev)
+    Ag = apply(g)
+    if b is None:
+        b = torch.zeros_like(g)
+    return torch.where(torch.as_tensor(bc.free, device=dev), b - Ag, g)

@@ -19,12 +19,29 @@ preconditioned MINRES, in the configuration the JAX package runs on a TPU:
 * f32 MINRES passes (pass rtol 2e-5, chunks of 80 steps) inside f64 defect
   correction (at most 8 passes, outer rtol 1e-9 on the true f64 residual).
 
+``stokes_solve_mg(precision="f64")`` is the JAX package's f64 branch (its
+CPU default): one f64 MINRES on the f64 saddle, preconditioned by the f64
+mult cycle (every velocity apply in kernel C, f64, B = 2) with the same
+pressure block in f64.  ``pin_outlet_pressure=True`` pins p = 0 at the
+pressure dof nearest the outlet's bottom corner (the reference's
+``OutletPoint``); off by default, since the do-nothing outflow already
+fixes the level.
+
+``stokes_solve_schur`` is the Uzawa fallback: flexible CG on the pressure
+Schur complement (``solvers/stokes.py``) with Jacobi-CG inner velocity
+solves (f32 passes in f64 refinement under ``precision="mixed"``).  Its
+velocity Laplacian is the scalar stiffness K applied to the (ns, 2)
+layout, the two components as B = 2 columns, as ``stokes_setup`` applies
+it: kernel C at nd = 6, not an nd = 12 instantiation of kron(K, I_2)
+(``fem.assembly.vector_stiffness_block`` builds that one for host use and
+tests).
+
 The divergence applies are an einsum and a segment sum in plain PyTorch, as
 they are XLA ops in the JAX package; the segment sums are the deterministic
-``planned_segment_sum``.  Shape buckets are not ported; the Schur (Uzawa)
-fallback is not ported yet.
+``planned_segment_sum``.  Shape buckets are not ported.
 
-``stokes_solve`` keeps the solved field in the setup cache (tag
+``stokes_solve`` (``method="mg"`` or ``"schur"``, the JAX package's
+``FEU_STOKES``) keeps the solved field in the setup cache (tag
 ``port-stokes``), as the JAX package's ``stokes_solve`` does: a converged
 field is stored, and a hit reloads it in place of the setup and solve.
 """
@@ -37,20 +54,24 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..fem.assembly import divergence_block, mass_block
+from ..fem.assembly import (divergence_block, make_bc, mass_block,
+                            stiffness_block)
 from ..fem.space import Function, FunctionSpace
 from ..meshing.mesh_data import MARKERS, MeshData
 from ..ops.elemspmv import (SegmentPlan, make_segment_plan,
                             planned_segment_sum)
-from ..parallel.sweep import (apply_operator, build_transport_system,
-                              operator_args, operator_rhs)
+from ..parallel.sweep import (_Block, apply_operator,
+                              build_transport_system, operator_args,
+                              operator_rhs)
 from ..solvers.minres import minres_tree
+from ..solvers.stokes import stokes_schur_cg
 from ..solvers.multilevel import (build_multilevel, level_meshes_for,
                                   make_ml_preconditioner)
 from ..utils.diskcache import cache_key_of, count, load_arrays, store_arrays
 
-__all__ = ["taylor_hood_spaces", "StokesSetup", "stokes_setup",
-           "saddle_solve", "stokes_solve_mg", "stokes_solve", "STOKES_TAG"]
+__all__ = ["taylor_hood_spaces", "stokes_zero_fields", "StokesSetup",
+           "stokes_setup", "saddle_solve", "stokes_solve_mg",
+           "stokes_solve_schur", "stokes_solve", "STOKES_TAG"]
 
 # velocity walls: the inflow values ride in the lift G, so every Dirichlet
 # value of the velocity system is zero
@@ -62,10 +83,24 @@ CHUNK = 80          # MINRES steps per host check
 PASS_RTOL = 2e-5    # f32 MINRES stagnates below ~1e-5 on this saddle
 MAX_PASSES = 8
 OUTER_RTOL = 1e-9   # the JAX ``stokes_solve`` default
+PRECISIONS = ("mixed", "f64")
 
 
 def taylor_hood_spaces(mesh: MeshData):
     return FunctionSpace(mesh, "P2", vs=2), FunctionSpace(mesh, "P1")
+
+
+def stokes_zero_fields(mesh: MeshData):
+    """Zero velocity and pressure (numpy values), the no-adv mode's."""
+    V, Q = taylor_hood_spaces(mesh)
+    return V.new_function(), Q.new_function()
+
+
+def _outlet_pin(Q: FunctionSpace):
+    """The pressure dof nearest the outlet's bottom corner (max x, y = 0)."""
+    pc = Q.dof_coords
+    corner = np.array([pc[:, 0].max(), 0.0])
+    return int(np.argmin(((pc - corner) ** 2).sum(1)))
 
 
 class _Divergence(NamedTuple):
@@ -157,6 +192,7 @@ class StokesSetup(NamedTuple):
     S64: object               # f64 saddle operator (defect residuals)
     S32: object               # f32 saddle operator (MINRES passes)
     M32: object               # block preconditioner
+    M64: object               # the same in f64 (precision "f64"; or None)
     b: tuple                  # (rU (ns, 2), rp (np,)) f64 right-hand side
     G: torch.Tensor           # (ns, 2) Poiseuille lift
     sysV: object              # velocity TransportSystem (B = 2 columns)
@@ -180,12 +216,17 @@ def _widened(ml, ncols):
 
 def stokes_setup(mesh: MeshData, H: float, device, ml_dtype=None,
                  transfer_dtype=None, n_smooth=1,
-                 coarse_inverse="lapack") -> StokesSetup:
+                 coarse_inverse="lapack", precision="mixed",
+                 pin_outlet_pressure=False) -> StokesSetup:
     """Operators, preconditioner and right-hand side of the saddle
     system (the JAX ``_stokes_mg_setup``).  ml_dtype, transfer_dtype and
     n_smooth: the velocity block's mult cycle, as
     ``make_ml_preconditioner`` takes them; coarse_inverse: its hierarchy's,
-    as ``build_multilevel`` does."""
+    as ``build_multilevel`` does.  precision "f64" adds the f64
+    preconditioner (``M64``: the f64 cycle); pin_outlet_pressure pins the
+    pressure at the outlet's bottom corner."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown Stokes precision {precision!r}")
     device = torch.device(device)
     sysV = build_transport_system(mesh, device, "P2",
                                   dirichlet=VELOCITY_DIRICHLET,
@@ -224,6 +265,8 @@ def stokes_setup(mesh: MeshData, H: float, device, ml_dtype=None,
     a64 = operator_args(sysV, np.ones(2), np.zeros(2), f32=False)
     a32 = operator_args(sysV, np.ones(2), np.zeros(2), f32=True)
     free_p_np = np.ones(np_, dtype=bool)
+    if pin_outlet_pressure:
+        free_p_np[_outlet_pin(Q)] = False
     free_p = torch.as_tensor(free_p_np, device=device)
     free = sysV.free[:, None]
     rU = torch.where(free, operator_rhs(a64, G), 0.0)
@@ -254,14 +297,22 @@ def stokes_setup(mesh: MeshData, H: float, device, ml_dtype=None,
     Mv = make_ml_preconditioner(ml, **cyc)
     Z32, Cinv32, mp32 = Z.float(), Cinv.float(), mp_inv.float()
 
-    def M32(x):
-        U, p = x
-        corr = Z32 @ (Cinv32 @ (Z32.T @ p))
-        return Mv(U), mp32 * p + corr
+    def block_M(Mvel, Zd, Cinvd, mpd):
+        def M(x):
+            U, p = x
+            corr = Zd @ (Cinvd @ (Zd.T @ p))
+            return Mvel(U), mpd * p + corr
+        return M
 
+    M64 = None
+    if precision == "f64":
+        Mv64 = make_ml_preconditioner(ml, cycle="mult", dtype=torch.float64,
+                                      n_smooth=n_smooth)
+        M64 = block_M(Mv64, Z, Cinv, mp_inv)
     return StokesSetup(S64=_saddle(a64, div, free_p),
-                       S32=_saddle(a32, div, free_p), M32=M32, b=(rU, rp),
-                       G=G, sysV=sysV, V=V, Q=Q)
+                       S32=_saddle(a32, div, free_p),
+                       M32=block_M(Mv, Z32, Cinv32, mp32), M64=M64,
+                       b=(rU, rp), G=G, sysV=sysV, V=V, Q=Q)
 
 
 def _sync(device):
@@ -274,14 +325,26 @@ def _norm(x):
     return float(torch.sqrt(sum(torch.sum(t * t) for t in x)))
 
 
-def saddle_solve(st: StokesSetup, rtol=OUTER_RTOL):
+def saddle_solve(st: StokesSetup, rtol=OUTER_RTOL, precision="mixed"):
     """f32 MINRES passes inside f64 defect correction on a set-up saddle
-    system.  Returns ((U (ns, 2), p) f64 without the lift, info) with info
-    outer_iters (MINRES iterations, all passes), passes, resnorm and
-    rel_resnorm (the true f64 saddle residual that stopped the loop) and
-    converged."""
+    system (``precision="f64"``: one f64 MINRES with the f64
+    preconditioner, converged by MINRES's own preconditioned-residual
+    test, as the JAX f64 branch).  Returns ((U (ns, 2), p) f64 without the
+    lift, info) with info outer_iters (MINRES iterations, all passes),
+    passes, resnorm and rel_resnorm (the true f64 saddle residual of the
+    result) and converged."""
     b = st.b
     bnorm = _norm(b)
+    if precision == "f64":
+        if st.M64 is None:
+            raise ValueError("this setup has no f64 preconditioner")
+        res = minres_tree(st.S64, b, st.M64, rtol=rtol, maxiter=3000,
+                          chunk_iters=CHUNK)
+        SU, Sp = st.S64(res.x)
+        rn = _norm((b[0] - SU, b[1] - Sp))
+        return res.x, {"outer_iters": int(res.iters), "passes": 1,
+                       "resnorm": rn, "rel_resnorm": rn / max(bnorm, 1e-300),
+                       "converged": bool(res.converged)}
     x = tuple(torch.zeros_like(t) for t in b)
     total_iters = passes = 0
     for _ in range(MAX_PASSES):
@@ -304,21 +367,85 @@ def saddle_solve(st: StokesSetup, rtol=OUTER_RTOL):
 
 
 def stokes_solve_mg(mesh: MeshData, H: float, device, rtol=OUTER_RTOL,
+                    precision="mixed", pin_outlet_pressure=False,
                     **cycle_options):
     """Velocity and pressure Functions (numpy values in FunctionSpace
-    numbering): ``stokes_setup`` then ``saddle_solve``.  Both carry
-    ``solver_info``: the ``saddle_solve`` report plus method, setup_s and
-    solve_s (each ending in a device sync)."""
+    numbering): ``stokes_setup`` then ``saddle_solve``, in ``precision``
+    "mixed" (f32 MINRES passes in f64 defect correction) or "f64" (one f64
+    MINRES).  Both carry ``solver_info``: the ``saddle_solve`` report plus
+    inner_iters (0), method, setup_s and solve_s (each ending in a device
+    sync)."""
     device = torch.device(device)
     t0 = time.time()
-    st = stokes_setup(mesh, H, device, **cycle_options)
+    st = stokes_setup(mesh, H, device, precision=precision,
+                      pin_outlet_pressure=pin_outlet_pressure,
+                      **cycle_options)
     t1 = _sync(device)
-    x, info = saddle_solve(st, rtol)
+    x, info = saddle_solve(st, rtol, precision)
     t2 = _sync(device)
     U = (st.G + x[0]).cpu().numpy()[st.sysV.iperm[:st.sysV.space.ndofs]]
     u = Function(st.V, U.reshape(-1))
     p = Function(st.Q, x[1].cpu().numpy())
-    info.update(method="minres+mg", setup_s=t1 - t0, solve_s=t2 - t1)
+    info.update(inner_iters=0, method="minres+mg", setup_s=t1 - t0,
+                solve_s=t2 - t1)
+    u.solver_info = info
+    p.solver_info = info
+    return u, p
+
+
+def stokes_solve_schur(mesh: MeshData, H: float, device, inner_rtol=5e-13,
+                       outer_rtol=1e-11, outer_maxiter=400,
+                       precision="mixed"):
+    """The Uzawa fallback: flexible CG on the pressure Schur complement
+    (``solvers/stokes.stokes_schur_cg``), the velocity solves by Jacobi CG
+    in f64, or (``precision="mixed"``) in f32 passes inside f64
+    refinement.  Returns (u, p) as ``stokes_solve_mg``; ``solver_info``:
+    outer_iters, inner_iters, resnorm (the Schur residual), converged,
+    method "schur", setup_s, solve_s."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown Stokes precision {precision!r}")
+    device = torch.device(device)
+    t0 = time.time()
+    V, Q = taylor_hood_spaces(mesh)
+    # the scalar P2 stiffness on V's scalar dofs (its own numbering);
+    # A(X): the vector Laplacian on interleaved (2 ns, 1) columns, applied
+    # as K on (ns, 2) in X's dtype
+    S = FunctionSpace(mesh, V.element)
+    K_e, dofs = stiffness_block(S, device)
+    K = _Block.build(K_e, dofs, S.ndofs)
+
+    def A(X):
+        return K.apply_batched(X.reshape(-1, 2)).reshape(-1, 1)
+
+    B_e, rd, cd = divergence_block(Q, V, device)
+    div = _Divergence(B64=B_e, B32=B_e.float(),
+                      rdofs=torch.as_tensor(rd, device=device),
+                      cdofs=torch.as_tensor(cd, device=device),
+                      rplan=make_segment_plan(rd, Q.ndofs, device),
+                      cplan=make_segment_plan(cd, V.ndofs, device))
+
+    def inflow(x, y):
+        return np.stack([4.0 * y * (H - y), np.zeros_like(y)], axis=1)
+
+    bc = make_bc(V, [(MARKERS["left"], inflow), (MARKERS["bottom"], 0.0),
+                     (MARKERS["top"], 0.0)])
+    M_e, md = mass_block(Q, device)
+    mp_lump = planned_segment_sum(M_e.sum(dim=2).reshape(-1),
+                                  make_segment_plan(md, Q.ndofs, device))
+    mp_inv = 1.0 / torch.where(mp_lump > 0, mp_lump, 1.0)
+    t1 = _sync(device)
+    res = stokes_schur_cg(
+        A, div, bc, Mp_inv=lambda r: mp_inv.to(r.dtype) * r,
+        A_diag=K.diagonal().repeat_interleave(2), A_apply32=A,
+        inner_rtol=inner_rtol, outer_rtol=outer_rtol,
+        outer_maxiter=outer_maxiter, precision=precision)
+    t2 = _sync(device)
+    u = Function(V, res.u.cpu().numpy())
+    p = Function(Q, res.p.cpu().numpy())
+    info = {"outer_iters": int(res.outer_iters),
+            "inner_iters": int(res.inner_iters),
+            "resnorm": float(res.resnorm), "converged": bool(res.converged),
+            "method": "schur", "setup_s": t1 - t0, "solve_s": t2 - t1}
     u.solver_info = info
     p.solver_info = info
     return u, p
@@ -327,32 +454,49 @@ def stokes_solve_mg(mesh: MeshData, H: float, device, rtol=OUTER_RTOL,
 STOKES_TAG = "port-stokes"
 # the cycle options of stokes_setup, in the order they join the key
 _CYCLE_OPTIONS = ("ml_dtype", "transfer_dtype", "n_smooth", "coarse_inverse")
+METHODS = ("mg", "schur")
 
 
 def stokes_solve(mesh: MeshData, H: float, device, rtol=OUTER_RTOL,
-                 **cycle_options):
-    """``stokes_solve_mg`` behind the setup cache (tag ``port-stokes``,
-    the JAX package's ``stokes_solve`` checkpoint): keyed by the mesh, H,
-    the outer rtol, the precision (the mixed MINRES, the only one ported)
-    and the velocity hierarchy's cycle options.  A converged field is
-    stored with its report; one that did not converge never is.  A hit
-    returns the stored values with the stored report, its method marked
-    ``+cache``, setup_s the seconds of the load and solve_s 0."""
+                 method="mg", precision="mixed", inner_rtol=5e-13,
+                 outer_maxiter=400, **cycle_options):
+    """``stokes_solve_mg`` (``method="mg"``) or ``stokes_solve_schur``
+    (``"schur"``, with ``inner_rtol`` and ``outer_maxiter``; ``rtol`` is
+    its outer rtol) behind the setup cache (tag ``port-stokes``, the JAX
+    package's ``stokes_solve`` checkpoint): keyed by the mesh, H, rtol,
+    the precision ("mixed" or "f64"), the velocity hierarchy's cycle
+    options and, for the Schur method, the method and its two options.  A
+    converged field is stored with its report; one that did not converge
+    never is.  A hit returns the stored values with the stored report, its
+    method marked ``+cache``, setup_s the seconds of the load and solve_s
+    0."""
     device = torch.device(device)
+    if method not in METHODS:
+        raise ValueError(f"unknown Stokes method {method!r}")
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown Stokes precision {precision!r}")
     unknown = set(cycle_options) - set(_CYCLE_OPTIONS)
     if unknown:
         raise TypeError(f"unknown Stokes cycle options {sorted(unknown)}")
+    if method == "schur" and cycle_options:
+        raise TypeError(f"the Schur method has no cycle: "
+                        f"{sorted(cycle_options)}")
     opts = {"ml_dtype": None, "transfer_dtype": None, "n_smooth": 1,
             "coarse_inverse": "lapack", **cycle_options}
+    # the Schur method's accuracy also rides on its inner rtol and outer
+    # cap; they stay out of the mg key, which is as it was
+    extra = (("schur", float(inner_rtol), int(outer_maxiter))
+             if method == "schur" else ())
     key = cache_key_of(
         "stokes-v1", np.asarray(mesh.vertices), np.asarray(mesh.cells),
-        np.asarray(mesh.bc_marker), float(H), float(rtol), "mixed",
-        *[str(opts[k]) for k in _CYCLE_OPTIONS])
+        np.asarray(mesh.bc_marker), float(H), float(rtol), precision,
+        *[str(opts[k]) for k in _CYCLE_OPTIONS], *extra)
     t0 = time.time()
     hit = load_arrays(STOKES_TAG, key)
     if hit is not None:
         V, Q = taylor_hood_spaces(mesh)
         info = {"outer_iters": int(hit["outer_iters"]),
+                "inner_iters": int(hit.get("inner_iters", 0)),
                 "passes": int(hit["passes"]),
                 "resnorm": float(hit["resnorm"]),
                 "rel_resnorm": float(hit["rel_resnorm"]),
@@ -364,12 +508,21 @@ def stokes_solve(mesh: MeshData, H: float, device, rtol=OUTER_RTOL,
         u.solver_info = p.solver_info = info
         return u, p
     count(STOKES_TAG, "miss")
-    u, p = stokes_solve_mg(mesh, H, device, rtol=rtol, **cycle_options)
+    if method == "mg":
+        u, p = stokes_solve_mg(mesh, H, device, rtol=rtol,
+                               precision=precision, **cycle_options)
+    else:
+        u, p = stokes_solve_schur(mesh, H, device, inner_rtol=inner_rtol,
+                                  outer_rtol=rtol,
+                                  outer_maxiter=outer_maxiter,
+                                  precision=precision)
     info = u.solver_info
     # a stored field is replayed for ever: only a converged one is kept
     if info["converged"]:
         store_arrays(STOKES_TAG, key, {
             "u": np.asarray(u.values), "p": np.asarray(p.values),
-            **{k: info[k] for k in ("outer_iters", "passes", "resnorm",
-                                    "rel_resnorm", "converged", "method")}})
+            "passes": info.get("passes", 0),
+            "rel_resnorm": info.get("rel_resnorm", float("nan")),
+            **{k: info[k] for k in ("outer_iters", "inner_iters", "resnorm",
+                                    "converged", "method")}})
     return u, p

@@ -614,7 +614,7 @@ def test_per_sample_kernel_matches_plain(cuda, dtype, nd, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [3, 9])
+@pytest.mark.parametrize("B", [1, 3, 9])
 def test_per_sample_kernel_on_real_blocks(cuda, h015, B):
     """The h = 0.15 Robin blocks (fine nd 6, first P1 level nd 3) with
     per-column matrices, through ``_Block.per_sample``."""

@@ -32,7 +32,12 @@ def test_port_modules_load_no_jax_or_triton():
     assert len(mods) > 15, mods
     for name in ("studies.adv_diff", "studies.phase_a", "studies.phase_b",
                  "studies.no_uptake", "studies.mesh_convergence",
-                 "utils.diskcache", "__main__", "convert"):
+                 "utils.diskcache", "__main__", "convert",
+                 "simulation", "models.diffusion", "models.advdiff",
+                 "solvers.cg", "solvers.bicgstab", "solvers.gmres",
+                 "solvers.mixed", "solvers.stokes", "analysis.integrals",
+                 "analysis.mass", "analysis.boundary_export",
+                 "meshing.msh_io", "utils.timers"):
         assert f"fenics_eff_uptake_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -17,6 +17,8 @@
   h = 0.15; a block without nonzeros gets an empty span; masking a band
   outside its spans changes nothing; malformed spans are refused.
 * Kernel against plain on the card (marker ``cuda``; skipped without one),
+  at one column (B = 1, the per-run models' width: kernels A and B, and C
+  in both forms and per-sample) and
   including the no-uptake path's cases: wide batches (B = 33, 96) and the
   nonsymmetric advection band and element block; a span launch equals a
   full-span launch bit for bit, a B = 96 launch's columns equal a B = 3
@@ -490,7 +492,7 @@ def test_sorted_segment_sum_is_sequential(presorted):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [2, 3, 20])
+@pytest.mark.parametrize("B", [1, 2, 3, 20])
 @pytest.mark.parametrize("with_coef", [False, True])
 @pytest.mark.parametrize("halo", [1, 2])
 def test_band_apply_kernel_matches_plain(cuda, halo, with_coef, B):
@@ -498,9 +500,15 @@ def test_band_apply_kernel_matches_plain(cuda, halo, with_coef, B):
                      for a in _band_case(halo, T=40, R=256, B=B))
     c = coef if with_coef else None
     n0 = tb.band_apply.launches
-    Y = tb.band_apply(band, X, c, spans=tb.band_spans(band))
+    spans = tb.band_spans(band)
+    Y = tb.band_apply(band, X, c, spans=spans)
     assert tb.band_apply.launches == n0 + 1
     assert _rel(Y.cpu(), tb.band_apply_plain(band, X, c).cpu()) < 1e-5
+    if B == 1:
+        # one column sums in the order of any column of a wider launch
+        Y2 = tb.band_apply(band, torch.cat([X, X], 1).contiguous(),
+                           None if c is None else c.repeat(2), spans=spans)
+        assert torch.equal(Y, Y2[:, :1]) and torch.equal(Y, Y2[:, 1:])
 
 
 @pytest.mark.cuda
@@ -526,6 +534,7 @@ def test_band_apply_kernel_wide_batch(cuda, B):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,W,B", [(256, 1536, 20), (8, 24, 3), (256, 1536, 2),
+                                   (256, 1536, 1), (8, 24, 1),
                                    (256, 1536, 3), (256, 256, 33),
                                    (256, 1536, 96), (256, 384, 200)])
 def test_rect_band_apply_kernel_matches_plain(cuda, R, W, B):
@@ -538,26 +547,62 @@ def test_rect_band_apply_kernel_matches_plain(cuda, R, W, B):
     assert tb.rect_band_apply.launches == n0 + 1
     assert _rel(Y.cpu(), tb.rect_band_apply_plain(band, offs, Xp).cpu()) \
         < 1e-5
+    if B == 1:
+        Y2 = tb.rect_band_apply(band, offs, torch.cat([Xp, Xp], 1)
+                                .contiguous(), tb.band_spans(band))
+        assert torch.equal(Y, Y2[:, :1]) and torch.equal(Y, Y2[:, 1:])
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 20])
 @pytest.mark.parametrize("nd", [2, 3, 6])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-def test_element_apply_kernel_matches_plain(cuda, dtype, nd):
-    A, dofs, X, coef = _element_case(nd, dtype, N=5000, n=3000, B=20)
+def test_element_apply_kernel_matches_plain(cuda, dtype, nd, B):
+    """Both forms (full; out=, added into a random out); B = 1 is the
+    per-run models' width."""
+    A, dofs, X, coef = _element_case(nd, dtype, N=5000, n=3000, B=B)
     sc = te.make_scatter(dofs, X.shape[0], cuda)
     args = (torch.as_tensor(A, device=cuda),
             torch.as_tensor(dofs, dtype=torch.int32, device=cuda), sc,
             torch.as_tensor(X, device=cuda), torch.as_tensor(coef,
                                                              device=cuda))
     k = te.ElementKernel(*args[:3])
-    n0 = te.ElementKernel.launches
+    n0 = (te.ElementKernel.launches, te.ElementKernel.launches_out)
     Y = k(*args[3:])
-    assert te.ElementKernel.launches == n0 + 1
+    assert te.ElementKernel.launches == n0[0] + 1
     tol = 1e-12 if dtype == np.float64 else 2e-5
     assert _rel(Y.cpu(), te.element_apply_plain(*args).cpu()) < tol
     # no atomics: two launches agree bit for bit
     assert torch.equal(Y, k(*args[3:]))
+    out = torch.randn(Y.shape, dtype=Y.dtype, device=cuda)
+    got = k(*args[3:], out=out.clone())
+    want = te.element_apply_plain(*args, out=out.clone())
+    assert (te.ElementKernel.launches, te.ElementKernel.launches_out) == (
+        n0[0] + 3, n0[1] + 1)
+    assert _rel((got - out).cpu(), (want - out).cpu()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd", [2, 3, 6])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_element_apply_per_sample_kernel_at_one_column(cuda, dtype, nd):
+    """Kernel C's per-sample form at B = 1 (a callable mu of one run), both
+    forms, against plain."""
+    A, dofs, X, _ = _element_case(nd, dtype, N=5000, n=3000, B=1)
+    sc = te.make_scatter(dofs, X.shape[0], cuda)
+    Ab = torch.as_tensor(A[None], device=cuda)
+    dt = torch.as_tensor(dofs, dtype=torch.int32, device=cuda)
+    Xt = torch.as_tensor(X, device=cuda)
+    k = te.ElementKernel(Ab, dt, sc)
+    n0 = te.ElementKernel.launches_sample
+    Y = k(Xt)
+    tol = 1e-12 if dtype == np.float64 else 2e-5
+    assert _rel(Y.cpu(), te.element_apply_plain(Ab, dt, sc, Xt).cpu()) < tol
+    out = torch.randn(Y.shape, dtype=Y.dtype, device=cuda)
+    got = k(Xt, out=out.clone())
+    want = te.element_apply_plain(Ab, dt, sc, Xt, out=out.clone())
+    assert _rel((got - out).cpu(), (want - out).cpu()) < tol
+    assert te.ElementKernel.launches_sample == n0 + 2
 
 
 @pytest.mark.cuda
@@ -605,7 +650,7 @@ def test_advection_kernels_match_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [3, 20, 96])
+@pytest.mark.parametrize("B", [1, 3, 20, 96])
 def test_span_launch_equals_full_span_launch(cuda, B):
     """Streaming only the spans' chunks changes no bit against streaming
     every chunk, on a sparse band with empty tiles and empty blocks, whose
@@ -635,7 +680,7 @@ def test_span_launch_equals_full_span_launch(cuda, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [2, 3, 20, 96])
+@pytest.mark.parametrize("B", [1, 2, 3, 20, 96])
 def test_rect_span_launch_unaligned_past_n_cols(cuda, B):
     """Kernel B with unaligned window starts, windows and spans reaching
     past the last row of Xp: matches plain (which reads zeros there), and
