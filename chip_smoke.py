@@ -59,7 +59,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    mu sweep's fine K band (with and without coef), on its mid band and on
    the rectangle's advection band; B on the fine restriction and
    prolongation; C in f64 on K (full) and on the Robin block (out=), and
-   the per-sample f64 Robin block of one column (out=).
+   the per-sample f64 Robin block of one column (out=).  At the sharded
+   phase's shapes, on the element chunks its last rank holds
+   (``sharded_solve._split_block``: ceil(N / 2) elements padded with zero
+   matrices at a repeated dummy dof, bound with every row of the full
+   vector): C in f64 on the mu sweep's K chunk (full) and R chunk (out=)
+   at B = 10, on the replicated mid level's K and R at B = 10, on the
+   reference geometry's velocity K and advection chunks at B = 2 (full),
+   and the per-sample form on the rectangle's Robin chunk at the last
+   sweep row's B = 5 columns (out= and full); the full form of every C
+   case must write zeros on the rows its block does not touch.
    Bounds count 2-byte bands and X;
    the library calls are the cuBLAS bmm on bf16 windows (f32 output where
    the kernel's is) and, for C, the f32 cuSPARSE call on upcast operands.
@@ -167,6 +176,33 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the outlet pin (p 1e-5 of max |p|, u 1e-5), and f64 against mixed
    MINRES at h = 0.05 on the reference geometry (u 1e-8, p 1e-6 of max
    |p|).
+
+12. sharded: the sharded path (``parallel/sharded_solve.py``) on the one
+   card: 4 rank processes (2 sweep rows x 2 cells ranks, gloo, the CUDA
+   tensors all-reduced where they lie) started once for the phase, then
+   (a) the Phase-A mu sweep at h = 0.02 through ``run_mu_sweep(shard=)``
+   (B = 20, 10 columns per sweep row): rows within 1e-8 of
+   examples/phase_a_tpu_h0.02, X within 1e-9 of the unsharded solve of the
+   same system built on the card (the study builds a sharded batch's
+   system and hierarchy on the CPU and sends host copies), each rank
+   holding half the fine element arrays; (b) the
+   no-uptake study on the reference geometry and the rectangle (sharded
+   f64 MINRES, then Pe 0.1, 1, 10 padded to 4): rows within 1e-8 of
+   examples/no_uptake_tpu_h0.02 (compare_sharded_study.py's floors), u and
+   p within 1e-7 of the unsharded field; (c) the adv-diff validation on
+   both domains (B = 9 padded to 10, per-sample Robin on the rectangle;
+   the Stokes fields are (b)'s, from the setup cache): rows within 1e-7 of
+   the adv_diff phase's.  All-reduces per iteration must be 3 (MG-CG), 3
+   (MINRES) and 6 (BiCGStab); kernel C's full, out= and per-sample forms
+   must launch in the ranks (every block apply there a launch, checked in
+   each rank), and nothing else; the launches come back as the
+   ``sharded`` path.  Last the mu sweep's solve again at world size 1 on
+   nccl (X within 1e-9).  Prints iterations, true residuals, all-reduces
+   per iteration, spawn and solve seconds and the per-rank bytes of the
+   fine element arrays against the unsharded system's, and what the
+   parent process holds on the card (its Stokes setup's peak; its bytes
+   while the ranks solve).  The study's sharded calls are read from the
+   rank group's ``log``.
 
 Every study phase (4-7, 9, 11) starts on an empty cache directory of its own
 with the memos emptied, so its first run is cold and its steady run warm;
@@ -587,7 +623,9 @@ def element_case(label, blk, X, coef, rtol, form="full"):
     written in the out= form; not the plans derived from dofs.  The out=
     form starts from a random out: the rows the block does not touch must
     keep its bits, and the block's part (the result less out) is held to
-    rtol of its own size."""
+    rtol of its own size.  The full form must write zeros on the rows the
+    block does not touch (an element chunk of the sharded path writes all
+    of the full vector's rows)."""
     import torch
     from fenics_eff_uptake_tpu_torch.ops.elemspmv import element_apply_plain
     if X.dtype == torch.bfloat16:
@@ -625,16 +663,25 @@ def element_case(label, blk, X, coef, rtol, form="full"):
     bounds = {"span": bound_ms(nbytes, 2 * N * nd * nd * B, ds)}
     label = (f"C per-sample {label} A{tuple(A.shape)} {form}" if per_sample
              else f"C {label} A{tuple(A.shape)} B={B} {form}")
+    untouched = torch.ones(n, dtype=torch.bool, device=X.device)
+    untouched[blk.scatter.tiles.rows.long()] = False
     if form == "full":
+        def check_full():
+            yk = blk.apply_batched(X, coef)
+            if bool(yk[untouched].any()):
+                raise AssertionError(f"{label}: rows the block does not "
+                                     "touch are not zero")
+            return yk, element_apply_plain(A, blk.dofs, blk.scatter, X,
+                                           coef)
+
         return compare(
             label, lambda: blk.apply_batched(X, coef),
             lambda: element_apply_plain(A, blk.dofs, blk.scatter, X, coef),
-            rtol, bounds=bounds, library=lambda: torch.sparse.mm(csr, Xc))
+            rtol, bounds=bounds, check=check_full,
+            library=lambda: torch.sparse.mm(csr, Xc))
     g = torch.Generator(device=X.device).manual_seed(n + B)
     out0 = torch.rand((n, B), generator=g, device=X.device, dtype=X.dtype)
     ok, op, ol = out0.clone(), out0.clone(), out0.clone()
-    untouched = torch.ones(n, dtype=torch.bool, device=X.device)
-    untouched[blk.scatter.tiles.rows.long()] = False
 
     def check():
         yk = blk.apply_batched(X, coef, out=out0.clone())
@@ -718,6 +765,34 @@ def element_case_bf16(label, blk, X, coef, rtol, form):
                                         out=op),
             rtol, bounds=bounds, check=check, terms=terms,
             library=lambda: torch.addmm(ol.view_as(Xc), csr, Xc))
+
+
+def shard_layout(dev):
+    """The layout of the sharded phase's last rank: the last sweep row's
+    last cells rank, whose element chunks carry the padding (zero
+    matrices at a repeated dummy dof) when the elements do not divide
+    over tp."""
+    from fenics_eff_uptake_tpu_torch.parallel.sharded_solve import _Layout
+    dp = SHARD_RANKS // SHARD_TP
+    return _Layout(dev, dp, SHARD_TP, dp - 1, SHARD_TP - 1, None, None)
+
+
+def chunk_case(label, blk, lay, X, coef, form, per_sample=None):
+    """Kernel C on the element chunk of ``blk`` that the rank of ``lay``
+    holds (``sharded_solve._split_block``: ceil(N / tp) elements, padded,
+    bound with the full number of rows), in f64 at 1e-12; with
+    ``per_sample`` (B_all, N, nd, nd), the rank's columns and chunk of
+    those matrices on it (``_split_batch_matrices``)."""
+    from fenics_eff_uptake_tpu_torch.parallel.sharded_solve import (
+        _chunk, _split_batch_matrices, _split_block)
+    N = blk.dofs.shape[0]
+    ch = _split_block(blk, lay, blk.ndofs)
+    pad = _chunk(N, lay)[1] - N
+    if per_sample is not None:
+        ch = ch.per_sample(_split_batch_matrices(
+            per_sample, lay, lay.columns(per_sample.shape[0])))
+    return element_case(f"{label} chunk {lay.cells_index + 1}/{lay.tp} "
+                        f"({max(pad, 0)} padding)", ch, X, coef, 1e-12, form)
 
 
 def phase_kernels(dev):
@@ -826,6 +901,22 @@ def phase_kernels(dev):
         out["element_apply"].append(element_case(
             label, blk, rnd1(blk.ndofs, torch.float64),
             coef1.to(torch.float64), 1e-12, form))
+    # the sharded path (phase 12): the last rank's f64 chunks of K (full
+    # form, coef D) and R (out=, coef mu) at its B = 10 columns, and the
+    # replicated first mid level's K and R at that width
+    lay = shard_layout(dev)
+    bs = B_SWEEP // lay.dp
+    coef_s = coef32[:bs].double()
+    for label, blk, form in (("f64 K", sys_.K, "full"),
+                             ("f64 R", sys_.R, "out")):
+        out["element_apply"].append(chunk_case(
+            label, blk, lay, rnd(blk.ndofs, torch.float64)[:, :bs]
+            .contiguous(), coef_s, form))
+    for label, blk, form in (("f64 mid K", ml.levels[1].sys.K, "full"),
+                             ("f64 mid R", mid_R, "out")):
+        out["element_apply"].append(element_case(
+            label, blk, rnd(blk.ndofs, torch.float64)[:, :bs].contiguous(),
+            coef_s, 1e-12, form))
     del sys_, ml
     torch.cuda.empty_cache()
     return out
@@ -927,6 +1018,13 @@ def phase_kernels_flow(dev):
     out["element_apply bf16"] = [element_case(
         label, blk.with_bf16(), rnd(blk.ndofs, 3, bf16), coef3.to(bf16),
         1e-5, "out") for label, blk in (("R", adv.R), ("mid R", mid.R))]
+    # the sharded Stokes saddle apply: the last rank's chunk of the
+    # velocity K in f64 at B = 2 (no coef), and the sharded BiCGStab's
+    # f64 advection chunk at its B = 2 columns
+    lay = shard_layout(dev)
+    for label, blk in (("f64 velocity K", vel.K), ("f64 Adv", adv.Adv)):
+        out["element_apply"].append(chunk_case(
+            label, blk, lay, rnd(blk.ndofs, 2, torch.float64), None, "full"))
     del adv, aml, vel, vml
     torch.cuda.empty_cache()
     return out
@@ -1009,6 +1107,16 @@ def phase_kernels_advdiff(dev):
     one = sys_.R.per_sample(Rb[:1])
     X1 = rnd(one.ndofs, torch.float64)[:, :1].contiguous()
     cases.append(element_case("f64 R B=1", one, X1, None, 1e-12, "out"))
+    # the sharded step-mu batch: B = 9 padded to 10 with the last column,
+    # the last rank's 5 columns on its chunk of the fine Robin block (out=,
+    # as the sharded operator adds it; full for its rows left zero)
+    lay = shard_layout(dev)
+    Rb_p = torch.cat([Rb, Rb[-1:]]).double()
+    bs = Rb_p.shape[0] // lay.dp
+    for form in ("out", "full"):
+        cases.append(chunk_case(
+            "f64 R", sys_.R, lay, rnd(sys_.ndofs, torch.float64)[:, :bs]
+            .contiguous(), None, form, per_sample=Rb_p))
     c16 = element_case("R", fine.with_bf16(),
                        rnd(fine.ndofs, torch.bfloat16), None, 1e-5, "out")
     band = sys_.Advband
@@ -1026,11 +1134,11 @@ def _csv_rows(path):
         return list(csv.DictReader(f))
 
 
-def _worst(tag, got, want, rel_cols, abs_cols=None):
+def _worst(tag, got, want, rel_cols, abs_cols=None, tol=1e-6):
     """Worst error per column of ``got`` rows (dicts of numbers) against
     ``want`` (the artifact's rows, text), both keyed alike: ``rel_cols``
     relative, ``abs_cols`` {column: scale(want row)} absolute over that
-    scale.  Raises on a column above 1e-6."""
+    scale.  Raises on a column above ``tol``."""
     if sorted(got) != sorted(want):
         raise AssertionError(f"rows {sorted(got)} vs golden {sorted(want)}")
     worst = {c: 0.0 for c in (*rel_cols, *(abs_cols or {}))}
@@ -1048,20 +1156,20 @@ def _worst(tag, got, want, rel_cols, abs_cols=None):
             scale = abs(ref) if col in rel_cols else abs_cols[col](gr)
             worst[col] = max(worst[col], abs(v - ref) / scale)
     for col, e in worst.items():
-        print(f"[{tag}] {col}: worst diff vs golden {e:.3e} (tol 1e-6)",
+        print(f"[{tag}] {col}: worst diff vs golden {e:.3e} (tol {tol:g})",
               flush=True)
-    bad = {k: v for k, v in worst.items() if not v <= 1e-6}
+    bad = {k: v for k, v in worst.items() if not v <= tol}
     if bad:
         raise AssertionError(f"CSV columns off the golden artifact: {bad}")
     return worst
 
 
-def check_against_golden(rows, stats):
+def check_against_golden(rows, stats, tol=1e-6, tag="slice"):
     golden = _csv_rows(GOLDEN_CSV)
     if len(rows) != len(golden):
         raise AssertionError(f"{len(rows)} rows vs {len(golden)} golden")
     if stats["cells"] != BENCH_CELLS:
-        print(f"[slice] FINDING: the mesher made {stats['cells']} cells on "
+        print(f"[{tag}] FINDING: the mesher made {stats['cells']} cells on "
               f"this host, not the {BENCH_CELLS}-cell mesh of the golden "
               "CSV", flush=True)
     worst = {}
@@ -1076,9 +1184,9 @@ def check_against_golden(rows, stats):
                 raise AssertionError(f"{col} {r['Config']}: {v}")
             errs.append(abs(v - ref) / abs(ref))
         worst[col] = max(errs)
-        print(f"[slice] {col}: worst rel diff vs golden {worst[col]:.3e} "
-              f"(tol 1e-6)", flush=True)
-    bad = {k: v for k, v in worst.items() if not v <= 1e-6}
+        print(f"[{tag}] {col}: worst rel diff vs golden {worst[col]:.3e} "
+              f"(tol {tol:g})", flush=True)
+    bad = {k: v for k, v in worst.items() if not v <= tol}
     if bad:
         raise AssertionError(f"CSV columns off the golden artifact: {bad}")
     return worst
@@ -1104,24 +1212,13 @@ BF16_KEYS = ("band_apply bf16", "rect_band_apply bf16",
 
 
 def read_launches():
-    """Launch counts by kernel; kernel C's split by form too (the keys
-    ``element_apply full`` and ``element_apply out``), and its per-sample
-    launches (of either form) among them."""
-    from fenics_eff_uptake_tpu_torch.ops.banded import (band_apply,
-                                                        rect_band_apply)
-    from fenics_eff_uptake_tpu_torch.ops.elemspmv import ElementKernel
-    return {"band_apply": band_apply.launches,
-            "rect_band_apply": rect_band_apply.launches,
-            "element_apply": ElementKernel.launches,
-            "element_apply out": ElementKernel.launches_out,
-            "element_apply full": (ElementKernel.launches
-                                   - ElementKernel.launches_out),
-            PER_SAMPLE: ElementKernel.launches_sample,
-            "band_apply bf16": band_apply.launches_bf16,
-            "rect_band_apply bf16": (rect_band_apply.launches_bf16
-                                     + rect_band_apply.launches_bf16_band),
-            "rect_band_apply bf16 band": rect_band_apply.launches_bf16_band,
-            "element_apply bf16": ElementKernel.launches_bf16}
+    """Launch counts by kernel in this process; kernel C's split by form
+    too (the keys ``element_apply full`` and ``element_apply out``), and
+    its per-sample launches (of either form) among them.  A rank group's
+    ``launches`` has the same keys."""
+    from fenics_eff_uptake_tpu_torch.parallel.sharding import \
+        kernel_launches
+    return kernel_launches()
 
 
 def never_launched(launches, per_sample=False):
@@ -1712,6 +1809,239 @@ def phase_per_run(dev):
     so["f64 vs mixed"] = {"du": du, "dp_rel": dp}
     stats["stokes_options"] = so
     return launches, stats, worst
+
+
+# the sharded phase: 4 gloo ranks on the one card, 2 sweep rows x 2 cells
+# ranks; compare_sharded_study.py's tolerance and denominator floors
+SHARD_RANKS, SHARD_TP = 4, 2
+SHARD_H = 0.02
+SHARD_TOL = 1e-8
+SHARD_AD_TOL = 1e-7
+NU_SHARD_COLUMNS = ("Avg Concentration", "Total Mass", "Mouth E_L1",
+                    "Mouth_Flux_Total", "Concentration_Ratio")
+NU_SHARD_FLOORS = {"Mouth_Flux_Total": 1e-1, "Mouth E_L1": 1e-4}
+AD_SHARD_COLUMNS = ("total_flux", "diffusive_flux", "advective_flux",
+                    "uptake_flux", "avg_conc", "CR", "mu_eff_open",
+                    "mu_eff_sim", "flux_ratio", "flux_error_pct")
+AD_SHARD_FLOORS = {"advective_flux": 1e-1, "flux_error_pct": 1.0}
+AD_CSV = Path("Results Data") / "advdiff_validation_step_pe_x_mu.csv"
+# the all-reduces of one iteration: MG-CG, BiCGStab under the cycle,
+# Stokes MINRES (JAX's dry run)
+ALL_REDUCES = {"cg": 3, "bicgstab": 6, "minres": 3}
+
+
+def _floored(tag, got, want, cols, floors, tol):
+    """``_worst`` with compare_sharded_study.py's measure: |a - b| over
+    max(|b|, the column's floor)."""
+    def scale(col):
+        return lambda gr: max(abs(float(gr[col])), floors[col])
+    return _worst(tag, got, want, [c for c in cols if c not in floors],
+                  {c: scale(c) for c in cols if c in floors}, tol=tol)
+
+
+def _ad_key(r):
+    return (round(float(r["Pe"]), 9), round(float(r["mu_factor"]), 9),
+            r["domain_type"])
+
+
+def _json_info(info, **extra):
+    """A sharded solve's report as JSON values."""
+    return {**{k: (v.tolist() if isinstance(v, np.ndarray) else v)
+               for k, v in info.items()}, **extra}
+
+
+def _print_transport(tag, info):
+    print(f"[sharded] {tag}: CG/BiCGStab iters {info['iters'].tolist()} "
+          f"in {info['chunks']} chunks (sweep row 0), max true rel residual "
+          f"{info['true_rel_resnorm'].max():.3e}, all-reduces per "
+          f"iteration {info['all_reduces_per_iter']:g}; solve "
+          f"{info['solve_s']:.3f}s (ranks' setup {info['setup_s']:.3f}s; "
+          f"seconds per chunk {np.round(info['chunk_s'], 3).tolist()}; "
+          f"stages by rank {[r['stage_s'] for r in info['ranks']]})",
+          flush=True)
+
+
+def phase_sharded(dev):
+    """The sharded path on the one card: 4 gloo ranks (sweep 2 x cells 2)
+    started once, then (a) the mu sweep (rows against the artifact, X
+    against the unsharded solve; X again at world size 1 on nccl), (b) the
+    no-uptake study on the reference geometry and the rectangle (sharded
+    Stokes, then Pe 0.1, 1, 10 padded to 4), (c) the adv-diff validation
+    on both domains (B = 9 padded to 10, per-sample Robin on the
+    rectangle) against the adv_diff phase's rows, which it reads from
+    that phase's CSV."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.parallel import sharded_solve as shs
+    from fenics_eff_uptake_tpu_torch.parallel.sharded_solve import \
+        fine_element_bytes
+    from fenics_eff_uptake_tpu_torch.parallel.sharding import RankGroup
+    from fenics_eff_uptake_tpu_torch.parallel.sweep import (
+        build_transport_system, solve_sweep)
+    from fenics_eff_uptake_tpu_torch.solvers.multilevel import (
+        build_multilevel_for)
+    from fenics_eff_uptake_tpu_torch.studies import adv_diff, no_uptake
+    from fenics_eff_uptake_tpu_torch.studies.common import (
+        make_mesh, make_no_adv_params, stokes_for_study)
+    from fenics_eff_uptake_tpu_torch.studies.phase_a import run_mu_sweep
+
+    ad_ref = _csv_rows(OUT_DIR / "ad_first" / AD_CSV)   # the adv_diff phase's
+    fresh_cache("sharded")
+    rec = {}
+    zero_launches()
+    group = RankGroup(SHARD_RANKS, SHARD_TP, dev, backend="gloo")
+    # every sharded call of the studies appends its inputs and results here
+    group.log = []
+    try:
+        rec["spawn_s"] = group.spawn_s
+        print(f"[sharded] {group}: spawned and joined in "
+              f"{group.spawn_s:.2f}s", flush=True)
+        # (a) the mu sweep: rows, and X against the unsharded solve of the
+        # same system and hierarchy built on the card
+        t = time.time()
+        rows, stats = run_mu_sweep(dev, SHARD_H, verbose=False, shard=group,
+                                   base_dir=str(OUT_DIR / "sh_mu"))
+        rec["mu_sweep_study_s"] = time.time() - t
+        rec["mu_sweep_rows_worst"] = check_against_golden(
+            rows, stats, tol=SHARD_TOL, tag="sharded")
+        (sweep,) = group.log
+        sys_, D, mus, ml, X, info = (sweep[k] for k in (
+            "sys", "D", "mu", "multilevel", "X", "info"))
+        mesh_ = make_mesh(make_no_adv_params(
+            1.0, sulci_w_dim=0.25, sulci_h_dim=0.25, mesh_size_dim=SHARD_H))
+        sys_d = build_transport_system(mesh_, dev)
+        X_ref, _ = solve_sweep(sys_d, D, mus, multilevel=build_multilevel_for(
+            sys_d, mesh_, D, mus))
+        dx = float((X - X_ref).abs().max())
+        _print_transport("mu sweep (B = 20, 10 per sweep row)", info)
+        full = fine_element_bytes(sys_d)
+        ranks = info["ranks"]
+        print(f"[sharded] fine element arrays per rank: "
+              f"{[r['elements'] for r in ranks]} elements, "
+              f"{[r['fine_bytes'] for r in ranks]} bytes against "
+              f"{sys_d.K.A64.shape[0]} elements, {full} bytes unsharded "
+              f"(system built on the card); the study's system and "
+              f"hierarchy on {sys_.free.device}, the parent holding "
+              f"{info['parent_device_bytes']} bytes on the card while the "
+              f"ranks solved; |X - X_unsharded| {dx:.3e} (tol 1e-9)",
+              flush=True)
+        rec["mu_sweep"] = _json_info(info, dx=dx, unsharded_bytes=full)
+        if not dx <= 1e-9:
+            raise AssertionError(f"sharded X off the unsharded by {dx:.3e}")
+        if info["all_reduces_per_iter"] != ALL_REDUCES["cg"]:
+            raise AssertionError(f"{info['all_reduces_per_iter']} "
+                                 "all-reduces per CG iteration")
+        if not max(r["fine_bytes"] for r in ranks) < 0.6 * full:
+            raise AssertionError("a rank holds more than its share of the "
+                                 "fine element arrays")
+        del sys_d
+        # (b) the no-uptake study: sharded Stokes, then the Pe batch
+        group.log = []
+        t = time.time()
+        nu_rows, nu_stats = no_uptake.run_geometry_study(
+            ["reference"], PECLET, SHARD_H, device=dev, verbose=False,
+            base_dir=str(OUT_DIR / "sh_nu"), shard=group)
+        rec["no_uptake_study_s"] = time.time() - t
+        golden = [r for r in _csv_rows(GOLDEN_NU_CSV)
+                  if r["Domain"] == "rectangle" or _nu_key(r)[1:3]
+                  == tuple(round(x, 9) for x in NU_GEOMETRIES["reference"])]
+        rec["no_uptake_rows_worst"] = _floored(
+            "sharded no_uptake", {_nu_key(r): r for r in nu_rows},
+            {_nu_key(r): r for r in golden}, NU_SHARD_COLUMNS,
+            NU_SHARD_FLOORS, SHARD_TOL)
+        for s in nu_stats:
+            print(f"[sharded] no_uptake {s['geometry']}: MINRES "
+                  f"{s['minres_iters']} ({s['stokes_method']}), rel residual "
+                  f"{s['stokes_rel_resnorm']:.3e}, stokes "
+                  f"{s['stokes_s']:.3f}s; BiCGStab iters {s['iters']}, max "
+                  f"true rel residual {max(s['rel_resnorm']):.3e}, solve "
+                  f"{s['solve_s']:.3f}s", flush=True)
+        du = {}
+        for r in group.log:
+            if r["kind"] != "stokes":
+                continue
+            dom, u, p = r["mesh"].domain_type, r["u"], r["p"]
+            u0, p0 = stokes_for_study(r["mesh"], r["H"], dev)
+            du[dom] = [float(np.abs(a.values - b.values).max()
+                             / np.abs(b.values).max())
+                       for a, b in ((u, u0), (p, p0))]
+            si = u.solver_info
+            ai = si["all_reduces_per_iter"]
+            print(f"[sharded] Stokes {dom}: u, p off the unsharded field by "
+                  f"{du[dom][0]:.3e}, {du[dom][1]:.3e} relative (tol 1e-7); "
+                  f"MINRES {si['outer_iters']} against "
+                  f"{u0.solver_info['outer_iters']} unsharded; all-reduces "
+                  f"per iteration {ai:g}; the parent's setup peaked at "
+                  f"{si['parent_setup_peak_bytes']} bytes on the card, and "
+                  f"it held {si['parent_device_bytes']} there while the "
+                  f"ranks solved (velocity K chunks "
+                  f"{[x['fine_bytes'] for x in si['ranks']]} bytes)",
+                  flush=True)
+            if not max(du[dom]) <= 1e-7:
+                raise AssertionError(f"sharded Stokes {dom} off by {du}")
+            if ai != ALL_REDUCES["minres"]:
+                raise AssertionError(f"{ai} all-reduces per MINRES "
+                                     "iteration")
+        if sorted(du) != ["rectangular", "sulcus"]:
+            raise AssertionError(f"sharded Stokes solves of {sorted(du)}")
+        rec["no_uptake"] = {"stats": nu_stats, "stokes_du": du}
+        # (c) the adv-diff validation on both domains
+        group.log = []
+        t = time.time()
+        ad_rows, ad_stats = adv_diff.run_advdiff_step_validation(
+            str(OUT_DIR / "sh_ad"), SHARD_H, device=dev, verbose=False,
+            shard=group)
+        rec["adv_diff_study_s"] = time.time() - t
+        batches = [r["info"] for r in group.log if r["kind"] == "sweep"]
+        rec["adv_diff_rows_worst"] = _floored(
+            "sharded adv_diff", {_ad_key(r): r for r in ad_rows},
+            {_ad_key(r): r for r in ad_ref}, AD_SHARD_COLUMNS,
+            AD_SHARD_FLOORS, SHARD_AD_TOL)
+        if len(batches) != len(ad_stats):
+            raise AssertionError(f"{len(batches)} sharded batches for "
+                                 f"{len(ad_stats)} domains")
+        for s, info_b in zip(ad_stats, batches):
+            _print_transport(f"adv_diff {s['domain']} (B = 9 padded to 10)",
+                             info_b)
+            if info_b["all_reduces_per_iter"] != ALL_REDUCES["bicgstab"]:
+                raise AssertionError(f"{info_b['all_reduces_per_iter']} "
+                                     "all-reduces per BiCGStab iteration")
+        rec["adv_diff"] = {"stats": ad_stats,
+                           "solves": [_json_info(i) for i in batches]}
+        rank_launches = dict(group.launches)
+    finally:
+        group.close()
+    launches = read_launches()
+    print(f"[sharded] launches in the ranks: {rank_launches}; in this "
+          f"process (setup, metrics, unsharded references): {launches}",
+          flush=True)
+    for form in ("element_apply full", "element_apply out", PER_SAMPLE):
+        if rank_launches[form] <= 0:
+            raise AssertionError(f"kernel C's {form} form never launched "
+                                 f"in the ranks: {rank_launches}")
+    stray = [n for n in BF16_KEYS if rank_launches[n]]
+    if stray or rank_launches["band_apply"] or rank_launches[
+            "rect_band_apply"]:
+        raise AssertionError(f"the sharded ranks launched {rank_launches}")
+    # the same sweep at world size 1 on nccl: the backend of a host with
+    # one card per rank
+    t = time.time()
+    with RankGroup(1, 1, dev, backend="nccl") as g1:
+        X1, info1 = shs.solve_sweep_sharded(
+            g1, sys_, D, mus, multilevel=ml, rtol=1e-12, maxiter=50000,
+            chunk_iters=20, device=dev)
+        for k, v in g1.launches.items():
+            rank_launches[k] += v
+    dx1 = float((X1 - X_ref).abs().max())
+    rec["nccl1"] = _json_info(info1, dx=dx1,
+                              spawn_and_solve_s=time.time() - t)
+    _print_transport("mu sweep at world size 1 on nccl", info1)
+    print(f"[sharded] nccl: |X - X_unsharded| {dx1:.3e} (tol 1e-9)",
+          flush=True)
+    if not dx1 <= 1e-9:
+        raise AssertionError(f"nccl X off the unsharded by {dx1:.3e}")
+    del sys_, ml, X, X1, X_ref
+    torch.cuda.empty_cache()
+    return rank_launches, rec
 
 
 def phase_no_adv_studies(dev):
@@ -2522,6 +2852,7 @@ def _main(args, card, t_start):
     sc_launches, sc_recs = timed("setup_cache", phase_setup_cache)
     cfg_rows, cfg_launches = timed("configs", phase_configs)
     pr_launches, pr_stats, pr_worst = timed("per_run", phase_per_run)
+    sh_launches, sh_rec = timed("sharded", phase_sharded)
     if args.profile:
         phase_profile(dev)
 
@@ -2542,7 +2873,8 @@ def _main(args, card, t_start):
     by_path = {"mu_sweep": launches, "no_uptake": nu_launches,
                "adv_diff": ad_launches, "no_adv_studies": na_launches,
                "mesh_convergence": mc_launches, "setup_cache": sc_launches,
-               "configs": cfg_launches, "per_run": pr_launches}
+               "configs": cfg_launches, "per_run": pr_launches,
+               "sharded": sh_launches}
     unlaunched = [n for n in meta if sum(p[n] for p in by_path.values()) <= 0]
     if unlaunched:
         raise AssertionError(f"kernels no path launched: {unlaunched}")
@@ -2579,7 +2911,8 @@ def _main(args, card, t_start):
                "mesh_convergence_metadata": mc_meta,
                "setup_cache": sc_recs,
                "configs": cfg_rows, "per_run": pr_stats,
-               "per_run_worst": pr_worst, "phase_s": phase_s,
+               "per_run_worst": pr_worst, "sharded": sh_rec,
+               "phase_s": phase_s,
                "wall_s": time.time() - t_start}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))

@@ -49,7 +49,7 @@ field is stored, and a hit reloads it in place of the setup and solve.
 from __future__ import annotations
 
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -71,7 +71,8 @@ from ..utils.diskcache import cache_key_of, count, load_arrays, store_arrays
 
 __all__ = ["taylor_hood_spaces", "stokes_zero_fields", "StokesSetup",
            "stokes_setup", "saddle_solve", "stokes_solve_mg",
-           "stokes_solve_schur", "stokes_solve", "STOKES_TAG"]
+           "stokes_solve_schur", "stokes_solve", "cached_field",
+           "STOKES_TAG"]
 
 # velocity walls: the inflow values ride in the lift G, so every Dirichlet
 # value of the velocity system is zero
@@ -198,6 +199,14 @@ class StokesSetup(NamedTuple):
     sysV: object              # velocity TransportSystem (B = 2 columns)
     V: FunctionSpace
     Q: FunctionSpace
+    # the parts the operators close over, which the sharded saddle solve
+    # splits or copies (``parallel/sharded_solve.stokes_host``)
+    div: Optional[_Divergence] = None
+    ml: object = None         # the velocity hierarchy (B = 2 columns)
+    free_p: Optional[torch.Tensor] = None
+    mp_inv: Optional[torch.Tensor] = None   # lumped pressure mass^-1 (f64)
+    Z: Optional[torch.Tensor] = None        # coarse pressure basis (np, KZ)
+    Cinv: Optional[torch.Tensor] = None     # its correction (KZ, KZ) f64
 
 
 def _widened(ml, ncols):
@@ -312,7 +321,8 @@ def stokes_setup(mesh: MeshData, H: float, device, ml_dtype=None,
     return StokesSetup(S64=_saddle(a64, div, free_p),
                        S32=_saddle(a32, div, free_p),
                        M32=block_M(Mv, Z32, Cinv32, mp32), M64=M64,
-                       b=(rU, rp), G=G, sysV=sysV, V=V, Q=Q)
+                       b=(rU, rp), G=G, sysV=sysV, V=V, Q=Q, div=div,
+                       ml=ml, free_p=free_p, mp_inv=mp_inv, Z=Z, Cinv=Cinv)
 
 
 def _sync(device):
@@ -462,14 +472,10 @@ def stokes_solve(mesh: MeshData, H: float, device, rtol=OUTER_RTOL,
                  outer_maxiter=400, **cycle_options):
     """``stokes_solve_mg`` (``method="mg"``) or ``stokes_solve_schur``
     (``"schur"``, with ``inner_rtol`` and ``outer_maxiter``; ``rtol`` is
-    its outer rtol) behind the setup cache (tag ``port-stokes``, the JAX
+    its outer rtol) behind the setup cache (``cached_field``, the JAX
     package's ``stokes_solve`` checkpoint): keyed by the mesh, H, rtol,
     the precision ("mixed" or "f64"), the velocity hierarchy's cycle
-    options and, for the Schur method, the method and its two options.  A
-    converged field is stored with its report; one that did not converge
-    never is.  A hit returns the stored values with the stored report, its
-    method marked ``+cache``, setup_s the seconds of the load and solve_s
-    0."""
+    options and, for the Schur method, the method and its two options."""
     device = torch.device(device)
     if method not in METHODS:
         raise ValueError(f"unknown Stokes method {method!r}")
@@ -491,6 +497,21 @@ def stokes_solve(mesh: MeshData, H: float, device, rtol=OUTER_RTOL,
         "stokes-v1", np.asarray(mesh.vertices), np.asarray(mesh.cells),
         np.asarray(mesh.bc_marker), float(H), float(rtol), precision,
         *[str(opts[k]) for k in _CYCLE_OPTIONS], *extra)
+    if method == "mg":
+        return cached_field(key, mesh, lambda: stokes_solve_mg(
+            mesh, H, device, rtol=rtol, precision=precision,
+            **cycle_options))
+    return cached_field(key, mesh, lambda: stokes_solve_schur(
+        mesh, H, device, inner_rtol=inner_rtol, outer_rtol=rtol,
+        outer_maxiter=outer_maxiter, precision=precision))
+
+
+def cached_field(key, mesh: MeshData, solve):
+    """The field (u, p) of ``solve()`` behind the setup cache under
+    ``key`` (tag ``port-stokes``): a converged field is stored with its
+    report; one that did not converge never is.  A hit returns the stored
+    values with the stored report, its method marked ``+cache``, setup_s
+    the seconds of the load and solve_s 0."""
     t0 = time.time()
     hit = load_arrays(STOKES_TAG, key)
     if hit is not None:
@@ -508,14 +529,7 @@ def stokes_solve(mesh: MeshData, H: float, device, rtol=OUTER_RTOL,
         u.solver_info = p.solver_info = info
         return u, p
     count(STOKES_TAG, "miss")
-    if method == "mg":
-        u, p = stokes_solve_mg(mesh, H, device, rtol=rtol,
-                               precision=precision, **cycle_options)
-    else:
-        u, p = stokes_solve_schur(mesh, H, device, inner_rtol=inner_rtol,
-                                  outer_rtol=rtol,
-                                  outer_maxiter=outer_maxiter,
-                                  precision=precision)
+    u, p = solve()
     info = u.solver_info
     # a stored field is replayed for ever: only a converged one is kept
     if info["converged"]:

@@ -69,7 +69,8 @@ from ..utils.diskcache import Memo, cache_key_of, cached_arrays, count
 __all__ = ["Transfer", "TransferBands", "Level", "MultilevelData",
            "level_meshes_for", "level_velocities", "level_robin_matrices",
            "build_multilevel", "build_multilevel_for",
-           "make_ml_preconditioner", "newton_schulz_inverse", "CYCLES"]
+           "make_ml_preconditioner", "newton_schulz_inverse",
+           "gather_transfer", "CYCLES"]
 
 LEVEL_FACTORS = (3.0, 9.0)   # coarse level mesh sizes, in fine h
 LEVEL_CAP = 0.45             # largest level h, in channel heights
@@ -581,6 +582,27 @@ class _LevelArrays(NamedTuple):
                                        #   segment plan of the restriction)
 
 
+def gather_transfer(tr: Transfer, device):
+    """The gather form of a transfer on ``device``: (cols (n, 3) long,
+    weights (n, 3) f64, the segment plan of the restriction's sum into the
+    coarse rows); the f64 cycle's and the sharded cycle's transfers.
+
+    The plan leaves out the entries of zero weight (constrained and
+    padding rows, whose columns all point at one coarse dof): they add
+    exact zeros, and would set the plan's depth, one gather per entry of
+    the fullest coarse row (~12,000 at the h = 0.02 mu sweep's fine level,
+    ~25 without them).  The other entries keep their order, so the sums
+    are the same."""
+    cols = torch.as_tensor(np.asarray(tr.cols), dtype=torch.long,
+                           device=device)
+    w = torch.as_tensor(np.asarray(tr.weights), dtype=torch.float64,
+                        device=device)
+    keep = torch.nonzero(w.reshape(-1) != 0).reshape(-1)
+    ids, order = torch.sort(cols.reshape(-1)[keep], stable=True)
+    return cols, w, make_segment_plan(ids, tr.n_coarse, device,
+                                      order=keep[order])
+
+
 def _level_arrays(ml: MultilevelData, l: int, dtype, transfer_dtype):
     """Level ``l``'s column-independent arrays for a cycle in ``dtype``
     with transfer bands in ``transfer_dtype``, from ``ml.lowp`` where they
@@ -594,16 +616,9 @@ def _level_arrays(ml: MultilevelData, l: int, dtype, transfer_dtype):
         return cache[key]
 
     if dtype == torch.float64:
-        def gather():
-            dev = la.free.device
-            cols = torch.as_tensor(np.asarray(la.transfer.cols),
-                                   dtype=torch.long, device=dev)
-            w = torch.as_tensor(np.asarray(la.transfer.weights),
-                                dtype=torch.float64, device=dev)
-            return cols, w, make_segment_plan(cols.reshape(-1),
-                                              la.transfer.n_coarse, dev)
         return _LevelArrays(None, None, la.sys.R, la.R_batch, None, None,
-                            cached(("gather", l), gather))
+                            cached(("gather", l), lambda: gather_transfer(
+                                la.transfer, la.free.device)))
     if la.bands is None:
         raise ValueError(f"level {l} has no transfer bands: only the f64 "
                          "cycle runs without them")

@@ -13,7 +13,12 @@ columns in its order (sorted by Pe, mu_factor, domain_type) and
 ``study_metadata.json``.  No pandas.  The plots are not ported yet.
 
     python -m fenics_eff_uptake_tpu_torch.studies.adv_diff \\
-        [--mesh-size 0.02] [--output-base DIR] [--device cuda]
+        [--mesh-size 0.02] [--output-base DIR] [--device cuda] \\
+        [--shard N --tp T]
+
+``--shard N`` runs every solve (both Stokes saddles, the sulcus batch and
+the step-mu surrogates) sharded over N ranks, started once for the run
+(``studies.common``); the files are written here, by the parent, alone.
 """
 
 from __future__ import annotations
@@ -24,8 +29,9 @@ import time
 
 from ..analysis.batched_metrics import build_sweep_metrics, metrics_to_dicts
 from ..params import Parameters, StepUptakeOpen
-from .common import (_sync, make_mesh, save_csv, save_metadata,
-                     stokes_for_study, transport_batch)
+from .common import (_sync, add_shard_arguments, make_mesh, save_csv,
+                     save_metadata, shard_group, stokes_for_study,
+                     transport_batch)
 
 __all__ = ["run_advdiff_step_validation", "create_base_parameters",
            "PE_VALUES", "MU_FACTORS", "REFERENCE_GEOMETRY", "OUTPUT_BASE",
@@ -92,9 +98,10 @@ def run_advdiff_step_validation(output_base_dir=OUTPUT_BASE,
                                 mesh_size_dim=None, pe_values=None,
                                 mu_factors=None, device="cuda", rtol=1e-12,
                                 verbose=True, solver_options=None,
-                                stokes_options=None):
-    """The Pe x mu validation on ``device``; ``solver_options`` and
-    ``stokes_options`` as in ``studies.no_uptake.run_geometry_study``.
+                                stokes_options=None, shard=None):
+    """The Pe x mu validation on ``device``; ``solver_options``,
+    ``stokes_options`` and ``shard`` as in
+    ``studies.no_uptake.run_geometry_study``.
     Returns (rows, stats): the
     CSV rows, and one stats dict per domain (stage seconds, each stage
     ending in a device sync; iterations, passes, relative residuals)."""
@@ -115,13 +122,15 @@ def run_advdiff_step_validation(output_base_dir=OUTPUT_BASE,
     sulc_mesh = make_mesh(p0, "sulcus")
     t_mesh = time.time()
     stokes_options = stokes_options or {}
-    u_s, _ = stokes_for_study(sulc_mesh, p0.H, device, **stokes_options)
+    u_s, _ = stokes_for_study(sulc_mesh, p0.H, device, shard=shard,
+                              **stokes_options)
     if verbose:
         print(f"[sulcus] Stokes: {time.time() - t_mesh:.1f}s "
               f"{u_s.solver_info}")
     Xs, info_s, sys_s, ts_s = transport_batch(sulc_mesh, u_s, D_batch,
                                               mu_batch, device, rtol=rtol,
-                                              solver_options=solver_options)
+                                              solver_options=solver_options,
+                                              shard=shard)
     t_solve = time.time()
     if verbose:
         print(f"[sulcus] {len(cells)} transport solves in "
@@ -162,7 +171,8 @@ def run_advdiff_step_validation(output_base_dir=OUTPUT_BASE,
     t1 = time.time()
     rect_mesh = make_mesh(p0, "rectangular")
     t_mesh = time.time()
-    u_r, _ = stokes_for_study(rect_mesh, p0.H, device, **stokes_options)
+    u_r, _ = stokes_for_study(rect_mesh, p0.H, device, shard=shard,
+                              **stokes_options)
     if verbose:
         print(f"[rect] Stokes: {time.time() - t_mesh:.1f}s "
               f"{u_r.solver_info}")
@@ -175,7 +185,8 @@ def run_advdiff_step_validation(output_base_dir=OUTPUT_BASE,
             L_c=0.1 * params.sulci_w, Gamma=STEP_GAMMA))
     Xr, info_r, sys_r, ts_r = transport_batch(rect_mesh, u_r, D_batch, None,
                                               device, rtol=rtol, steps=steps,
-                                              solver_options=solver_options)
+                                              solver_options=solver_options,
+                                              shard=shard)
     t_solve = time.time()
     if verbose:
         print(f"[rect] {len(cells)} surrogate solves in "
@@ -241,10 +252,12 @@ def main(argv=None):
     ap.add_argument("--output-base", default=OUTPUT_BASE)
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on ('cuda' or 'cpu')")
+    add_shard_arguments(ap)
     args = ap.parse_args(argv)
-    run_advdiff_step_validation(args.output_base,
-                                mesh_size_dim=args.mesh_size,
-                                device=args.device)
+    with shard_group(args) as group:
+        run_advdiff_step_validation(args.output_base,
+                                    mesh_size_dim=args.mesh_size,
+                                    device=args.device, shard=group)
 
 
 if __name__ == "__main__":

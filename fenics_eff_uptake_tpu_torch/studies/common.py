@@ -6,10 +6,23 @@ solve over all mu values of the geometry, then the batched metrics.
 ``stokes_for_study`` and ``transport_batch`` are the advective studies'
 pair: one Stokes field per mesh, then ONE batched BiCGStab solve over the
 geometry's Pe (and mu) columns.
+
+Each takes ``shard=``: None, or a started ``parallel.sharding.RankGroup``
+(n ranks, tp cells ranks per sweep row), which routes its solve through
+the sharded path of the JAX package's ``--shard`` (``FEU_SHARD``): the
+batch padded to a multiple of dp with its last column and sliced back, the
+hierarchy built at the padded batch, f64 CG or BiCGStab in chunks of 20 up
+to 50,000 iterations (``parallel.sharded_solve``), and the Stokes field by
+sharded f64 MINRES (rtol 1e-9, chunks of 40).  The sharded solves run in
+the ranks; the mesh, the setup, the metrics and every file stay here.  A
+sharded batch's system and hierarchy are built on the CPU (the ranks take
+host copies of them, and the card of a rank holds only its chunk); the
+metrics run on the study's device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import os
@@ -31,7 +44,8 @@ from ..solvers.multilevel import build_multilevel_for
 from ..utils.diskcache import Memo
 
 __all__ = ["make_no_adv_params", "make_mesh", "sweep_mus", "no_adv_batch",
-           "stokes_for_study", "transport_batch",
+           "stokes_for_study", "transport_batch", "add_shard_arguments",
+           "shard_group",
            "create_study_dir", "save_csv", "save_metadata"]
 
 
@@ -98,6 +112,60 @@ def split_solver_options(options):
             {k: options[k] for k in SOLVE_OPTIONS if k in options})
 
 
+# the JAX package's sharded study solves: chunk length and iteration cap
+SHARD_CHUNK = 20
+SHARD_MAXITER = 50000
+
+
+def _padded(values, shard):
+    """``values`` padded with its last entry to a multiple of the shard's
+    sweep ranks."""
+    values = list(values)
+    Bp = -(-len(values) // shard.dp) * shard.dp
+    return values + [values[-1]] * (Bp - len(values))
+
+
+def _check_shard(shard, device, **options):
+    """A shard runs on the study's device and in one configuration (f64,
+    the V-cycle under the partition): refuse another device, and options
+    it would not honour."""
+    if shard is None:
+        return
+    if shard.device.type != device.type:
+        raise ValueError(f"a rank group on {shard.device} for a study on "
+                         f"{device}")
+    given = sorted(k for k, v in options.items() if v)
+    if given:
+        raise ValueError(f"the sharded solves take no {given}")
+
+
+def _sharded_batch_solve(shard, sys, mesh, D_batch, mu_batch, rtol, device,
+                         u=None, steps=None):
+    """One geometry's batch through ``solve_sweep_sharded`` on the ranks of
+    ``shard``: padded to a multiple of dp, the hierarchy (and the
+    per-sample Robin matrices of ``steps``) built at the padded batch on
+    sys's device (the CPU), X (on ``device``) and info sliced back to the
+    batch.  Returns (X, info, the hierarchy, its build seconds)."""
+    from ..parallel.sharded_solve import solve_sweep_sharded
+    t0 = time.time()
+    B = len(D_batch)
+    D_p = _padded(D_batch, shard)
+    mu_p = None if mu_batch is None else _padded(mu_batch, shard)
+    steps_p = None if steps is None else _padded(steps, shard)
+    Rb = None if steps_p is None else torch.stack(
+        [robin_matrices_for_mu(sys, s) for s in steps_p])
+    ml = build_multilevel_for(sys, mesh, D_p, mu_p, u_fine=u,
+                              mu_callables=steps_p, robin_matrices_fine=Rb)
+    ml_s = _sync(sys.free.device) - t0
+    X, info = solve_sweep_sharded(shard, sys, D_p, mu_p, multilevel=ml,
+                                  robin_matrices=Rb, rtol=rtol,
+                                  maxiter=SHARD_MAXITER,
+                                  chunk_iters=SHARD_CHUNK, device=device)
+    info = {k: (v[:B] if isinstance(v, np.ndarray) else v)
+            for k, v in info.items()}
+    return X[:B], info, ml, ml_s
+
+
 def require_converged(info, what):
     """Raise unless every column of a ``solve_sweep`` report converged: a
     study writes no row of a solve that stalled or broke down into NaN (a
@@ -112,11 +180,13 @@ def require_converged(info, what):
 
 def no_adv_batch(geom_params: Parameters, mu_factors: List[float],
                  domain_type: str, device, rtol=1e-12, verbose=True,
-                 solver_options=None):
+                 solver_options=None, shard=None):
     """The pure-diffusion problem for several mu values on one mesh.
     ``solver_options``: ``solve_sweep``'s configuration keywords and
     ``coarse_inverse`` (``split_solver_options``); None is the default
-    configuration.  Raises RuntimeError if a column did not converge.
+    configuration.  ``shard``: a started ``RankGroup`` on ``device``
+    solves the batch sharded (module docstring).  Raises RuntimeError if
+    a column did not converge.
 
     Returns (results, stats): one dict per mu factor with the keys of the
     JAX package's results (c, mass_metrics, flux_metrics, params,
@@ -129,13 +199,21 @@ def no_adv_batch(geom_params: Parameters, mu_factors: List[float],
     t_mesh = _sync(device)
     mus = sweep_mus(geom_params, mu_factors)
     D_batch = [geom_params.D] * len(mus)
-    sys = build_transport_system(mesh, device, element="P2")
-    t_asm = _sync(device)
     build_kw, solve_kw = split_solver_options(solver_options)
-    ml = build_multilevel_for(sys, mesh, D_batch, mu_values=mus, **build_kw)
-    t_ml = _sync(device)
-    X, info = solve_sweep(sys, D_batch, mu_values=mus, rtol=rtol,
-                          multilevel=ml, **solve_kw)
+    _check_shard(shard, device, solver_options=solver_options)
+    sys = build_transport_system(mesh, device if shard is None else "cpu",
+                                 element="P2")
+    t_asm = _sync(device)
+    if shard is not None:
+        X, info, ml, ml_s = _sharded_batch_solve(shard, sys, mesh, D_batch,
+                                                 mus, rtol, device)
+        t_ml = t_asm + ml_s
+    else:
+        ml = build_multilevel_for(sys, mesh, D_batch, mu_values=mus,
+                                  **build_kw)
+        t_ml = _sync(device)
+        X, info = solve_sweep(sys, D_batch, mu_values=mus, rtol=rtol,
+                              multilevel=ml, **solve_kw)
     t_solve = _sync(device)
     require_converged(info, f"no_adv_batch {domain_type}")
     if verbose:
@@ -188,17 +266,25 @@ def no_adv_batch(geom_params: Parameters, mu_factors: List[float],
     return out, stats
 
 
-def stokes_for_study(mesh, H, device, **cycle_options):
+def stokes_for_study(mesh, H, device, shard=None, **cycle_options):
     """The study's Stokes field (u, p) on ``device``, solved as the JAX
     package's ``stokes_solve`` does (MINRES + MG, outer rtol 1e-9, the
     field kept in the setup cache); the solver report, with its setup and
     solve seconds, is ``u.solver_info``.  ``cycle_options``: the velocity
-    hierarchy's (``stokes_setup``)."""
-    return stokes_solve(mesh, H, setup(device), **cycle_options)
+    hierarchy's (``stokes_setup``).  ``shard``: a started ``RankGroup``
+    solves it by sharded f64 MINRES instead, as the JAX package's
+    ``sharded_stokes_or_single`` does, the field kept in the setup cache
+    under a key of its own (``stokes_solve_sharded``)."""
+    device = setup(device)
+    if shard is None:
+        return stokes_solve(mesh, H, device, **cycle_options)
+    from ..parallel.sharded_solve import stokes_solve_sharded
+    _check_shard(shard, device, **cycle_options)
+    return stokes_solve_sharded(shard, mesh, H, rtol=1e-9, chunk_iters=40)
 
 
 def transport_batch(mesh, u, D_batch, mu_batch, device, rtol=1e-12,
-                    steps=None, solver_options=None):
+                    steps=None, solver_options=None, shard=None):
     """One domain's batch of advective transport columns (the unsharded
     JAX ``transport_batch``): the system with advection by ``u``, the
     hierarchy carrying u to every level, and ONE batched BiCGStab solve.
@@ -206,20 +292,34 @@ def transport_batch(mesh, u, D_batch, mu_batch, device, rtol=1e-12,
     callable per column, ``mu_batch`` None: per-sample Robin matrices on
     the fine system and on every level) selects the Robin term.
 
-    ``solver_options``: as for ``no_adv_batch``.  Raises RuntimeError if
-    a column did not converge, as ``no_adv_batch`` does.
+    ``solver_options`` and ``shard``: as for ``no_adv_batch``.  Raises
+    RuntimeError if a column did not converge, as ``no_adv_batch`` does.
 
-    Returns (X (B, n) f64 on ``device``, info, system, stats) with stats
+    Returns (X (B, n) f64 on ``device``, info, system (on the CPU when
+    sharded), stats) with stats
     the stage seconds (each ending in a device sync) assembly_s,
     ml_setup_s, solve_s."""
     device = setup(device)
     t0 = time.time()
-    sys = build_transport_system(mesh, device, u_values=u.values,
-                                 u_space=u.space)
+    build_kw, solve_kw = split_solver_options(solver_options)
+    _check_shard(shard, device, solver_options=solver_options)
+    sys = build_transport_system(mesh, device if shard is None else "cpu",
+                                 u_values=u.values, u_space=u.space)
+    if shard is not None:
+        t_asm = _sync(device)
+        X, info, ml, ml_s = _sharded_batch_solve(
+            shard, sys, mesh, D_batch, mu_batch, rtol, device, u=u,
+            steps=steps)
+        t_ml = t_asm + ml_s
+        t_solve = _sync(device)
+        require_converged(info, "transport_batch")
+        return X, info, sys, {"assembly_s": t_asm - t0,
+                              "ml_setup_s": t_ml - t_asm,
+                              "solve_s": t_solve - t_ml,
+                              "multilevel": ml is not None}
     robin_matrices = None if steps is None else torch.stack(
         [robin_matrices_for_mu(sys, s) for s in steps])
     t_asm = _sync(device)
-    build_kw, solve_kw = split_solver_options(solver_options)
     ml = build_multilevel_for(sys, mesh, D_batch, mu_batch, u_fine=u,
                               mu_callables=steps,
                               robin_matrices_fine=robin_matrices, **build_kw)
@@ -231,6 +331,32 @@ def transport_batch(mesh, u, D_batch, mu_batch, device, rtol=1e-12,
     stats = {"assembly_s": t_asm - t0, "ml_setup_s": t_ml - t_asm,
              "solve_s": t_solve - t_ml, "multilevel": ml is not None}
     return X, info, sys, stats
+
+
+def add_shard_arguments(ap):
+    """The studies' ``--shard N --tp T --backend B`` (the JAX CLIs'
+    ``--shard``/``--tp``; the backend of ``RankGroup``)."""
+    ap.add_argument("--shard", type=int, default=0, metavar="N",
+                    help="run the solves sharded over N ranks "
+                         "(parallel/sharded_solve.py); on --device cuda "
+                         "the ranks share the cards, or the run raises")
+    ap.add_argument("--tp", type=int, default=2,
+                    help="cells-partition degree: ranks per sweep row "
+                         "(the sweep is split over N / tp rows)")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="process-group backend (default: gloo on the "
+                         "CPU, nccl on CUDA, which takes one card per "
+                         "rank)")
+
+
+def shard_group(args):
+    """The RankGroup of a study CLI's ``--shard`` arguments (started once
+    for the run), or None without ``--shard``; use it as a context
+    manager."""
+    if not args.shard:
+        return contextlib.nullcontext()
+    from ..parallel.sharding import RankGroup
+    return RankGroup(args.shard, args.tp, args.device, args.backend)
 
 
 def create_study_dir(study_name, base_dir):

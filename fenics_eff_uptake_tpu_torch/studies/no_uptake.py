@@ -15,7 +15,12 @@ the ratio join are plain Python.  The plots are not ported yet.
 
     python -m fenics_eff_uptake_tpu_torch.studies.no_uptake \\
         [--geometries reference,square_small] [--peclet 0.1,1,10] \\
-        [--mesh-size 0.02] [--base-dir DIR] [--device cuda]
+        [--mesh-size 0.02] [--base-dir DIR] [--device cuda] \\
+        [--shard N --tp T]
+
+``--shard N`` runs every solve (the Stokes saddle and the Pe batches)
+sharded over N ranks, started once for the run (``studies.common``); the
+files are written here, by the parent, alone.
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ from ..analysis.batched_metrics import build_sweep_metrics, metrics_to_dicts
 from ..analysis.profiles import compute_conc_profiles, compute_velocity_metrics
 from ..fem.space import Function
 from ..params import Parameters, create_geometry_variations
-from .common import (_sync, create_study_dir, make_mesh, save_csv,
-                     save_metadata, stokes_for_study, transport_batch)
+from .common import (_sync, add_shard_arguments, create_study_dir,
+                     make_mesh, save_csv, save_metadata, shard_group,
+                     stokes_for_study, transport_batch)
 
 __all__ = ["run_geometry_study", "run_rectangular_baselines",
            "add_ratio_metrics", "collect_profile_rows",
@@ -130,7 +136,7 @@ def _rect_row(params, mm, fm, vm):
 
 def _domain_runs(params_list, domain_type, device, verbose,
                  solver_options=None, stokes_options=None,
-                 profile_key=None):
+                 profile_key=None, shard=None):
     """Stokes + batched transport + metrics on one domain for all Pe of
     ``params_list`` (one geometry).  With ``profile_key``, also the line
     profiles of every Pe column, labelled with that key
@@ -140,13 +146,15 @@ def _domain_runs(params_list, domain_type, device, verbose,
     p0 = params_list[0]
     mesh = make_mesh(p0, domain_type)
     t_mesh = time.time()
-    u, _ = stokes_for_study(mesh, p0.H, device, **(stokes_options or {}))
+    u, _ = stokes_for_study(mesh, p0.H, device, shard=shard,
+                            **(stokes_options or {}))
     si = u.solver_info
     t_stokes = time.time()
     D_batch = [1.0 / p.Pe for p in params_list]
     X, info, sys, ts = transport_batch(mesh, u, D_batch,
                                        [0.0] * len(D_batch), device,
-                                       solver_options=solver_options)
+                                       solver_options=solver_options,
+                                       shard=shard)
     t_solve = time.time()
     sm = build_sweep_metrics(sys.space, mesh, 1.0, X.device, u=u)
     flux_list, mass_list, _ = metrics_to_dicts(
@@ -191,9 +199,10 @@ def _domain_runs(params_list, domain_type, device, verbose,
 def run_rectangular_baselines(peclet_numbers=None, mesh_size_dim=None,
                               device="cuda", verbose=True,
                               solver_options=None, stokes_options=None,
-                              collect_profiles=False):
+                              collect_profiles=False, shard=None):
     """The rectangle's rows for every Pe: one Stokes solve, one batched
-    transport solve.  Returns (rows, stats); with ``collect_profiles``,
+    transport solve (sharded over ``shard``, a started ``RankGroup``,
+    when given).  Returns (rows, stats); with ``collect_profiles``,
     (rows, stats, the rectangle's profile rows of every Pe), the overlay
     of the profile CSVs."""
     pes = list(peclet_numbers or PECLET_NUMBERS)
@@ -201,7 +210,7 @@ def run_rectangular_baselines(peclet_numbers=None, mesh_size_dim=None,
                    for pe in pes]
     rows, stats, profiles = _domain_runs(
         params_list, "rectangular", device, verbose, solver_options,
-        stokes_options, "rectangle" if collect_profiles else None)
+        stokes_options, "rectangle" if collect_profiles else None, shard)
     if collect_profiles:
         return rows, stats, [r for rs in profiles for r in rs]
     return rows, stats
@@ -319,12 +328,13 @@ def add_ratio_metrics(rows):
 def run_geometry_study(geometries=None, peclet_numbers=None,
                        mesh_size_dim=None, base_dir=BASE_DIR, device="cuda",
                        verbose=True, solver_options=None,
-                       stokes_options=None):
+                       stokes_options=None, shard=None):
     """The no-uptake study on ``device`` over the named geometries of
     ``create_geometry_variations`` (default: all 23) and the rectangle.
     ``solver_options``: the transport solves' configuration
     (``studies.common.split_solver_options``); ``stokes_options``: the
-    Stokes velocity hierarchy's cycle options (``stokes_setup``).
+    Stokes velocity hierarchy's cycle options (``stokes_setup``);
+    ``shard``: a started ``RankGroup`` runs every solve sharded.
     Returns (rows, stats) with one stats dict per domain run."""
     pes = list(peclet_numbers or PECLET_NUMBERS)
     print("=" * 64 + "\nNO-UPTAKE GEOMETRY x PECLET STUDY\n" + "=" * 64)
@@ -341,13 +351,15 @@ def run_geometry_study(geometries=None, peclet_numbers=None,
                        for pe in pes]
         r, st, prof = _domain_runs(
             params_list, "sulcus", device, verbose, solver_options,
-            stokes_options, gkey if gkey in PROFILE_GEOMETRIES else None)
+            stokes_options, gkey if gkey in PROFILE_GEOMETRIES else None,
+            shard)
         rows += r
         stats.append(dict(st, geometry=gkey))
         profile_runs += [{"geometry": gkey, "rows": p} for p in prof or []]
     rect = run_rectangular_baselines(pes, mesh_size_dim, device, verbose,
                                      solver_options, stokes_options,
-                                     collect_profiles=bool(profile_runs))
+                                     collect_profiles=bool(profile_runs),
+                                     shard=shard)
     r, st = rect[:2]
     rows += r
     stats.append(dict(st, geometry="rectangle"))
@@ -382,13 +394,16 @@ def main(argv=None):
     ap.add_argument("--base-dir", default=BASE_DIR)
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on ('cuda' or 'cpu')")
+    add_shard_arguments(ap)
     args = ap.parse_args(argv)
-    run_geometry_study(
-        geometries=args.geometries.split(",") if args.geometries else None,
-        peclet_numbers=([float(x) for x in args.peclet.split(",")]
-                        if args.peclet else None),
-        mesh_size_dim=args.mesh_size, base_dir=args.base_dir,
-        device=args.device)
+    with shard_group(args) as group:
+        run_geometry_study(
+            geometries=(args.geometries.split(",") if args.geometries
+                        else None),
+            peclet_numbers=([float(x) for x in args.peclet.split(",")]
+                            if args.peclet else None),
+            mesh_size_dim=args.mesh_size, base_dir=args.base_dir,
+            device=args.device, shard=group)
 
 
 if __name__ == "__main__":

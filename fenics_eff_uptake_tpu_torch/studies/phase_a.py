@@ -72,9 +72,10 @@ def _mu_eff_columns(result):
 
 
 def run_mu_sweep(device, mesh_size_dim=0.02, base_dir=BASE_DIR,
-                 verbose=True, solver_options=None):
+                 verbose=True, solver_options=None, shard=None):
     """The mu sweep on ``device``; returns (rows, stats) (see
-    ``studies.common.no_adv_batch`` for stats and ``solver_options``)."""
+    ``studies.common.no_adv_batch`` for stats, ``solver_options`` and
+    ``shard``, a started ``RankGroup`` that solves the batch sharded)."""
     print("=" * 60 + "\nMU PARAMETER SWEEP STUDY\n" + "=" * 60)
     t0 = time.time()
     study_dir = create_study_dir("Mu Parameter Sweep", base_dir)
@@ -84,7 +85,8 @@ def run_mu_sweep(device, mesh_size_dim=0.02, base_dir=BASE_DIR,
                               mesh_size_dim=mesh_size_dim)
     results, stats = no_adv_batch(geom, factors, "sulcus", device,
                                   verbose=verbose,
-                                  solver_options=solver_options)
+                                  solver_options=solver_options,
+                                  shard=shard)
     rows = []
     for regime, factor, res in zip(regimes, factors, results):
         row = {

@@ -15,7 +15,11 @@ The heatmaps are not ported yet.
 
     python -m fenics_eff_uptake_tpu_torch.studies.phase_b \\
         [--geometries reference,square_medium] [--mesh-size 0.02] \\
-        [--output-base DIR] [--device cuda]
+        [--output-base DIR] [--device cuda] [--shard N --tp T]
+
+``--shard N`` solves every batch sharded over N ranks (``--tp`` cells
+ranks per sweep row; ``studies.common``), started once for the run; the
+CSV and the metadata are written here, by the parent, alone.
 """
 
 from __future__ import annotations
@@ -27,8 +31,9 @@ import time
 import numpy as np
 
 from ..params import Parameters, create_geometry_variations
-from .common import (create_study_dir, make_no_adv_params, no_adv_batch,
-                     save_csv, save_metadata)
+from .common import (add_shard_arguments, create_study_dir,
+                     make_no_adv_params, no_adv_batch, save_csv,
+                     save_metadata, shard_group)
 
 __all__ = ["run_no_adv_mu_sweep", "MU_FACTORS", "OUTPUT_BASE", "CSV_NAME"]
 
@@ -54,9 +59,11 @@ def _flux_rect(res):
 
 
 def run_no_adv_mu_sweep(device, output_base=OUTPUT_BASE, mesh_size_dim=0.02,
-                        mu_factors=None, geometries=None, verbose=True):
+                        mu_factors=None, geometries=None, verbose=True,
+                        shard=None):
     """The sulcus-against-rectangle sweep on ``device`` over the named
-    geometries of ``create_geometry_variations`` (default: all 23).
+    geometries of ``create_geometry_variations`` (default: all 23);
+    ``shard``: a started ``RankGroup`` solves every batch sharded.
     Returns (rows, stats) with one stats dict per geometry and domain."""
     mu_factors = list(MU_FACTORS if mu_factors is None else mu_factors)
     print("=" * 64 + "\nNO ADVECTION -- mu SWEEP OVER GEOMETRIES\n" + "=" * 64)
@@ -74,9 +81,9 @@ def run_no_adv_mu_sweep(device, output_base=OUTPUT_BASE, mesh_size_dim=0.02,
             1.0, sulci_w_dim=gcfg["sulci_w_dim"],
             sulci_h_dim=gcfg["sulci_h_dim"], mesh_size_dim=mesh_size_dim)
         sulc, st_s = no_adv_batch(geom, mu_factors, "sulcus", device,
-                                  verbose=verbose)
+                                  verbose=verbose, shard=shard)
         rect, st_r = no_adv_batch(geom, mu_factors, "rectangular", device,
-                                  verbose=verbose)
+                                  verbose=verbose, shard=shard)
         stats += [dict(st_s, geometry=gkey, domain="sulcus"),
                   dict(st_r, geometry=gkey, domain="rectangular")]
         for mu, rs, rr in zip(mu_factors, sulc, rect):
@@ -140,10 +147,13 @@ def main(argv=None):
                     help="comma-separated geometry keys (default: all)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on ('cuda' or 'cpu')")
+    add_shard_arguments(ap)
     args = ap.parse_args(argv)
-    run_no_adv_mu_sweep(
-        args.device, args.output_base, args.mesh_size,
-        geometries=args.geometries.split(",") if args.geometries else None)
+    with shard_group(args) as group:
+        run_no_adv_mu_sweep(
+            args.device, args.output_base, args.mesh_size,
+            geometries=(args.geometries.split(",") if args.geometries
+                        else None), shard=group)
 
 
 if __name__ == "__main__":

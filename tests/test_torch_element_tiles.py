@@ -14,6 +14,10 @@
   bit, and the operator and both V-cycles give the same bits with the
   Robin block added in place as with the separate apply and add (CPU,
   h = 0.15).
+* The sharded path's element chunks (CPU, h = 0.15): each ceil(N / tp)
+  elements, the last padded at a repeated dummy dof; rows a chunk does
+  not touch come out zero, and the chunks sum to the block (K, R and
+  per-sample R).
 * Per-call checks of X, coef and out; the ctypes plan matches the C
   struct.
 * On the card (marker ``cuda``; skipped without one): the kernel against
@@ -353,6 +357,52 @@ def test_vcycle_out_form_equals_separate_add(h015, separate_add, cycle):
     separate_add()
     want = make_ml_preconditioner(ml, cycle)(R)
     assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("which", ["K", "R", "per-sample R"])
+def test_element_chunks_sum_to_the_block(h015, which):
+    """The sharded path's element chunks (``sharded_solve._split_block``):
+    over tp cells ranks each holds ceil(N / tp) elements, the last one
+    padded with zero matrices at a repeated dummy dof; a chunk's full
+    apply writes zeros on every row it does not touch, and the chunks'
+    applies sum to the block's (f64, 1e-13 of max |Y|).  Per-sample Robin
+    matrices split as a rank splits them (``_split_batch_matrices``)
+    likewise.  tp is the first of 2, 3, ... that leaves padding."""
+    from fenics_eff_uptake_tpu_torch.parallel.sharded_solve import (
+        _Layout, _split_batch_matrices, _split_block)
+    sys, _, _, _ = h015
+    blk = sys.K if which == "K" else sys.R
+    N, n, B = blk.dofs.shape[0], sys.ndofs, 3
+    tp = next(t for t in range(2, N) if N % t)
+    rng = np.random.default_rng(12)
+    X = torch.as_tensor(rng.standard_normal((n, B)))
+    coef = torch.as_tensor(rng.uniform(0.5, 2.0, B))
+    Rb = None
+    if which == "per-sample R":
+        Rb = torch.as_tensor(rng.standard_normal((B,) + tuple(
+            blk.A64.shape)))
+        blk, coef = blk.per_sample(Rb), None
+    want = blk.apply_batched(X, coef)
+    total = torch.zeros_like(want)
+    for ci in range(tp):
+        lay = _Layout(torch.device("cpu"), 1, tp, 0, ci, None, None)
+        ch = _split_block(sys.K if which == "K" else sys.R, lay, n)
+        assert ch.dofs.shape[0] == -(-N // tp)
+        if ci == tp - 1:
+            pad = tp * ch.dofs.shape[0] - N
+            assert pad > 0
+            assert (ch.dofs[-pad:] == n - 1).all()
+            assert not ch.A64[-pad:].any()
+        if Rb is not None:
+            ch = ch.per_sample(_split_batch_matrices(Rb, lay,
+                                                     lay.columns(B)))
+        y = ch.apply_batched(X, coef)
+        untouched = torch.ones(n, dtype=torch.bool)
+        untouched[ch.dofs.reshape(-1).long()] = False
+        assert untouched.any() and not y[untouched].any()
+        total += y
+    assert float((total - want).abs().max()) <= 1e-13 * float(
+        want.abs().max())
 
 
 # ---------------------------------------------------------------------------

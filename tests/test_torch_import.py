@@ -37,7 +37,8 @@ def test_port_modules_load_no_jax_or_triton():
                  "solvers.cg", "solvers.bicgstab", "solvers.gmres",
                  "solvers.mixed", "solvers.stokes", "analysis.integrals",
                  "analysis.mass", "analysis.boundary_export",
-                 "meshing.msh_io", "utils.timers"):
+                 "meshing.msh_io", "utils.timers", "parallel.sharding",
+                 "parallel.sharded_solve"):
         assert f"fenics_eff_uptake_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
