@@ -23,7 +23,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    interval around the Python call, which includes the wrapper's host
    work before the launch), and the least time the card could take (the
    larger of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s in f32, 34 TFLOP/s
-   in f64): for A and B both over the whole band (dense) and over the
+   in f64: the card's row of the port's utils/roofline.PEAKS, which has
+   only the H100 SXM's, so another card stops the run here): for A and B
+   both over the whole band (dense) and over the
    column spans these inputs need (span), with the share of the span
    bound that the kernel's device time reaches.  Kernel C runs in both
    forms: the full output (f64 K, the defect residual's) and out=, added
@@ -81,7 +83,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    every kernel (C in both forms) was launched by the first run, the true f64 relative
    residuals (<= 1e-11), the inner iterations (<= 40 per column), and the
    CSV columns against the committed JAX artifact
-   examples/phase_a_tpu_h0.02 (1e-6 relative).
+   examples/phase_a_tpu_h0.02 (1e-6 relative).  Prints, on a line of its
+   own with the card's name and power limit, ``roofline_summary`` of the
+   steady run's solve (utils/roofline.py's model of one iteration on the
+   sweep's system and hierarchy, over the solve's seconds).
 5. no_uptake: the no-uptake study on the reference geometry (w = 0.5,
    d = 1.0 mm), the profile geometries ``largest`` (1.0 x 2.0) and
    ``square_small`` (0.2 x 0.2) and the rectangle at h = 0.02, Pe = 0.1,
@@ -169,7 +174,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    batched path on the same mesh, velocity and coefficients (1e-9
    relative); every transport residual <= 1e-11, the warm run's c equal
    to the cold's; kernels A, B and C (full and out=) launched by the three
-   modes at B = 1.  Then GMRES (``advdiff_solve(solver="auto")``, Pe = 40,
+   modes at B = 1.  The memo-warm runs of the first no-adv row and of
+   no-uptake write their ParaView files (``save_paraview=True``), read
+   back: every grid's POINTS is the mesh's vertex count, the c, p and u
+   values are the run's own vertex values as %.16g wrote them (exactly;
+   within 1e-15 relative of the f64 values: 16 digits do not round-trip
+   every f64), and the paraview stage's seconds are printed;
+   ``plot=True`` must raise ImportError where matplotlib is absent (as on
+   the card's machine) and write the figures where it is present.  Then
+   GMRES (``advdiff_solve(solver="auto")``, Pe = 40,
    the 16 x 8 rectangle) against BiCGStab (1e-8) with its true residual
    <= 1e-13, and the Stokes options on the 5 x 1 sulcus at h = 0.15: the
    Schur fallback (f64) against MINRES + MG (u 1e-8, p 1e-6),
@@ -318,11 +331,21 @@ CSRC = "fenics_eff_uptake_tpu_torch/ops/csrc"
 # the label of the bf16 forms of kernels A and B: products on the tensor
 # cores (mma.sync m16n8k16, bf16 in, f32 accumulate)
 TC = "(tensor cores)"
-# the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s, and
-# FLOP/s by the operands' element size (bf16: the dense tensor-core rate;
-# f32 and f64 outside the tensor cores)
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {2: 989e12, 4: 67e12, 8: 34e12}
+# the card's published peaks, its row of the port's utils/roofline.PEAKS
+# (the H100 SXM's: 3.35 TB/s; bf16 989 TFLOP/s, the dense tensor-core rate;
+# f32 67 and f64 34 TFLOP/s outside the tensor cores), set by card_peaks in
+# _main: HBM bytes/s, and FLOP/s by the operands' element size
+CARD = {}
+
+
+def card_peaks(dev):
+    from fenics_eff_uptake_tpu_torch.utils.roofline import chip_peaks
+    pk = chip_peaks(dev)
+    CARD.update(peaks=pk, hbm_bytes_s=pk["hbm_gbps"] * 1e9,
+                flops={2: pk["bf16_tflops"] * 1e12,
+                       4: pk["f32_tflops"] * 1e12,
+                       8: pk["f64_tflops"] * 1e12})
+    return pk
 
 
 def phase_device():
@@ -429,8 +452,8 @@ def median_ms(fn, reps=20, warmup=3):
 
 def bound_ms(nbytes, flops, elem_size):
     """(least ms the card could take, "bytes" or "operations")."""
-    tb = nbytes / HBM_BYTES_S * 1e3
-    tf = flops / PEAK_FLOPS[elem_size] * 1e3
+    tb = nbytes / CARD["hbm_bytes_s"] * 1e3
+    tf = flops / CARD["flops"][elem_size] * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -1298,7 +1321,40 @@ def phase_slice(dev):
     for r, r2 in zip(rows, rows2):
         if r != r2:
             raise AssertionError(f"steady run differs: {r} vs {r2}")
+    stats2["roofline"] = slice_roofline(dev, stats2)
     return launches, stats, stats2, worst
+
+
+def slice_roofline(dev, stats):
+    """The roofline of the steady sweep solve: utils/roofline.py's model of
+    one iteration on the sweep's system and hierarchy (rebuilt from the
+    memos the runs filled), over the solve's seconds."""
+    from fenics_eff_uptake_tpu_torch.parallel.sweep import \
+        build_transport_system
+    from fenics_eff_uptake_tpu_torch.solvers.multilevel import \
+        build_multilevel_for
+    from fenics_eff_uptake_tpu_torch.studies.common import (
+        make_mesh, make_no_adv_params, sweep_mus)
+    from fenics_eff_uptake_tpu_torch.studies.phase_a import MU_SWEEP_REGIMES
+    from fenics_eff_uptake_tpu_torch.utils.roofline import (
+        ml_cg_iteration_cost, roofline_summary)
+    geom = make_no_adv_params(1.0, sulci_w_dim=0.25, sulci_h_dim=0.25,
+                              mesh_size_dim=0.02)
+    mesh = make_mesh(geom, "sulcus")
+    mus = sweep_mus(geom, [f for fs in MU_SWEEP_REGIMES.values()
+                           for f in fs])
+    sys_t = build_transport_system(mesh, dev, element="P2")
+    ml = build_multilevel_for(sys_t, mesh, [geom.D] * len(mus),
+                              mu_values=mus)
+    cost = ml_cg_iteration_cost(sys_t, ml, len(mus), cycle="hybrid")
+    roof = roofline_summary(cost, iters_executed=max(stats["iters"]),
+                            wall_s=stats["solve_s"],
+                            passes_f64=int(stats["passes"]) + 1,
+                            sys_t=sys_t, B=len(mus), peaks=CARD["peaks"])
+    print(f"[slice] roofline of the steady solve (utils/roofline.py, "
+          f"{max(stats['iters'])} iterations in {stats['solve_s']:.3f}s; "
+          f"{CARD['name']}): {json.dumps(roof)}", flush=True)
+    return roof
 
 
 def _nu_key(r):
@@ -1584,7 +1640,85 @@ PER_RUN_CONFIGS = ("small_uptake_mu_0.1x", "small_uptake_mu_1.0x",
 # the no-uptake row of the reference geometry at Pe = 1 in the artifact
 PER_RUN_NU_KEY = ("sulcus", 0.5, 1.0, 1.0)
 PER_RUN_STAGES = ("mesh", "stokes", "transport", "metrics", "mu_eff",
-                  "mesh_io")
+                  "mesh_io", "paraview")
+# the memo-warm runs that write their ParaView files
+PER_RUN_PARAVIEW = (PER_RUN_CONFIGS[0], "no-uptake")
+
+
+def _vtk_points_and_values(path):
+    """(the POINTS count, the POINT_DATA values as rows) of a legacy-VTK
+    file of utils/vtk.py."""
+    lines = Path(path).read_text().splitlines()
+    n = int(next(l for l in lines if l.startswith("POINTS")).split()[1])
+    k = next(i for i, l in enumerate(lines) if l.startswith("POINT_DATA"))
+    k += 2 if lines[k + 1].startswith("VECTORS") else 3
+    return n, np.array([[float(x) for x in l.split()] for l in lines[k:]])
+
+
+def check_paraview(tag, res, pv_dir):
+    """The ParaView files of a run read back: every grid's POINTS is the
+    mesh's vertex count, and each field's values are the run's own vertex
+    values as written (%.16g, read back exactly; within 1e-15 of the f64
+    values, since 16 digits do not round-trip every f64)."""
+    from fenics_eff_uptake_tpu_torch.utils.vtk import vertex_values
+    V = len(res["mesh_results"]["mesh"].vertices)
+    worst = 0.0
+    for name, fn in (("concentration.vtk", res["c"]),
+                     ("pressure.vtk", res["p"]),
+                     ("velocity.vtk", res["u"])):
+        n, got = _vtk_points_and_values(pv_dir / name)
+        want = vertex_values(fn).reshape(V, -1)
+        if want.shape[1] == 2:
+            want = np.concatenate([want, np.zeros((V, 1))], axis=1)
+        if n != V or got.shape != want.shape:
+            raise AssertionError(f"{tag} {name}: POINTS {n}, values "
+                                 f"{got.shape}, mesh {V} vertices")
+        written = np.vectorize(lambda v: float(f"{v:.16g}"))(want)
+        if not np.array_equal(got, written):
+            raise AssertionError(f"{tag} {name}: values differ from the "
+                                 "run's")
+        scale = max(float(np.abs(want).max()), 1e-300)
+        worst = max(worst, float(np.abs(got - want).max()) / scale)
+    if worst > 1e-15:
+        raise AssertionError(f"{tag}: ParaView values {worst:.3e} off")
+    for name in ("mesh_domains.vtk", "sulcus_mesh.vtk",
+                 "sulcus_bc_markers.vtk"):
+        n = int(next(l for l in (pv_dir / name).read_text().splitlines()
+                     if l.startswith("POINTS")).split()[1])
+        if n != V:
+            raise AssertionError(f"{tag} {name}: POINTS {n} != {V}")
+    normals = sorted(p.name for p in (pv_dir / "normals").iterdir())
+    print(f"[per_run] {tag} ParaView files read back: {V} points, fields "
+          f"as written, max rel diff to f64 {worst:.2e}; "
+          f"{len(normals)} normals files; paraview stage "
+          f"{res['timings']['paraview']:.3f}s", flush=True)
+    return {"points": V, "max_rel": worst, "normals": len(normals),
+            "seconds": res["timings"]["paraview"]}
+
+
+def check_plot_flag(dev, params, root):
+    """run_simulation(plot=True): the ImportError where matplotlib is
+    absent (the card's machine); the figures where it is present."""
+    import importlib.util
+    from fenics_eff_uptake_tpu_torch.simulation import run_simulation
+    have = importlib.util.find_spec("matplotlib") is not None
+    try:
+        run_simulation("no-adv", "Phase A", "plot", "sulcus", params,
+                       device=dev, verbose=False, results_root=str(root),
+                       plot=True)
+    except ImportError as e:
+        if have:
+            raise
+        print(f"[per_run] plot=True without matplotlib: ImportError "
+              f"({e})", flush=True)
+        return "ImportError"
+    if not have:
+        raise AssertionError("plot=True ran without matplotlib")
+    pngs = list(Path(root).rglob("Analysis Plots/*.png"))
+    if len(pngs) < 7:
+        raise AssertionError(f"plot=True wrote {len(pngs)} figures")
+    print(f"[per_run] plot=True wrote {len(pngs)} figures", flush=True)
+    return f"{len(pngs)} figures"
 
 
 def _per_run_timings(tag, res):
@@ -1644,17 +1778,21 @@ def phase_per_run(dev):
     ad_params = create_base_parameters(1.0, 1.0, 0.02)
     stats = {"timings": {}, "solver": {}}
 
+    def no_adv_params(cfg):
+        return make_no_adv_params(factors[cfg], sulci_w_dim=0.25,
+                                  sulci_h_dim=0.25, mesh_size_dim=0.02)
+
     def runs(tag):
         out = {}
         for cfg in PER_RUN_CONFIGS:
-            p = make_no_adv_params(factors[cfg], sulci_w_dim=0.25,
-                                   sulci_h_dim=0.25, mesh_size_dim=0.02)
-            out[cfg] = run_simulation("no-adv", "Phase A", cfg, "sulcus",
-                                      p, device=dev, verbose=False,
-                                      results_root=str(root / tag))
+            out[cfg] = run_simulation(
+                "no-adv", "Phase A", cfg, "sulcus", no_adv_params(cfg),
+                device=dev, verbose=False, results_root=str(root / tag),
+                save_paraview=tag == "warm" and cfg in PER_RUN_PARAVIEW)
         out["no-uptake"] = run_simulation(
             "no-uptake", "Geometry", "reference_pe1", "sulcus", nu_params,
-            device=dev, verbose=False, results_root=str(root / tag))
+            device=dev, verbose=False, results_root=str(root / tag),
+            save_paraview=tag == "warm")
         out["adv-diff"] = run_simulation(
             "adv-diff", "Validation", "sulcus_pe1_mu1", "sulcus", ad_params,
             device=dev, verbose=False, results_root=str(root / tag))
@@ -1673,6 +1811,18 @@ def phase_per_run(dev):
     if missing:
         raise AssertionError(f"kernels never launched by the per-run "
                              f"path: {missing}")
+    # the output stages: the ParaView files of two memo-warm runs read
+    # back, and plot=True
+    stats["paraview"] = {
+        name: check_paraview(
+            name, warm[name], root / "warm" / (
+                "No Uptake Simulations/Geometry/reference_pe1"
+                if name == "no-uptake" else
+                f"No Advection Simulations/Phase A/{name}")
+            / "ParaView Files")
+        for name in PER_RUN_PARAVIEW}
+    stats["plot"] = check_plot_flag(dev, no_adv_params(PER_RUN_CONFIGS[0]),
+                                    root / "plot")
 
     # gates: residuals and counts, then the artifacts' rows
     for name, res in cold.items():
@@ -2818,6 +2968,11 @@ def _main(args, card, t_start):
     from fenics_eff_uptake_tpu_torch.ops import _build
 
     dev = setup("cuda")
+    CARD["name"] = card
+    pk = card_peaks(dev)
+    print(f"[device] peaks ({pk['kind']}, utils/roofline.py): HBM "
+          f"{pk['hbm_gbps']} GB/s, bf16 {pk['bf16_tflops']}, f32 "
+          f"{pk['f32_tflops']}, f64 {pk['f64_tflops']} TFLOP/s", flush=True)
     t0 = time.time()
     lib_path = _build.build()
     _build.library()

@@ -72,7 +72,8 @@ __all__ = ["TransportSystem", "build_transport_system", "system_to",
            "system_from_arrays",
            "unpermute_columns", "robin_matrices_for_mu", "OperatorArgs",
            "operator_args", "apply_operator", "operator_rhs", "fine_dinv",
-           "solve_sweep", "BAND_TILE", "PRECISIONS"]
+           "solve_sweep", "build_mu_sweep_system", "solve_mu_sweep",
+           "MuSweepSystem", "BAND_TILE", "PRECISIONS"]
 
 # rows per band tile; systems are padded to a multiple of it (and to
 # nothing else)
@@ -209,6 +210,8 @@ class TransportSystem(NamedTuple):
     Advband: Optional[torch.Tensor] = None  # its band, on K's plan
     Kspans: Optional[torch.Tensor] = None   # band_spans of each band
     Advspans: Optional[torch.Tensor] = None
+    mu_sweep_D: Optional[float] = None      # build_mu_sweep_system's fixed
+                                            # D, which solve_mu_sweep uses
 
 
 def _to(x, device):
@@ -774,3 +777,25 @@ def solve_sweep(sys: TransportSystem, D_values, mu_values=None, rtol=1e-12,
             "rel_resnorm": res.resnorm / bn, "true_rel_resnorm": true / bn,
             "converged": true / bn <= rtol}
     return unpermute_columns(sys, X.t()), info
+
+
+# the JAX package's simple-mu API: a pure-diffusion sweep over mu at one D
+MuSweepSystem = TransportSystem
+
+
+def build_mu_sweep_system(mesh: MeshData, device, D=1.0, element="P2",
+                          u_values=None, u_space=None) -> TransportSystem:
+    """``build_transport_system`` with the fixed diffusivity ``D`` of the
+    sweeps that ``solve_mu_sweep`` runs on it recorded on the system."""
+    return build_transport_system(mesh, device, element, u_values,
+                                  u_space)._replace(mu_sweep_D=float(D))
+
+
+def solve_mu_sweep(sys: TransportSystem, mu_values, rtol=1e-13,
+                   **options):
+    """``solve_sweep`` over ``mu_values`` at the system's recorded D (1.0
+    for a system not made by ``build_mu_sweep_system``); ``options`` are
+    ``solve_sweep``'s keyword arguments."""
+    D = 1.0 if sys.mu_sweep_D is None else sys.mu_sweep_D
+    return solve_sweep(sys, [D] * len(mu_values), mu_values=mu_values,
+                       rtol=rtol, **options)

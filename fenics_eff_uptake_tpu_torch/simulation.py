@@ -6,18 +6,22 @@ metrics -> JSON, with the reference's output layout
       {Mesh Files, ParaView Files, Analysis Plots, Results Data}
 
 and its results dict keys.  Each stage is timed (``timings``: mesh,
-stokes, transport, metrics, mu_eff, mesh_io; the device stages end in a
-device sync).  The transport solve is the batched engine at B = 1
-(``models/diffusion.py``, ``models/advdiff.py``); the velocity is the
-Stokes field of ``models/stokes_flow.stokes_solve`` (zero in the no-adv
-mode).  Meshes come through the setup cache (``studies.common.make_mesh``:
-memoised in this process, and on disk under the ``port-mesh`` tag).
+stokes, transport, metrics, mu_eff, plot, mesh_io, paraview; the device
+stages end in a device sync).  The transport solve is the batched engine
+at B = 1 (``models/diffusion.py``, ``models/advdiff.py``); the velocity is
+the Stokes field of ``models/stokes_flow.stokes_solve`` (zero in the
+no-adv mode).  Meshes come through the setup cache
+(``studies.common.make_mesh``: memoised in this process, and on disk under
+the ``port-mesh`` tag).
 
-Not ported yet (``ROADMAP.md`` queue 1 item 8): the plots and the
-ParaView export; ``plot=True`` or ``save_paraview=True`` raise.  The JAX
-package's ``get_coarse_mesh`` (the two-level preconditioner's companion
-mesh) is not ported: that preconditioner is not, and this path never
-needs it (multigrid below h = 0.08, Jacobi above).
+``plot=True`` writes the per-run figures (``plotting.single``) into
+``Analysis Plots`` and needs matplotlib (without it the run raises the
+ImportError, as the JAX package's does); ``save_paraview=True`` writes the
+legacy-VTK fields and the mesh exports (``utils.vtk``,
+``meshing.visualization``) into ``ParaView Files``.  The JAX package's
+``get_coarse_mesh`` (the two-level preconditioner's companion mesh) is
+not ported: that preconditioner is not, and this path never needs it
+(multigrid below h = 0.08, Jacobi above).
 """
 
 from __future__ import annotations
@@ -34,12 +38,16 @@ from .analysis.mu_eff import compute_mu_eff_metrics
 from .analysis.profiles import compute_velocity_metrics
 from .device import setup
 from .meshing.msh_io import write_msh2
+from .meshing.visualization import save_mesh_visualization
 from .models.advdiff import advdiff_solve
 from .models.diffusion import pure_diffusion_solve
 from .models.stokes_flow import stokes_solve, stokes_zero_fields
 from .params import Parameters
+from .plotting.single import plot_single_simulation
 from .studies.common import _MESH_MEMO, _sync, make_mesh
 from .utils.timers import StageTimer
+from .utils.vtk import (write_vtk_cell_scalar, write_vtk_point_scalar,
+                        write_vtk_point_vector)
 
 __all__ = ["run_simulation", "get_mesh", "clear_mesh_cache", "MODE_NAME"]
 
@@ -48,8 +56,6 @@ MODE_NAME = {
     "no-adv": "No Advection",
     "no-uptake": "No Uptake",
 }
-NOT_PORTED = ("not ported yet: plots and ParaView export are ROADMAP.md "
-              "queue 1 item 8")
 
 
 def clear_mesh_cache():
@@ -61,6 +67,21 @@ def get_mesh(params: Parameters, domain_type: str):
     """The mesh of ``params``' geometry and mesh size, through the setup
     cache."""
     return make_mesh(params, domain_type)
+
+
+def _save_paraview(mesh, u, p, c, paraview_dir):
+    """The domain markers, velocity, pressure and concentration as
+    legacy-VTK files (u and p may be None)."""
+    os.makedirs(paraview_dir, exist_ok=True)
+    write_vtk_cell_scalar(os.path.join(paraview_dir, "mesh_domains.vtk"),
+                          mesh, mesh.cell_domain, name="domain")
+    if u is not None:
+        write_vtk_point_vector(os.path.join(paraview_dir, "velocity.vtk"), u)
+    if p is not None:
+        write_vtk_point_scalar(os.path.join(paraview_dir, "pressure.vtk"),
+                               p, name="p")
+    write_vtk_point_scalar(os.path.join(paraview_dir, "concentration.vtk"),
+                           c, name="c")
 
 
 def _json_default(o):
@@ -91,9 +112,8 @@ def run_simulation(mode, study_type, config_name, domain_type,
     arguments of ``stokes_solve`` (rtol, method, precision, the velocity
     cycle's options).  None is the default configuration.  With
     ``save_outputs`` the mesh (``Mesh Files/*.msh`` and ``*.npz``) and
-    ``Results Data/simulation_results.json`` are written."""
-    if plot or save_paraview:
-        raise NotImplementedError(NOT_PORTED)
+    ``Results Data/simulation_results.json`` are written, and with
+    ``plot`` / ``save_paraview`` the figures and the ParaView files."""
     if mode not in MODE_NAME:
         raise ValueError(f"Invalid mode '{mode}'")
     if domain_type not in ("sulcus", "rectangular"):
@@ -171,6 +191,10 @@ def run_simulation(mode, study_type, config_name, domain_type,
             results["mu_eff_comparison"] = compute_mu_eff_metrics(
                 c, mesh, params, flux_metrics)
 
+    if plot and save_outputs:
+        with timer.stage("plot"):
+            plot_single_simulation(results, dirs["Analysis Plots"])
+
     if save_outputs:
         # the mesh as .msh and .npz (the reference writes .geo, .msh and
         # dolfin .xml)
@@ -184,6 +208,11 @@ def run_simulation(mode, study_type, config_name, domain_type,
                 vertices=mesh.vertices, cells=mesh.cells,
                 cell_domain=mesh.cell_domain, bc_marker=mesh.bc_marker,
                 bottom_marker=mesh.bottom_marker, y0_marker=mesh.y0_marker)
+    if save_paraview and save_outputs:
+        with timer.stage("paraview"):
+            _save_paraview(mesh, u, p, c, dirs["ParaView Files"])
+            save_mesh_visualization(mesh, dirs["ParaView Files"])
+    if save_outputs:
         serializable = {
             "params": params.to_dict(),
             "mass_metrics": mass_metrics,

@@ -67,7 +67,8 @@ from ..parallel.sweep import (TransportSystem, _Block, _np,
 from ..utils.diskcache import Memo, cache_key_of, cached_arrays, count
 
 __all__ = ["Transfer", "TransferBands", "Level", "MultilevelData",
-           "level_meshes_for", "level_velocities", "level_robin_matrices",
+           "coarse_level_meshes", "level_meshes_for", "level_velocities",
+           "level_robin_matrices",
            "build_multilevel", "build_multilevel_for",
            "make_ml_preconditioner", "newton_schulz_inverse",
            "gather_transfer", "CYCLES"]
@@ -132,6 +133,14 @@ class MultilevelData(NamedTuple):
                               # bf16 bands and Robin blocks and the f64
                               # cycle's gather plans, none of which depends on
                               # the columns, and ("Ainv64", B), which does
+
+
+def coarse_level_meshes(mesh_kwargs, mesh_size, factors=LEVEL_FACTORS):
+    """Meshes of one geometry at ``mesh_size * f`` for each of ``factors``
+    (fine -> coarse); ``mesh_kwargs``: ``generate_mesh``'s keyword
+    arguments other than ``mesh_size``."""
+    return [generate_mesh(mesh_size=mesh_size * f, **mesh_kwargs)
+            for f in factors]
 
 
 _LEVEL_MESH_MEMO = Memo(MESH_TAG, cap=64)

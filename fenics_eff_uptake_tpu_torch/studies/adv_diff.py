@@ -10,11 +10,16 @@ columns are ONE batched BiCGStab with mu per column, the surrogates a
 second one whose Robin term is a per-column batch of facet matrices.
 Writes ``advdiff_validation_step_pe_x_mu.csv`` with the JAX package's
 columns in its order (sorted by Pe, mu_factor, domain_type) and
-``study_metadata.json``.  No pandas.  The plots are not ported yet.
+``study_metadata.json`` into ``Results Data/`` and, where matplotlib
+imports, the validation heatmaps and the mu(x) grid into
+``Analysis Plots/`` (``plotting.adv_diff_plots``).  No pandas.
 
-    python -m fenics_eff_uptake_tpu_torch.studies.adv_diff \\
+    python -m fenics_eff_uptake_tpu_torch.studies.adv_diff [run | replot] \\
         [--mesh-size 0.02] [--output-base DIR] [--device cuda] \\
         [--shard N --tp T]
+
+``replot`` (``replot_from_csv``) draws the figures again from the CSV
+under ``--output-base``.
 
 ``--shard N`` runs every solve (both Stokes saddles, the sulcus batch and
 the step-mu surrogates) sharded over N ranks, started once for the run
@@ -29,11 +34,14 @@ import time
 
 from ..analysis.batched_metrics import build_sweep_metrics, metrics_to_dicts
 from ..params import Parameters, StepUptakeOpen
-from .common import (_sync, add_shard_arguments, make_mesh, save_csv,
-                     save_metadata, shard_group, stokes_for_study,
+from ..plotting.adv_diff_plots import create_validation_plots
+from ..plotting.table import Table
+from .common import (_sync, add_shard_arguments, make_mesh, plot_or_skip,
+                     save_csv, save_metadata, shard_group, stokes_for_study,
                      transport_batch)
 
 __all__ = ["run_advdiff_step_validation", "create_base_parameters",
+           "replot_from_csv",
            "PE_VALUES", "MU_FACTORS", "REFERENCE_GEOMETRY", "OUTPUT_BASE",
            "CSV_NAME"]
 
@@ -241,19 +249,39 @@ def run_advdiff_step_validation(output_base_dir=OUTPUT_BASE,
         "elapsed_s": time.time() - t0,
         "solver": stats,
     }, os.path.join(results_dir, "study_metadata.json"))
+    plot_or_skip("adv-diff validation plots", create_validation_plots, rows,
+                 os.path.join(output_base_dir, "Analysis Plots"))
     print(f"Adv-diff validation done in {time.time() - t0:.1f}s")
     return rows, stats
+
+
+def replot_from_csv(output_base_dir=OUTPUT_BASE):
+    """The figures again from the saved CSV; needs matplotlib.  Returns
+    the CSV's Table, or None where there is no CSV."""
+    csv_path = os.path.join(output_base_dir, "Results Data", CSV_NAME)
+    if not os.path.exists(csv_path):
+        print(f"No CSV at {csv_path}")
+        return None
+    t = Table.read_csv(csv_path)
+    create_validation_plots(t, os.path.join(output_base_dir,
+                                            "Analysis Plots"))
+    return t
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Adv-diff step-mu validation on PyTorch")
+    ap.add_argument("command", choices=["run", "replot"], nargs="?",
+                    default="run")
     ap.add_argument("--mesh-size", type=float, default=None)
     ap.add_argument("--output-base", default=OUTPUT_BASE)
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on ('cuda' or 'cpu')")
     add_shard_arguments(ap)
     args = ap.parse_args(argv)
+    if args.command == "replot":
+        replot_from_csv(args.output_base)
+        return
     with shard_group(args) as group:
         run_advdiff_step_validation(args.output_base,
                                     mesh_size_dim=args.mesh_size,

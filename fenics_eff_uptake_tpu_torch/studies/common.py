@@ -45,8 +45,8 @@ from ..utils.diskcache import Memo
 
 __all__ = ["make_no_adv_params", "make_mesh", "sweep_mus", "no_adv_batch",
            "stokes_for_study", "transport_batch", "add_shard_arguments",
-           "shard_group",
-           "create_study_dir", "save_csv", "save_metadata"]
+           "shard_group", "create_study_dirs",
+           "plot_or_skip", "save_csv", "save_metadata"]
 
 
 def make_no_adv_params(mu_factor=1.0, sulci_w_dim=None, sulci_h_dim=None,
@@ -359,11 +359,29 @@ def shard_group(args):
     return RankGroup(args.shard, args.tp, args.device, args.backend)
 
 
-def create_study_dir(study_name, base_dir):
-    """<base>/<study> Analysis, where the study's CSV and metadata go."""
+def create_study_dirs(study_name, base_dir):
+    """<base>/<study> Analysis (where the study's CSV, metadata and
+    figures go) and <base>/<study> Simulations, made; returns (study_dir,
+    sim_dir) (ref plotting.py:241-247)."""
     study_dir = os.path.join(base_dir, f"{study_name} Analysis")
+    sim_dir = os.path.join(base_dir, f"{study_name} Simulations")
     os.makedirs(study_dir, exist_ok=True)
-    return study_dir
+    os.makedirs(sim_dir, exist_ok=True)
+    return study_dir, sim_dir
+
+
+def plot_or_skip(what, plot, *args):
+    """``plot(*args)`` where matplotlib imports; where it does not, one
+    line saying that ``what`` was skipped, and the study goes on.  Any
+    error of the plotting itself propagates.  Returns whether it
+    plotted."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print(f"  plots skipped ({what}): matplotlib is not installed")
+        return False
+    plot(*args)
+    return True
 
 
 def _cell(v):

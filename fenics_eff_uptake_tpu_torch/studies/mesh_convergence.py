@@ -9,7 +9,9 @@ limits, and writes ``mesh_convergence_results.csv`` and
 ``study_metadata.json`` with the JAX package's rows, order and keys.  With
 ``realisation_check`` it also solves on a second, independently generated
 mesh at h * 1.005 of the finest rung: the mesh-realisation floor no
-comparison with meshes of another mesher can beat.  The plot is not ported.
+comparison with meshes of another mesher can beat.  Where matplotlib
+imports, ``convergence_mu_eff`` (.png and .pdf) plots each mu factor's
+|mu_eff^sim(h) - mu_eff^sim(h_min)| against h.
 
     python -m fenics_eff_uptake_tpu_torch.studies.mesh_convergence \\
         [--coarse] [--base-dir DIR] [--device cuda]
@@ -23,8 +25,9 @@ import time
 
 import numpy as np
 
-from .common import (create_study_dir, make_no_adv_params, no_adv_batch,
-                     save_csv, save_metadata)
+from ..plotting.style import safe_plot
+from .common import (create_study_dirs, make_no_adv_params, no_adv_batch,
+                     plot_or_skip, save_csv, save_metadata)
 
 __all__ = ["run_mesh_convergence", "richardson", "DEFAULT_LADDER",
            "COARSE_LADDER", "BASE_DIR"]
@@ -88,7 +91,7 @@ def run_mesh_convergence(device, mu_factors=(0.1, 1.0, 10.0), ladder=None,
     t0 = time.time()
     ladder = list(DEFAULT_LADDER if ladder is None else ladder)
     mu_factors = list(mu_factors)
-    study_dir = create_study_dir("Mesh Convergence", base_dir)
+    study_dir, _ = create_study_dirs("Mesh Convergence", base_dir)
 
     def rung(h):
         geom = make_no_adv_params(1.0, sulci_w_dim=sulci_w_dim,
@@ -146,8 +149,23 @@ def run_mesh_convergence(device, mu_factors=(0.1, 1.0, 10.0), ladder=None,
         "elapsed_s": time.time() - t0,
     }
     save_metadata(meta, os.path.join(study_dir, "study_metadata.json"))
+    plot_or_skip("mesh-convergence plot", _plot_convergence, rows,
+                 mu_factors, os.path.join(study_dir, "convergence_mu_eff"))
     print(f"Mesh convergence done in {time.time() - t0:.1f}s")
     return rows, meta, stats
+
+
+def _plot_convergence(rows, mu_factors, path_base):
+    with safe_plot(path_base) as (fig, ax):
+        for mf in mu_factors:
+            sub = sorted((r for r in rows if r["mu_factor"] == mf),
+                         key=lambda r: r["mesh_size"])
+            q = np.array([r["mu_eff_sim"] for r in sub], dtype=float)
+            ax.loglog([r["mesh_size"] for r in sub],
+                      np.abs(q - q[0]) + 1e-16, "o-", label=f"mu*={mf}")
+        ax.set_xlabel("mesh size h")
+        ax.set_ylabel(r"|mu_eff^sim(h) - mu_eff^sim(h_min)|")
+        ax.legend()
 
 
 def main(argv=None):

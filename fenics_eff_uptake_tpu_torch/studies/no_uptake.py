@@ -11,12 +11,20 @@ the line profiles of every Pe with the rectangle's overlaid:
 ``Profiles/profiles_samples_<geometry>.csv`` (one row per sample point) and
 ``Profiles/profiles_<geometry>.csv`` (min, max and mean per line), with the
 JAX package's names, columns and row order.  No pandas: the grouping and
-the ratio join are plain Python.  The plots are not ported yet.
+the ratio join are plain Python.  Where matplotlib imports, the figures
+follow (``plotting.no_uptake_plots``): a profile grid per
+``Profiles/profiles_samples_*.csv`` into ``Profiles/Grids/``, and the
+exchange and velocity-ratio heatmaps into ``Plots/``.
 
     python -m fenics_eff_uptake_tpu_torch.studies.no_uptake \\
+        [run | baselines | replot] \\
         [--geometries reference,square_small] [--peclet 0.1,1,10] \\
         [--mesh-size 0.02] [--base-dir DIR] [--device cuda] \\
         [--shard N --tp T]
+
+``baselines`` runs the rectangle alone and writes nothing; ``replot``
+(``replot_from_csv``) draws the heatmaps again from the CSV under
+``--base-dir``.
 
 ``--shard N`` runs every solve (the Stokes saddle and the Pe batches)
 sharded over N ranks, started once for the run (``studies.common``); the
@@ -35,14 +43,18 @@ from ..analysis.batched_metrics import build_sweep_metrics, metrics_to_dicts
 from ..analysis.profiles import compute_conc_profiles, compute_velocity_metrics
 from ..fem.space import Function
 from ..params import Parameters, create_geometry_variations
-from .common import (_sync, add_shard_arguments, create_study_dir,
-                     make_mesh, save_csv, save_metadata, shard_group,
-                     stokes_for_study, transport_batch)
+from ..plotting.no_uptake_plots import (generate_all_plots,
+                                        plot_profiles_grid_from_samples_csv)
+from ..plotting.table import Table
+from .common import (_sync, add_shard_arguments, create_study_dirs,
+                     make_mesh, plot_or_skip, save_csv, save_metadata,
+                     shard_group, stokes_for_study, transport_batch)
 
 __all__ = ["run_geometry_study", "run_rectangular_baselines",
            "add_ratio_metrics", "collect_profile_rows",
            "export_profile_samples_csv_sulci", "export_profile_stats_csv",
-           "PECLET_NUMBERS", "PROFILE_GEOMETRIES", "RATIO_COLUMNS",
+           "replot_from_csv", "PECLET_NUMBERS", "PROFILE_GEOMETRIES",
+           "RATIO_COLUMNS",
            "BASE_DIR"]
 
 PECLET_NUMBERS = [0.1, 1.0, 10.0]
@@ -339,7 +351,7 @@ def run_geometry_study(geometries=None, peclet_numbers=None,
     pes = list(peclet_numbers or PECLET_NUMBERS)
     print("=" * 64 + "\nNO-UPTAKE GEOMETRY x PECLET STUDY\n" + "=" * 64)
     t0 = time.time()
-    study_dir = create_study_dir("Geometry Comparison", base_dir)
+    study_dir, _ = create_study_dirs("Geometry Comparison", base_dir)
     configs = create_geometry_variations(Parameters(mode="no-uptake"),
                                          max_width=1.0)
     if geometries is not None:
@@ -373,6 +385,10 @@ def run_geometry_study(geometries=None, peclet_numbers=None,
         prof_dir = os.path.join(study_dir, "Profiles")
         export_profile_samples_csv_sulci(profile_runs, prof_dir)
         export_profile_stats_csv(profile_runs, prof_dir)
+        plot_or_skip("no-uptake profile grids", _plot_profile_grids,
+                     prof_dir)
+    plot_or_skip("no-uptake heatmaps", generate_all_plots, rows,
+                 os.path.join(study_dir, "Plots"))
     save_metadata({
         "study_type": "No-Uptake Geometry Comparison",
         "peclet_numbers": pes, "n_geometries": len(configs),
@@ -383,9 +399,31 @@ def run_geometry_study(geometries=None, peclet_numbers=None,
     return rows, stats
 
 
+def _plot_profile_grids(prof_dir):
+    from glob import glob
+    for csv in sorted(glob(os.path.join(prof_dir,
+                                        "profiles_samples_*.csv"))):
+        plot_profiles_grid_from_samples_csv(csv)
+
+
+def replot_from_csv(base_dir=BASE_DIR):
+    """The heatmaps again from the saved CSV; needs matplotlib.  Returns
+    the CSV's Table, or None where there is no CSV."""
+    study_dir = os.path.join(base_dir, "Geometry Comparison Analysis")
+    csv_path = os.path.join(study_dir, "geometry_comparison_results.csv")
+    if not os.path.exists(csv_path):
+        print(f"No CSV at {csv_path}")
+        return None
+    t = Table.read_csv(csv_path)
+    generate_all_plots(t, os.path.join(study_dir, "Plots"))
+    return t
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="No-uptake geometry x Pe study on PyTorch")
+    ap.add_argument("command", choices=["run", "baselines", "replot"],
+                    nargs="?", default="run")
     ap.add_argument("--geometries", default=None,
                     help="comma-separated geometry keys (default: all)")
     ap.add_argument("--peclet", default=None,
@@ -396,12 +434,20 @@ def main(argv=None):
                     help="torch device to run on ('cuda' or 'cpu')")
     add_shard_arguments(ap)
     args = ap.parse_args(argv)
+    if args.command == "replot":
+        replot_from_csv(args.base_dir)
+        return
+    pes = ([float(x) for x in args.peclet.split(",")] if args.peclet
+           else None)
     with shard_group(args) as group:
+        if args.command == "baselines":
+            run_rectangular_baselines(pes, args.mesh_size, args.device,
+                                      shard=group)
+            return
         run_geometry_study(
             geometries=(args.geometries.split(",") if args.geometries
                         else None),
-            peclet_numbers=([float(x) for x in args.peclet.split(",")]
-                            if args.peclet else None),
+            peclet_numbers=pes,
             mesh_size_dim=args.mesh_size, base_dir=args.base_dir,
             device=args.device, shard=group)
 

@@ -11,6 +11,10 @@ JAX package's columns and a ``study_metadata.json``.
 
     python -m fenics_eff_uptake_tpu_torch.studies.phase_a --study mu_sweep \\
         [--mesh-size 0.02] [--base-dir DIR] [--device cuda]
+
+The studies write no figures; ``--study replot`` (``replot_from_csv``)
+draws them from every Phase-A CSV under ``--base-dir`` into a ``Plots/``
+beside each, and needs matplotlib.
 """
 
 from __future__ import annotations
@@ -23,13 +27,14 @@ import numpy as np
 
 from ..analysis.mu_eff import sample_mu_along_bottom
 from ..params import Parameters, create_geometry_variations
-from .common import (create_study_dir, make_no_adv_params, no_adv_batch,
+from ..plotting.phase_a_plots import phase_a_csv_kind, plot_phase_a_csv
+from .common import (create_study_dirs, make_no_adv_params, no_adv_batch,
                      save_csv, save_metadata)
 
 __all__ = ["run_mu_sweep", "run_aspect_ratio_analysis",
            "run_geometry_analysis", "run_mu_eff_analysis",
-           "aspect_ratio_depths", "MU_SWEEP_REGIMES", "ASPECT_RATIOS",
-           "BASE_DIR"]
+           "aspect_ratio_depths", "replot_from_csv", "MU_SWEEP_REGIMES",
+           "ASPECT_RATIOS", "BASE_DIR"]
 
 BASE_DIR = "Results/No Advection Simulations/Phase A"
 
@@ -78,7 +83,7 @@ def run_mu_sweep(device, mesh_size_dim=0.02, base_dir=BASE_DIR,
     ``shard``, a started ``RankGroup`` that solves the batch sharded)."""
     print("=" * 60 + "\nMU PARAMETER SWEEP STUDY\n" + "=" * 60)
     t0 = time.time()
-    study_dir = create_study_dir("Mu Parameter Sweep", base_dir)
+    study_dir, _ = create_study_dirs("Mu Parameter Sweep", base_dir)
     factors = [f for regime in MU_SWEEP_REGIMES.values() for f in regime]
     regimes = [name for name, fs in MU_SWEEP_REGIMES.items() for _ in fs]
     geom = make_no_adv_params(1.0, sulci_w_dim=0.25, sulci_h_dim=0.25,
@@ -132,7 +137,7 @@ def run_aspect_ratio_analysis(device, mesh_size_dim=0.02, base_dir=BASE_DIR,
     (rows, stats) with one stats dict per geometry."""
     print("=" * 60 + "\nASPECT RATIO ANALYSIS\n" + "=" * 60)
     t0 = time.time()
-    study_dir = create_study_dir("Aspect Ratio Study", base_dir)
+    study_dir, _ = create_study_dirs("Aspect Ratio Study", base_dir)
     if depths is None:
         depths = aspect_ratio_depths()
     rows, stats = [], []
@@ -173,7 +178,7 @@ def run_geometry_analysis(device, mu_factors=(0.1, 1.0, 10),
     stats) with one stats dict per geometry."""
     print("=" * 60 + "\nGEOMETRY ANALYSIS STUDY\n" + "=" * 60)
     t0 = time.time()
-    study_dir = create_study_dir("Geometry Analysis", base_dir)
+    study_dir, _ = create_study_dirs("Geometry Analysis", base_dir)
     configs = create_geometry_variations(Parameters(mode="no-adv"),
                                          max_width=1.0)
     if geometries is not None:
@@ -219,7 +224,7 @@ def run_mu_eff_analysis(device, mu_factors=(0.1, 1.0, 10.0),
     along the bottom.  Returns (rows, stats)."""
     print("=" * 60 + "\nMU_EFF SPATIAL ANALYSIS\n" + "=" * 60)
     t0 = time.time()
-    study_dir = create_study_dir("Mu_Eff Spatial Analysis", base_dir)
+    study_dir, _ = create_study_dirs("Mu_Eff Spatial Analysis", base_dir)
     geom = make_no_adv_params(1.0, sulci_w_dim=0.5, sulci_h_dim=1.0,
                               mesh_size_dim=mesh_size_dim)
     results, stats = no_adv_batch(geom, list(mu_factors), "sulcus", device,
@@ -276,6 +281,25 @@ def run_mu_eff_analysis(device, mu_factors=(0.1, 1.0, 10.0),
     return rows, stats
 
 
+def replot_from_csv(base_dir=BASE_DIR):
+    """The figures of every Phase-A CSV under ``base_dir`` (ref
+    :1684-1717); a CSV whose name is no Phase-A study's is left out with
+    one line.  Returns the paths plotted."""
+    from glob import glob
+    csvs = sorted(glob(os.path.join(base_dir, "**", "*.csv"), recursive=True))
+    if not csvs:
+        print("No CSV files found.")
+        return []
+    done = []
+    for path in csvs:
+        if phase_a_csv_kind(path) is None:
+            print(f"  not a Phase-A CSV, left out: {path}")
+            continue
+        plot_phase_a_csv(path)
+        done.append(path)
+    return done
+
+
 STUDIES = {"mu_sweep": run_mu_sweep,
            "aspect_ratio": run_aspect_ratio_analysis,
            "geometry": run_geometry_analysis,
@@ -285,12 +309,16 @@ STUDIES = {"mu_sweep": run_mu_sweep,
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Phase-A no-advection studies on PyTorch")
-    ap.add_argument("--study", choices=[*STUDIES, "all"], default="mu_sweep")
+    ap.add_argument("--study", choices=[*STUDIES, "all", "replot"],
+                    default="mu_sweep")
     ap.add_argument("--mesh-size", type=float, default=0.02)
     ap.add_argument("--base-dir", default=BASE_DIR)
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on ('cuda' or 'cpu')")
     args = ap.parse_args(argv)
+    if args.study == "replot":
+        replot_from_csv(args.base_dir)
+        return
     for name, run in STUDIES.items():
         if args.study in (name, "all"):
             run(args.device, mesh_size_dim=args.mesh_size,

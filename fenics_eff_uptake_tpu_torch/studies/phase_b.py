@@ -10,12 +10,16 @@ values are ONE batched CG solve) and are compared by
   flux_error_pct = 100 (flux_rect - flux_sulc) / |flux_sulc|
 
 Writes ``no_adv_mu_sweep_results.csv`` with the JAX package's columns,
-sorted by mu factor and geometry, and ``study_metadata.json``.  No pandas.
-The heatmaps are not ported yet.
+sorted by mu factor and geometry, ``study_metadata.json`` and, where
+matplotlib imports, the heatmaps of CR, flux ratio and flux error per mu
+factor into ``Plots/`` (``plotting.phase_b_plots``).  No pandas.
 
-    python -m fenics_eff_uptake_tpu_torch.studies.phase_b \\
+    python -m fenics_eff_uptake_tpu_torch.studies.phase_b [run | replot] \\
         [--geometries reference,square_medium] [--mesh-size 0.02] \\
         [--output-base DIR] [--device cuda] [--shard N --tp T]
+
+``replot`` (``replot_from_csv``) draws the heatmaps again from the CSV
+under ``--output-base``.
 
 ``--shard N`` solves every batch sharded over N ranks (``--tp`` cells
 ranks per sweep row; ``studies.common``), started once for the run; the
@@ -31,11 +35,14 @@ import time
 import numpy as np
 
 from ..params import Parameters, create_geometry_variations
-from .common import (add_shard_arguments, create_study_dir,
-                     make_no_adv_params, no_adv_batch, save_csv,
-                     save_metadata, shard_group)
+from ..plotting.phase_b_plots import create_heatmaps
+from ..plotting.table import Table
+from .common import (add_shard_arguments, create_study_dirs,
+                     make_no_adv_params, no_adv_batch, plot_or_skip,
+                     save_csv, save_metadata, shard_group)
 
-__all__ = ["run_no_adv_mu_sweep", "MU_FACTORS", "OUTPUT_BASE", "CSV_NAME"]
+__all__ = ["run_no_adv_mu_sweep", "replot_from_csv", "MU_FACTORS",
+           "OUTPUT_BASE", "CSV_NAME"]
 
 MU_FACTORS = [0.1, 0.5, 1.0]
 OUTPUT_BASE = "Results/No Advection Simulations/mu Sweep"
@@ -68,7 +75,7 @@ def run_no_adv_mu_sweep(device, output_base=OUTPUT_BASE, mesh_size_dim=0.02,
     mu_factors = list(MU_FACTORS if mu_factors is None else mu_factors)
     print("=" * 64 + "\nNO ADVECTION -- mu SWEEP OVER GEOMETRIES\n" + "=" * 64)
     t0 = time.time()
-    study_dir = create_study_dir("mu Sweep", output_base)
+    study_dir, _ = create_study_dirs("mu Sweep", output_base)
     configs = create_geometry_variations(Parameters(mode="no-adv"),
                                          max_width=1.0)
     if geometries is not None:
@@ -135,12 +142,36 @@ def run_no_adv_mu_sweep(device, output_base=OUTPUT_BASE, mesh_size_dim=0.02,
         "solver": stats,
     }, os.path.join(study_dir, "study_metadata.json"))
     print(f"Phase B sweep done in {time.time() - t0:.1f}s")
+    plot_or_skip("Phase-B heatmaps", create_heatmaps, rows,
+                 os.path.join(study_dir, "Plots"))
     return rows, stats
+
+
+def replot_from_csv(output_base=OUTPUT_BASE):
+    """The heatmaps again from the saved CSV (ref :351-391), the flux
+    error computed where the CSV lacks it; needs matplotlib.  Returns the
+    CSV's Table, or None where there is no CSV."""
+    study_dir = os.path.join(output_base, "mu Sweep Analysis")
+    csv_path = os.path.join(study_dir, CSV_NAME)
+    if not os.path.exists(csv_path):
+        print(f"No CSV at {csv_path}")
+        return None
+    t = Table.read_csv(csv_path)
+    if "flux_error_pct" not in t and \
+            {"flux_rect_bottom", "flux_sulc_y0"} <= set(t.columns):
+        denom = np.abs(t["flux_sulc_y0"])
+        denom = np.where(denom == 0.0, 1.0, denom)
+        t["flux_error_pct"] = 100.0 * (
+            t["flux_rect_bottom"] - t["flux_sulc_y0"]) / denom
+    create_heatmaps(t, os.path.join(study_dir, "Plots"))
+    return t
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Phase-B sulcus-against-rectangle mu sweep on PyTorch")
+    ap.add_argument("command", choices=["run", "replot"], nargs="?",
+                    default="run")
     ap.add_argument("--mesh-size", type=float, default=0.02)
     ap.add_argument("--output-base", default=OUTPUT_BASE)
     ap.add_argument("--geometries", default=None,
@@ -149,6 +180,9 @@ def main(argv=None):
                     help="torch device to run on ('cuda' or 'cpu')")
     add_shard_arguments(ap)
     args = ap.parse_args(argv)
+    if args.command == "replot":
+        replot_from_csv(args.output_base)
+        return
     with shard_group(args) as group:
         run_no_adv_mu_sweep(
             args.device, args.output_base, args.mesh_size,

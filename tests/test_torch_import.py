@@ -1,6 +1,7 @@
-"""The PyTorch port imports neither jax, pandas nor triton (the card's
-machine has no jax and no pandas), and nothing of the JAX package: it
-carries its own copies of the host layers it uses."""
+"""The PyTorch port imports neither jax, pandas, matplotlib nor triton (the
+card's machine has no jax, no pandas and no matplotlib: the plotting
+modules import matplotlib inside their functions), and nothing of the JAX
+package: it carries its own copies of the host layers it uses."""
 
 # Each check runs in a fresh interpreter: this test process has jax loaded
 # already (tests/conftest.py).
@@ -38,12 +39,18 @@ def test_port_modules_load_no_jax_or_triton():
                  "solvers.mixed", "solvers.stokes", "analysis.integrals",
                  "analysis.mass", "analysis.boundary_export",
                  "meshing.msh_io", "utils.timers", "parallel.sharding",
-                 "parallel.sharded_solve"):
+                 "parallel.sharded_solve", "utils.vtk", "utils.profiling",
+                 "utils.roofline", "meshing.visualization",
+                 "plotting.style", "plotting.single", "plotting.comparison",
+                 "plotting.phase_a_plots", "plotting.phase_b_plots",
+                 "plotting.no_uptake_plots", "plotting.adv_diff_plots",
+                 "plotting.table"):
         assert f"fenics_eff_uptake_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = [k for k in ('jax', 'jaxlib', 'triton', 'pandas') "
+            "bad = [k for k in ('jax', 'jaxlib', 'triton', 'pandas', "
+            "'matplotlib') "
             "if k in sys.modules]\n"
             "assert not bad, bad\n"
             "print('ok')\n")
@@ -112,7 +119,7 @@ def test_chip_smoke_loads_no_jax():
     assert "fenics_eff_uptake_tpu_torch.utils" in names, names
     bad = [n for n in names
            if n.split(".")[0] in ("jax", "jaxlib", "fenics_eff_uptake_tpu",
-                                  "pandas")]
+                                  "pandas", "matplotlib")]
     assert not bad, bad
 
 

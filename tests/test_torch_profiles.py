@@ -176,7 +176,11 @@ def port_study(tmp_path_factory):
 def test_study_writes_the_profile_csvs(port_study):
     prof, rows, stats = port_study
     assert sorted(p.name for p in prof.iterdir()) == [
-        "profiles_samples_square_small.csv", "profiles_square_small.csv"]
+        "Grids", "profiles_samples_square_small.csv",
+        "profiles_square_small.csv"]
+    # the profile grid of the samples, as the JAX study draws it
+    assert sorted(p.name for p in (prof / "Grids").iterdir()) == [
+        "profiles_grid_square_small.pdf", "profiles_grid_square_small.png"]
     samples = _read(prof / "profiles_samples_square_small.csv")
     golden = _read(GOLDEN / "profiles_samples_square_small.csv")
     assert list(samples[0]) == list(golden[0])

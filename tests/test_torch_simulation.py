@@ -163,12 +163,8 @@ def test_run_simulation_advdiff_rect_conserves(tmp_path):
     assert abs(total) < 0.05 * scale
 
 
-def test_run_simulation_refuses_what_is_not_ported(tmp_path):
+def test_run_simulation_refuses_bad_mode_and_missing_card(tmp_path):
     p = _coarse_params("no-adv")
-    for kw in (dict(plot=True), dict(save_paraview=True)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            run_simulation("no-adv", "T", "c", "sulcus", p, device="cpu",
-                           results_root=str(tmp_path), **kw)
     with pytest.raises(ValueError, match="Invalid mode"):
         run_simulation("diffusion", "T", "c", "sulcus", p, device="cpu")
     if not torch.cuda.is_available():
