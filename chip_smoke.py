@@ -87,6 +87,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    own with the card's name and power limit, ``roofline_summary`` of the
    steady run's solve (utils/roofline.py's model of one iteration on the
    sweep's system and hierarchy, over the solve's seconds).
+4b. twolevel: the same workload (the ``bench.py`` sweep: h = 0.02, B =
+   20) in mixed precision under the two-level preconditioner of
+   solvers/twolevel.py on the coarse mesh at h = 0.08
+   (``simulation.get_coarse_mesh``'s), per-sample coarse inverses and
+   then the Woodbury form, each built cold and solved twice: every
+   column's true f64 relative residual <= 1e-11, X within 1e-8 of max |X|
+   of the multigrid solve of the same system (the slice's, solved again),
+   the Woodbury X within 1e-8 of the per-sample X, the second solve equal
+   to the first, and kernels A and C (both forms) launched by the solve,
+   B and the bf16 forms not.  Prints the iterations, passes, setup and
+   solve seconds, the coarse inverses' MB on the card and the launches of
+   A and C on a line per form.
 5. no_uptake: the no-uptake study on the reference geometry (w = 0.5,
    d = 1.0 mm), the profile geometries ``largest`` (1.0 x 2.0) and
    ``square_small`` (0.2 x 0.2) and the rectangle at h = 0.02, Pe = 0.1,
@@ -99,7 +111,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    card records; the two profile geometries' counts are printed), the 12
    CSV rows against the committed JAX artifact
    examples/no_uptake_tpu_h0.02 (1e-6 relative; the signed net fluxes
-   1e-6 |Mouth Q_in| absolute), the two geometries' Profiles/ CSVs against
+   1e-6 max(|Mouth Q_in|, 1e-3) absolute, studies/artifacts.py), the two
+   geometries' Profiles/ CSVs against
    the artifact's (every row; sample coordinates to 1e-12, c and the line
    statistics to 1e-6 of max(|c|, 1e-3), sample counts exactly), and that
    the steady run's rows and profile CSVs equal the first run's.
@@ -217,8 +230,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    while the ranks solve).  The study's sharded calls are read from the
    rank group's ``log``.
 
-Every study phase (4-7, 9, 11) starts on an empty cache directory of its own
-with the memos emptied, so its first run is cold and its steady run warm;
+Every study phase (4, 4b, 5-7, 9, 11) starts on an empty cache directory
+of its own with the memos emptied, so its first run is cold and its
+steady run warm;
 the directories lie under a fresh build/cache/run-* of this run, removed
 at its end.
 
@@ -260,11 +274,6 @@ GOLDEN_NU_CSV = (ROOT / "examples" / "no_uptake_tpu_h0.02"
                  / "geometry_comparison_results.csv")
 GOLDEN_AD_CSV = (ROOT / "examples" / "advdiff_tpu_h0.02" / "Results Data"
                  / "advdiff_validation_step_pe_x_mu.csv")
-GOLDEN_MUEFF_CSV = (ROOT / "examples" / "phase_a_tpu_h0.02"
-                    / "Mu_Eff Spatial Analysis Analysis"
-                    / "mu_eff_analysis_results.csv")
-GOLDEN_PB_CSV = (ROOT / "examples" / "phase_b_tpu_h0.02"
-                 / "no_adv_mu_sweep_results.csv")
 OUT_DIR = ROOT / "build" / "chip_smoke"
 B_SWEEP = 20
 BENCH_CELLS = 50647
@@ -289,38 +298,14 @@ BICGSTAB_BOUND = [23, 42, 257]
 AD_BICGSTAB_BOUND = {
     "sulcus": [23, 23, 21, 35, 27, 23, 204, 128, 113],
     "rectangular": [23, 20, 20, 36, 29, 23, 194, 135, 114]}
-# CSV columns held to 1e-6 relative, and the signed net fluxes held to
-# 1e-6 |Mouth Q_in| absolute (differences of much larger fluxes)
-NU_REL_COLUMNS = ("Total Mass", "Avg Concentration",
-                  "Sulcus Avg Concentration", "Mouth E_L1", "Mouth Q_in",
-                  "Max_Ux_mid_channel", "Avg_Ux_mid_channel",
-                  "Concentration_Ratio")
-NU_NET_COLUMNS = ("Mouth_Flux_Total", "Inlet-Outlet Flux")
-# adv-diff CSV columns held to 1e-6 relative; the rectangle's advective
-# flux (0 but for rounding) is held to 1e-6 |total_flux|, flux_error_pct (a
-# difference of fluxes, in percent) to 1e-4 absolute
-AD_REL_COLUMNS = ("total_flux", "diffusive_flux", "uptake_flux",
-                  "mu_eff_arc", "mu_eff_sim", "mu_eff_open", "avg_conc",
-                  "CR", "flux_ratio")
-MUEFF_COLUMNS = ("Mu_Value", "Mu_base_nondim", "Mu_Eff_Simulation",
-                 "Mu_Eff_Analytical", "Mu_Eff_Enhanced", "Mu_Eff_Opening",
-                 "Ratio_Sim", "Ratio_Opening", "Mu_Mean_Bottom")
-PB_COLUMNS = ("avg_conc_sulc", "avg_conc_rect", "flux_sulc_y0",
-              "flux_rect_bottom", "CR", "flux_ratio")
+# the rows of every study are held to the committed artifacts through
+# fenics_eff_uptake_tpu_torch/studies/artifacts.py (its columns and
+# tolerances), which the study runner run_studies.py uses too
 PB_GEOMETRIES = ["reference", "square_medium"]
 # the no-uptake phase's geometries: the reference and the profile ones
 # (studies.no_uptake.PROFILE_GEOMETRIES), by key and (width, depth) in mm
 NU_GEOMETRIES = {"reference": (0.5, 1.0), "largest": (1.0, 2.0),
                  "square_small": (0.2, 0.2)}
-GOLDEN_NU_PROFILES = GOLDEN_NU_CSV.parent / "Profiles"
-# below this |c| (a thousandth of the inflow concentration) profile values
-# are held to 1e-6 of it, absolutely, instead of to 1e-6 of themselves
-C_FLOOR = 1e-3
-GOLDEN_MC = (ROOT / "examples" / "mesh_convergence_tpu_h0.02"
-             / "Mesh Convergence Analysis")
-MC_COLUMNS = ("num_cells", "num_vertices", "hmin", "hmax", "mu_eff_sim",
-              "mu_eff_open", "mu_eff_arc", "mu_eff_enh", "ratio_sim",
-              "y0_flux", "total_mass")
 # the cache tags whose entries a warm run reads from the disk
 DISK_TAGS = ("port-mesh", "port-tsys", "port-mltransfer", "port-tbandplan",
              "port-stokes")
@@ -353,11 +338,8 @@ def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this smoke run needs a CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0].strip()
+    from fenics_eff_uptake_tpu_torch.device import card_line
+    card = card_line("cuda")
     print(card, flush=True)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
@@ -1152,67 +1134,36 @@ def phase_kernels_advdiff(dev):
     return cases, a_cases, c16
 
 
+def _artifacts():
+    from fenics_eff_uptake_tpu_torch.studies import artifacts
+    return artifacts
+
+
 def _csv_rows(path):
-    with open(path, newline="") as f:
-        return list(csv.DictReader(f))
+    return _artifacts().read_rows(path)
 
 
 def _worst(tag, got, want, rel_cols, abs_cols=None, tol=1e-6):
-    """Worst error per column of ``got`` rows (dicts of numbers) against
-    ``want`` (the artifact's rows, text), both keyed alike: ``rel_cols``
-    relative, ``abs_cols`` {column: scale(want row)} absolute over that
-    scale.  Raises on a column above ``tol``."""
-    if sorted(got) != sorted(want):
-        raise AssertionError(f"rows {sorted(got)} vs golden {sorted(want)}")
-    worst = {c: 0.0 for c in (*rel_cols, *(abs_cols or {}))}
-    for key, r in got.items():
-        gr = want[key]
-        for col in worst:
-            if gr[col] == "":
-                if r.get(col) is not None:
-                    raise AssertionError(f"{key} {col}: {r[col]} where the "
-                                         "artifact has none")
-                continue
-            v, ref = float(r[col]), float(gr[col])
-            if not np.isfinite(v):
-                raise AssertionError(f"{key} {col}: {v}")
-            scale = abs(ref) if col in rel_cols else abs_cols[col](gr)
-            worst[col] = max(worst[col], abs(v - ref) / scale)
-    for col, e in worst.items():
-        print(f"[{tag}] {col}: worst diff vs golden {e:.3e} (tol {tol:g})",
-              flush=True)
-    bad = {k: v for k, v in worst.items() if not v <= tol}
-    if bad:
-        raise AssertionError(f"CSV columns off the golden artifact: {bad}")
-    return worst
+    """Worst error per column of ``got`` rows against ``want`` (the
+    artifact's rows, text), both keyed alike: ``rel_cols`` relative,
+    ``abs_cols`` {column: scale(want row)} absolute over that scale
+    (``artifacts.worst_errors``).  Raises on a column above ``tol``."""
+    abs_cols = abs_cols or {}
+    return _artifacts().worst_errors(
+        tag, got, want, tuple(rel_cols), tuple(abs_cols),
+        lambda col, gr: abs_cols[col](gr), tol)
 
 
 def check_against_golden(rows, stats, tol=1e-6, tag="slice"):
+    """The mu sweep's 20 rows against the artifact's, in its order."""
     golden = _csv_rows(GOLDEN_CSV)
-    if len(rows) != len(golden):
-        raise AssertionError(f"{len(rows)} rows vs {len(golden)} golden")
+    if [r["Config"] for r in rows] != [r["Config"] for r in golden]:
+        raise AssertionError(f"row order {[r['Config'] for r in rows]}")
     if stats["cells"] != BENCH_CELLS:
         print(f"[{tag}] FINDING: the mesher made {stats['cells']} cells on "
               f"this host, not the {BENCH_CELLS}-cell mesh of the golden "
               "CSV", flush=True)
-    worst = {}
-    for col in ("Mu_Eff_Simulation", "Total_Mass", "Mouth_Flux_Total"):
-        errs = []
-        for r, gr in zip(rows, golden):
-            if r["Config"] != gr["Config"]:
-                raise AssertionError(f"row order {r['Config']} vs "
-                                     f"{gr['Config']}")
-            v, ref = float(r[col]), float(gr[col])
-            if not np.isfinite(v):
-                raise AssertionError(f"{col} {r['Config']}: {v}")
-            errs.append(abs(v - ref) / abs(ref))
-        worst[col] = max(errs)
-        print(f"[{tag}] {col}: worst rel diff vs golden {worst[col]:.3e} "
-              f"(tol {tol:g})", flush=True)
-    bad = {k: v for k, v in worst.items() if not v <= tol}
-    if bad:
-        raise AssertionError(f"CSV columns off the golden artifact: {bad}")
-    return worst
+    return _artifacts().check_rows("phase_a_mu", rows, tag, tol=tol)
 
 
 def zero_launches():
@@ -1325,6 +1276,108 @@ def phase_slice(dev):
     return launches, stats, stats2, worst
 
 
+# the two-level phase: the coarse mesh's h (the bench's, and
+# simulation.get_coarse_mesh's at h = 0.02) and the solves' tolerance
+TL_COARSE_FACTOR = 4.0
+TL_RTOL = 1e-11
+
+
+def phase_twolevel(dev):
+    """The bench workload (the mu sweep's system and 20 mu, h = 0.02) in
+    mixed precision under the two-level preconditioner on the coarse mesh
+    at h = 0.08: per-sample coarse inverses, then the Woodbury form, each
+    set up cold and solved; held to the multigrid solve of the same system
+    (the slice phase's, solved again here)."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.parallel.sweep import (
+        build_transport_system, solve_sweep)
+    from fenics_eff_uptake_tpu_torch.solvers.multilevel import \
+        build_multilevel_for
+    from fenics_eff_uptake_tpu_torch.solvers.twolevel import build_twolevel
+    from fenics_eff_uptake_tpu_torch.studies.common import (
+        make_mesh, make_no_adv_params, sweep_mus)
+    from fenics_eff_uptake_tpu_torch.studies.phase_a import MU_SWEEP_REGIMES
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    fresh_cache("twolevel")
+    geom = make_no_adv_params(1.0, sulci_w_dim=0.25, sulci_h_dim=0.25,
+                              mesh_size_dim=0.02)
+    mesh = make_mesh(geom, "sulcus")
+    coarse = make_mesh(geom, "sulcus", coarsen=TL_COARSE_FACTOR)
+    mus = sweep_mus(geom, [f for fs in MU_SWEEP_REGIMES.values()
+                           for f in fs])
+    D = [geom.D] * len(mus)
+    sys_t = build_transport_system(mesh, dev, element="P2")
+    ml = build_multilevel_for(sys_t, mesh, D, mu_values=mus)
+    X_ml, i_ml = solve_sweep(sys_t, D, mus, rtol=1e-12, multilevel=ml)
+    del ml
+    rec = {"cells": int(len(mesh.cells)), "ndofs_padded": int(sys_t.ndofs),
+           "coarse_vertices": int(len(coarse.vertices)),
+           "ml_iters": i_ml["iters"].tolist()}
+    runs = {}
+    for form in ("per_sample", "woodbury"):
+        t0 = synced()
+        tl = build_twolevel(sys_t, coarse, D, mus,
+                            woodbury=form == "woodbury")
+        setup_s = synced() - t0
+        if (tl.Ainv is None) != (form == "woodbury"):
+            raise AssertionError(f"{form}: the build took the other form")
+        zero_launches()
+        t0 = synced()
+        X, info = solve_sweep(sys_t, D, mus, rtol=TL_RTOL, twolevel=tl)
+        solve_s = synced() - t0
+        launches = read_launches()
+        t0 = synced()
+        X2, info2 = solve_sweep(sys_t, D, mus, rtol=TL_RTOL, twolevel=tl)
+        steady_s = synced() - t0
+        coarse_mb = sum(t.numel() * t.element_size() for t in (
+            tl.Ainv, tl.A0inv, tl.Z, tl.W, tl.Cinv) if t is not None) / 2**20
+        del tl
+        runs[form] = (X, info)
+        rel = info["true_rel_resnorm"]
+        dx = float((X - X_ml).abs().max() / X_ml.abs().max())
+        r = {"setup_s": setup_s, "solve_s": solve_s, "steady_solve_s":
+             steady_s, "iters": info["iters"].tolist(),
+             "passes": info["passes"], "max_true_rel_resnorm": float(
+                 rel.max()), "x_vs_ml": dx, "coarse_mb": coarse_mb,
+             "launches": launches}
+        rec[form] = r
+        print(f"[twolevel] {form}: iters {r['iters']} in {r['passes']} "
+              f"passes, setup {setup_s:.3f}s (coarse inverses "
+              f"{coarse_mb:.1f} MB on the card), solve {solve_s:.3f}s, "
+              f"steady {steady_s:.3f}s, launches A "
+              f"{launches['band_apply']} C {launches['element_apply']} "
+              f"(out= {launches['element_apply out']}) B "
+              f"{launches['rect_band_apply']}; max true rel residual "
+              f"{r['max_true_rel_resnorm']:.3e}; |X - X_ml| / max|X_ml| "
+              f"{dx:.3e} (multigrid iters {rec['ml_iters']})", flush=True)
+        if not rel.max() <= TL_RTOL:
+            raise AssertionError(f"{form}: true rel residual "
+                                 f"{rel.max():.3e} > {TL_RTOL:g}")
+        if not dx <= 1e-8:
+            raise AssertionError(f"{form}: X {dx:.3e} of max |X| from the "
+                                 "multigrid solve")
+        if info2["iters"].tolist() != r["iters"] or not torch.equal(X2, X):
+            raise AssertionError(f"{form}: the second solve differs")
+        if (launches["band_apply"] <= 0 or launches["element_apply full"] <= 0
+                or launches["element_apply out"] <= 0
+                or launches["rect_band_apply"] != 0
+                or any(launches[k] for k in BF16_KEYS)):
+            raise AssertionError(f"{form}: launches {launches} (A and C "
+                                 "in both forms, nothing else)")
+    dw = float((runs["woodbury"][0] - runs["per_sample"][0]).abs().max()
+               / runs["per_sample"][0].abs().max())
+    rec["woodbury_vs_per_sample"] = dw
+    print(f"[twolevel] Woodbury against per-sample: |dX| / max|X| {dw:.3e} "
+          "(tol 1e-8)", flush=True)
+    if not dw <= 1e-8:
+        raise AssertionError(f"Woodbury X {dw:.3e} from the per-sample X")
+    return rec["per_sample"]["launches"], rec
+
+
 def slice_roofline(dev, stats):
     """The roofline of the steady sweep solve: utils/roofline.py's model of
     one iteration on the sweep's system and hierarchy (rebuilt from the
@@ -1360,10 +1413,7 @@ def slice_roofline(dev, stats):
 def _nu_key(r):
     """(domain, width, depth, Pe) of a no-uptake row (CSV text or numbers);
     None width and depth for the rectangle."""
-    def num(v):
-        return None if v in ("", None) else round(float(v), 9)
-    return (r["Domain"], num(r["Sulcus Width (mm)"]),
-            num(r["Sulcus Depth (mm)"]), num(r["Peclet"]))
+    return _artifacts().nu_key(r)
 
 
 def check_no_uptake_golden(rows):
@@ -1371,91 +1421,9 @@ def check_no_uptake_golden(rows):
     against the committed artifact's; returns the worst error per
     column."""
     dims = {tuple(round(x, 9) for x in wd) for wd in NU_GEOMETRIES.values()}
-    golden = [r for r in _csv_rows(GOLDEN_NU_CSV)
-              if r["Domain"] == "rectangle" or _nu_key(r)[1:3] in dims]
-    if len(golden) != 3 * (len(NU_GEOMETRIES) + 1):
-        raise AssertionError(f"{len(golden)} golden rows")
-    # a sulcus row's net fluxes over its own |Mouth Q_in|; the rectangle's
-    # over the reference geometry's at the same Pe
-    q_in = {_nu_key(r): abs(float(r["Mouth Q_in"]))
-            for r in golden if r["Domain"] == "sulcus"}
-    ref = tuple(round(x, 9) for x in NU_GEOMETRIES["reference"])
-
-    def scale(gr):
-        k = _nu_key(gr)
-        return q_in[k if k[0] == "sulcus" else ("sulcus", *ref, k[3])]
-
-    return _worst("no_uptake", {_nu_key(r): r for r in rows},
-                  {_nu_key(r): r for r in golden}, NU_REL_COLUMNS,
-                  {col: scale for col in NU_NET_COLUMNS})
-
-
-# the profile CSVs' coordinate columns: sample points, line places, and
-# the mesh's extent
-COORD_COLUMNS = ("x", "y", "x_min", "x_max", "y_min", "y_max")
-
-
-def _same_number(a, b):
-    """Two CSV cells of one number (e.g. "400" and "400.0")."""
-    try:
-        return float(a) == float(b)
-    except ValueError:
-        return False
-
-
-def _profile_err(v, ref):
-    return abs(v - ref) / max(abs(ref), C_FLOOR)
-
-
-def check_profile_csvs(prof_dir):
-    """Each profile geometry's two Profiles/ CSVs against the artifact's,
-    row for row: the same header, rows and text cells; sample coordinates
-    and line places to 1e-12 (of max(1, |value|)), c and the line
-    statistics to 1e-6 of max(|c|, C_FLOOR), counts exactly.  Returns the
-    worst errors, and the worst relative error of c where |c| >=
-    C_FLOOR."""
-    worst = {"coord": 0.0, "c": 0.0, "c_rel_above_floor": 0.0, "stats": 0.0}
-    n_rows = {}
-    for g in ("largest", "square_small"):
-        for name in (f"profiles_samples_{g}.csv", f"profiles_{g}.csv"):
-            got = _csv_rows(prof_dir / name)
-            want = _csv_rows(GOLDEN_NU_PROFILES / name)
-            if not got or list(got[0]) != list(want[0]):
-                raise AssertionError(f"{name}: header differs")
-            if len(got) != len(want):
-                raise AssertionError(f"{name}: {len(got)} rows, the "
-                                     f"artifact {len(want)}")
-            n_rows[name] = len(got)
-            for i, (a, b) in enumerate(zip(got, want)):
-                for col, ref in b.items():
-                    if a[col] == ref:
-                        continue
-                    if col in COORD_COLUMNS and ref != "" and a[col] != "":
-                        e = abs(float(a[col]) - float(ref)) / max(
-                            1.0, abs(float(ref)))
-                        worst["coord"] = max(worst["coord"], e)
-                    elif col == "c" or col.endswith("_c"):
-                        v, r = float(a[col]), float(ref)
-                        if not np.isfinite(v):
-                            raise AssertionError(f"{name} row {i} {col}: {v}")
-                        k = "c" if col == "c" else "stats"
-                        worst[k] = max(worst[k], _profile_err(v, r))
-                        if abs(r) >= C_FLOOR:
-                            worst["c_rel_above_floor"] = max(
-                                worst["c_rel_above_floor"],
-                                abs(v - r) / abs(r))
-                    elif not _same_number(a[col], ref):
-                        raise AssertionError(f"{name} row {i} {col}: "
-                                             f"{a[col]!r} vs {ref!r}")
-    print(f"[no_uptake] profile CSVs {n_rows}: worst coordinate diff "
-          f"{worst['coord']:.3e} (tol 1e-12), c {worst['c']:.3e} and line "
-          f"statistics {worst['stats']:.3e} of max(|c|, {C_FLOOR}) (tol "
-          f"1e-6); c relative where |c| >= {C_FLOOR}: "
-          f"{worst['c_rel_above_floor']:.3e}", flush=True)
-    if not (worst["coord"] <= 1e-12 and worst["c"] <= 1e-6
-            and worst["stats"] <= 1e-6):
-        raise AssertionError(f"profile CSVs off the artifact: {worst}")
-    return dict(worst, rows=n_rows)
+    return _artifacts().check_rows(
+        "no_uptake", rows, "no_uptake",
+        subset=lambda k: k[0] == "rectangle" or k[1:3] in dims)
 
 
 def phase_no_uptake(dev):
@@ -1528,7 +1496,8 @@ def phase_no_uptake(dev):
     if rows2 != rows:
         raise AssertionError("steady run's rows differ from the first's")
     sub = Path("Geometry Comparison Analysis") / "Profiles"
-    worst["profiles"] = check_profile_csvs(OUT_DIR / "nu_first" / sub)
+    worst["profiles"] = _artifacts().check_profiles(OUT_DIR / "nu_first"
+                                                    / sub)
     for f in sorted((OUT_DIR / "nu_first" / sub).glob("*.csv")):
         if f.read_bytes() != (OUT_DIR / "nu_steady" / sub
                               / f.name).read_bytes():
@@ -1616,20 +1585,7 @@ def phase_adv_diff(dev):
                 or (n[PER_SAMPLE] > 0) != rect):
             raise AssertionError(f"{s['domain']} batch launches: {n}")
 
-    def key(r):
-        return (round(float(r["Pe"]), 9), round(float(r["mu_factor"]), 9),
-                r["domain_type"])
-
-    def flux(gr):
-        return abs(float(gr["total_flux"]))
-
-    golden = _csv_rows(GOLDEN_AD_CSV)
-    if len(rows) != 18 or len(golden) != 18:
-        raise AssertionError(f"{len(rows)} rows vs {len(golden)} golden")
-    worst = _worst("adv_diff", {key(r): r for r in rows},
-                   {key(r): r for r in golden}, AD_REL_COLUMNS,
-                   {"advective_flux": flux,
-                    "flux_error_pct": lambda gr: 100.0})
+    worst = _artifacts().check_rows("adv_diff", rows)
     if rows2 != rows:
         raise AssertionError("steady run's rows differ from the first's")
     return launches, stats, stats2, worst
@@ -1856,8 +1812,10 @@ def phase_per_run(dev):
     q_in = abs(float(nu_golden[key]["Mouth Q_in"]))
     worst.update(_worst(
         "per_run no-uptake", {key: row}, {key: nu_golden[key]},
-        tuple(c for c in NU_REL_COLUMNS if c in row),
-        {c: (lambda gr: q_in) for c in NU_NET_COLUMNS}))
+        tuple(c for c in _artifacts().ARTIFACTS["no_uptake"].rel
+              if c in row),
+        {c: (lambda gr: q_in)
+         for c in _artifacts().ARTIFACTS["no_uptake"].absolute}))
 
     # adv-diff against the port's batched path on the same mesh, velocity
     # and coefficients (B = 1, batched metrics)
@@ -2234,23 +2192,11 @@ def phase_no_adv_studies(dev):
     if missing:
         raise AssertionError(f"kernels never launched by the no-advection "
                              f"studies: {missing}")
-    worst = _worst("no_adv_studies mu_eff",
-                   {r["Config"]: r for r in me_rows},
-                   {r["Config"]: r for r in _csv_rows(GOLDEN_MUEFF_CSV)},
-                   MUEFF_COLUMNS)
-
-    def key(r):
-        return r["geometry"], round(float(r["mu_factor"]), 9)
-
-    golden = [r for r in _csv_rows(GOLDEN_PB_CSV)
-              if r["geometry"] in PB_GEOMETRIES]
-    if len(pb_rows) != 6 or len(golden) != 6:
-        raise AssertionError(f"{len(pb_rows)} Phase-B rows vs "
-                             f"{len(golden)} golden")
-    worst.update(_worst("no_adv_studies phase_b",
-                        {key(r): r for r in pb_rows},
-                        {key(r): r for r in golden}, PB_COLUMNS,
-                        {"flux_error_pct": lambda gr: 100.0}))
+    art = _artifacts()
+    worst = art.check_rows("phase_a_spatial", me_rows,
+                           "no_adv_studies mu_eff")
+    worst.update(art.check_rows("phase_b", pb_rows, "no_adv_studies phase_b",
+                                subset=lambda k: k[0] in PB_GEOMETRIES))
     return launches, stats, worst
 
 
@@ -2290,35 +2236,13 @@ def phase_mesh_convergence(dev):
         raise AssertionError(f"kernels never launched by the mesh-"
                              f"convergence study: {missing}")
 
-    def key(r):
-        return (round(float(r["mesh_size"]), 9),
-                round(float(r["mu_factor"]), 9))
-
-    golden = _csv_rows(GOLDEN_MC / "mesh_convergence_results.csv")
-    if len(rows) != 3 * len(DEFAULT_LADDER) or len(golden) != len(rows):
-        raise AssertionError(f"{len(rows)} rows vs {len(golden)} golden")
-    if [key(r) for r in rows] != [key(r) for r in golden]:
+    art = _artifacts()
+    a = art.ARTIFACTS["richardson"]
+    golden = _csv_rows(art.EXAMPLES / a.directory / a.csv)
+    if [a.key(r) for r in rows] != [a.key(r) for r in golden]:
         raise AssertionError("row order differs from the artifact's")
-    worst = _worst("mesh_convergence", {key(r): r for r in rows},
-                   {key(r): r for r in golden}, MC_COLUMNS)
-    want = json.loads((GOLDEN_MC / "study_metadata.json").read_text())
-    conv = {}
-    for mf, c in want["convergence"].items():
-        g = meta["convergence"][mf]
-        for k, ref in c.items():
-            e = abs(g[k] - ref) / abs(ref)
-            conv[f"{mf} {k}"] = e
-            print(f"[mesh_convergence] mu*={mf} {k}: {g[k]!r} (artifact "
-                  f"{ref!r}, rel diff {e:.3e}, tol 1e-4)", flush=True)
-    for mf, f in want["mesh_realisation_floor"].items():
-        g = meta["mesh_realisation_floor"][mf]
-        print(f"[mesh_convergence] realisation floor mu*={mf}: "
-              + ", ".join(f"{k} {g[k]:.6e} (artifact {v:.6e})"
-                          for k, v in f.items()), flush=True)
-    bad = {k: e for k, e in conv.items() if not e <= 1e-4}
-    if bad:
-        raise AssertionError(f"orders or limits off the artifact: {bad}")
-    worst["convergence"] = conv
+    worst = art.check_rows("richardson", rows, "mesh_convergence")
+    worst["convergence"] = art.check_convergence(meta)
     return launches, stats, worst, meta
 
 
@@ -2996,6 +2920,7 @@ def _main(args, card, t_start):
     cases["band_apply"] += a_cases
     cases["element_apply bf16"].append(c16)
     launches, stats, stats2, worst = timed("slice", phase_slice)
+    tl_launches, tl_rec = timed("twolevel", phase_twolevel)
     nu_launches, nu_stats, nu_stats2, nu_worst = timed("no_uptake",
                                                        phase_no_uptake)
     ad_launches, ad_stats, ad_stats2, ad_worst = timed("adv_diff",
@@ -3025,7 +2950,8 @@ def _main(args, card, t_start):
         "rect_band_apply bf16": ("band_apply.cu", f"{PALLAS}:258"),
         "element_apply bf16": ("element_apply.cu", f"{PALLAS}:51"),
     }
-    by_path = {"mu_sweep": launches, "no_uptake": nu_launches,
+    by_path = {"mu_sweep": launches, "twolevel": tl_launches,
+               "no_uptake": nu_launches,
                "adv_diff": ad_launches, "no_adv_studies": na_launches,
                "mesh_convergence": mc_launches, "setup_cache": sc_launches,
                "configs": cfg_launches, "per_run": pr_launches,
@@ -3055,6 +2981,7 @@ def _main(args, card, t_start):
             "cases": cs})
     summary = {"card": card, "build_s": build_s, "kernels": kernels,
                "first": stats, "steady": stats2, "golden_worst": worst,
+               "twolevel": tl_rec,
                "no_uptake_first": nu_stats, "no_uptake_steady": nu_stats2,
                "no_uptake_golden_worst": nu_worst,
                "adv_diff_first": ad_stats, "adv_diff_steady": ad_stats2,

@@ -11,9 +11,12 @@ card to the CPU: asking for CUDA on a machine without one raises.
 
 from __future__ import annotations
 
+import subprocess
+from typing import Optional
+
 import torch
 
-__all__ = ["setup"]
+__all__ = ["setup", "card_line"]
 
 
 def setup(device) -> torch.device:
@@ -32,3 +35,18 @@ def setup(device) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def card_line(device) -> Optional[str]:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them, for a
+    CUDA device; None for the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0].strip()

@@ -22,15 +22,16 @@ __all__ = ["advdiff_solve"]
 
 def advdiff_solve(mesh: MeshData, u: Function, device, D, mu, element="P2",
                   rtol=1e-13, maxiter=50000, solver="auto",
-                  solver_options=None) -> Function:
+                  solver_options=None, coarse_mesh=None) -> Function:
     """The advection-diffusion concentration on ``device``; ``u`` the
     velocity Function (numpy values on the P2 vector space).
 
     solver: None (BiCGStab through the batched engine), "gmres", or
     "auto" (GMRES when Pe = 1/D > 25); ``maxiter`` caps GMRES's steps (the
-    batched engine's passes have their own caps).  ``solver_options`` and
-    the result as in ``pure_diffusion_solve``; a GMRES result carries
-    ``solver_info["method"] == "gmres"``."""
+    batched engine's passes have their own caps).  ``solver_options``,
+    ``coarse_mesh`` and the result as in ``pure_diffusion_solve``; a GMRES
+    result carries ``solver_info["method"] == "gmres"``."""
     return _transport_solve(mesh, device, D, mu, element, rtol,
                             maxiter=maxiter, u=u, solver=solver,
-                            solver_options=solver_options)
+                            solver_options=solver_options,
+                            coarse_mesh=coarse_mesh)

@@ -7,7 +7,8 @@
 
 A single run goes through the batched engine at B = 1
 (``parallel/sweep.py``): ``build_transport_system``, the multigrid
-hierarchy (``build_multilevel_for``; None, so Jacobi, at h >= 0.08) and
+hierarchy (``build_multilevel_for``; None at h >= 0.08, and then the
+two-level preconditioner of a given ``coarse_mesh``, else Jacobi) and
 ``solve_sweep``, so one code path serves single runs and sweeps, and every
 operator apply runs in the three hand kernels (A: the f32 band operator
 and mid-level smoothing; B: the transfers; C: the f64 defect residuals and
@@ -124,9 +125,10 @@ def _finish(sys_t, vals, info):
 
 def _transport_solve(mesh: MeshData, device, D, mu, element, rtol,
                      maxiter=None, u=None, solver=None,
-                     solver_options=None) -> Function:
+                     solver_options=None, coarse_mesh=None) -> Function:
     """One transport solve at B = 1; ``u`` the velocity Function (numpy
-    values on the P2 vector space) or None."""
+    values on the P2 vector space) or None; ``coarse_mesh`` preconditions
+    through the two-level preconditioner where no hierarchy is built."""
     from ..studies.common import split_solver_options
     device = setup(device)
     D = float(D)
@@ -145,21 +147,26 @@ def _transport_solve(mesh: MeshData, device, D, mu, element, rtol,
         ml = build_multilevel_for(sys_t, mesh, [D], mu_values=[float(mu)],
                                   u_fine=u, **build_kw)
         X, info = solve_sweep(sys_t, [D], mu_values=[float(mu)], rtol=rtol,
-                              multilevel=ml, **solve_kw)
+                              multilevel=ml,
+                              coarse_mesh=None if ml is not None
+                              else coarse_mesh, **solve_kw)
     else:
         R = robin_matrices_for_mu(sys_t, mu)[None]
         ml = build_multilevel_for(sys_t, mesh, [D], mu_callables=[mu],
                                   robin_matrices_fine=R, u_fine=u,
                                   **build_kw)
         X, info = solve_sweep(sys_t, [D], robin_matrices=R, rtol=rtol,
-                              multilevel=ml, **solve_kw)
+                              multilevel=ml,
+                              coarse_mesh=None if ml is not None
+                              else coarse_mesh, **solve_kw)
     return _finish(sys_t, X[0], {
         "iters": int(info["iters"][0]),
         "resnorm": float(info["resnorm"][0]),
         "converged": bool(info["converged"][0]),
         "rel_resnorm": float(info["true_rel_resnorm"][0]),
         "passes": info.get("passes"),
-        "multilevel": ml is not None})
+        "multilevel": ml is not None,
+        "twolevel": ml is None and coarse_mesh is not None})
 
 
 def _gmres_transport_solve(sys_t, D, mu, rtol, maxiter) -> Function:
@@ -191,7 +198,7 @@ def _gmres_transport_solve(sys_t, D, mu, rtol, maxiter) -> Function:
 
 def pure_diffusion_solve(mesh: MeshData, device, D=1.0, mu=1.0,
                          element="P2", rtol=1e-13,
-                         solver_options=None) -> Function:
+                         solver_options=None, coarse_mesh=None) -> Function:
     """The pure-diffusion concentration on ``device``: a Function whose
     values are an f64 tensor there (FunctionSpace numbering).
 
@@ -199,8 +206,11 @@ def pure_diffusion_solve(mesh: MeshData, device, D=1.0, mu=1.0,
     quadrature points, as the reference's variable-mu solver does).
     ``solver_options``: ``solve_sweep``'s configuration keywords and
     ``coarse_inverse`` (as the studies take them); None is the default
-    configuration.  ``c.solver_info``: iters,
+    configuration.  ``coarse_mesh``: the two-level preconditioner's coarse
+    mesh (``simulation.get_coarse_mesh``), used where no multigrid
+    hierarchy is built (h >= 0.08).  ``c.solver_info``: iters,
     resnorm, converged (the true f64 residual of the returned c met
-    rtol), rel_resnorm, passes, multilevel."""
+    rtol), rel_resnorm, passes, multilevel, twolevel."""
     return _transport_solve(mesh, device, D, mu, element, rtol,
-                            solver_options=solver_options)
+                            solver_options=solver_options,
+                            coarse_mesh=coarse_mesh)

@@ -42,8 +42,10 @@ keyword arguments (it reads no environment variable): ``precision="f64"``
 the f64 cycle, every apply through kernel C) and ``"f32"``; the cycle
 (``"hybrid"``, ``"mult"``, ``"add"``), its smoothing steps and its working
 dtype (``ml_dtype=torch.bfloat16``, or ``transfer_dtype=torch.bfloat16``
-alone); 0 or more cheap passes; the inner tolerance.  The defaults are the
-configuration the JAX package runs on a TPU.
+alone); 0 or more cheap passes; the inner tolerance; and the
+preconditioner: the multigrid cycle, the two-level one of
+``solvers/twolevel.py`` (``twolevel=``, or ``coarse_mesh=``), or Jacobi.
+The defaults are the configuration the JAX package runs on a TPU.
 """
 
 from __future__ import annotations
@@ -540,11 +542,11 @@ def _colnorm(R):
 
 
 def _mixed_solve(a64, a32, M, RHS, X0, tol, cheap_passes=CHEAP_PASSES,
-                 inner_rtol=INNER_RTOL):
+                 inner_rtol=INNER_RTOL, n_inner=N_INNER):
     """The JAX ``_mixed_solve_program`` with ``x0_lift=True``: X0 is the
     Dirichlet lift, so the opening residual is where(free, RHS, 0).
     ``cheap_passes`` = 0 runs true passes only (each closing f64 residual
-    opens the next pass).
+    opens the next pass); ``n_inner``: f32 CG iterations per pass at most.
 
     Returns (X, rn (B,) true f64 residual norms, iters (B,), passes)."""
     B = RHS.shape[1]
@@ -559,7 +561,7 @@ def _mixed_solve(a64, a32, M, RHS, X0, tol, cheap_passes=CHEAP_PASSES,
         rz = torch.sum(R * Z, dim=0)
         Dx = torch.zeros_like(R)
         cit = torch.zeros(B, dtype=torch.int64, device=R.device)
-        for _ in range(N_INNER):
+        for _ in range(n_inner):
             active = _colnorm(R) > tol_in
             if not bool(active.any()):
                 break
@@ -611,13 +613,15 @@ def _mixed_solve(a64, a32, M, RHS, X0, tol, cheap_passes=CHEAP_PASSES,
     return X, rn, tot, k
 
 
-def _bicgstab_solve(a64, a32, M, RHS, X0, tol, inner_rtol=INNER_RTOL):
+def _bicgstab_solve(a64, a32, M, RHS, X0, tol, inner_rtol=INNER_RTOL,
+                    n_inner=N_INNER):
     """The JAX per-pass ``_refine_program_bicgstab`` loop: up to
     MAX_PASSES_BICGSTAB true f64 passes (at least one), each an f32
     preconditioned BiCGStab with per-column ``active`` masks, started from
     the Dirichlet lift X0 (so the opening residual is where(free, RHS, 0),
     and each pass's closing residual opens the next: the same f64 values
-    the JAX program recomputes).
+    the JAX program recomputes); ``n_inner``: BiCGStab iterations per pass
+    at most.
 
     Returns (X, rn (B,) true f64 residual norms, iters (B,), passes)."""
     B = RHS.shape[1]
@@ -632,7 +636,7 @@ def _bicgstab_solve(a64, a32, M, RHS, X0, tol, inner_rtol=INNER_RTOL):
         P = torch.zeros_like(R)
         V = torch.zeros_like(R)
         cit = torch.zeros(B, dtype=torch.int64, device=R.device)
-        for _ in range(N_INNER):
+        for _ in range(n_inner):
             active = _colnorm(R) > tol_in
             if not bool(active.any()):
                 break
@@ -682,7 +686,9 @@ PRECISIONS = ("mixed", "f64", "f32")
 def solve_sweep(sys: TransportSystem, D_values, mu_values=None, rtol=1e-12,
                 multilevel=None, robin_matrices=None, precision="mixed",
                 cycle=None, cheap_passes=CHEAP_PASSES, inner_rtol=INNER_RTOL,
-                ml_dtype=None, transfer_dtype=None, n_smooth=1):
+                ml_dtype=None, transfer_dtype=None, n_smooth=1,
+                maxiter=50000, coarse_mesh=None, u_coarse=None,
+                robin_coarse=None, twolevel=None):
     """Batched transport solve over sweep points: CG without advection,
     BiCGStab with it.
 
@@ -690,8 +696,12 @@ def solve_sweep(sys: TransportSystem, D_values, mu_values=None, rtol=1e-12,
     per-sample Robin matrices on sys.R's facets (``robin_matrices_for_mu``
     stacked), in place of mu_values; where the hierarchy's fine level was
     built from this very tensor, its block is used and none is bound anew.
-    multilevel: a ``solvers.multilevel`` hierarchy; None preconditions with
-    Jacobi.
+    The preconditioner: multilevel, a ``solvers.multilevel`` hierarchy;
+    else twolevel, a ``solvers.twolevel.TwoLevelData``, or the one that
+    ``build_twolevel`` makes of coarse_mesh (with u_coarse, the velocity
+    (values, space) on it, and robin_coarse, the columns' Robin matrices
+    on its bottom facets); else Jacobi.  maxiter: the Krylov iterations of
+    an f64 or f32 solve, and at most that many per mixed pass.
 
     precision: "mixed" (f32 Krylov passes inside f64 defect correction, the
     JAX package's TPU configuration), "f64" (one f64 Krylov solve with the
@@ -743,6 +753,16 @@ def solve_sweep(sys: TransportSystem, D_values, mu_values=None, rtol=1e-12,
             multilevel, cycle=cycle,
             dtype=torch.float64 if precision == "f64" else ml_dtype,
             transfer_dtype=transfer_dtype, n_smooth=n_smooth)
+    elif twolevel is not None or coarse_mesh is not None:
+        from ..solvers.twolevel import build_twolevel, make_preconditioner
+        tl = twolevel
+        if tl is None:
+            tl = build_twolevel(sys, coarse_mesh, D_values, mu_values,
+                                robin_matrices_coarse=robin_coarse,
+                                u_coarse=u_coarse)
+        M = make_preconditioner(tl, fine_dinv(
+            sys, D_vec, mu_vec, None if Rb is None else Rb.A64,
+            dtype=torch.float64))
     else:
         dinv = fine_dinv(sys, D_vec, mu_vec,
                          None if Rb is None else Rb.A64, dtype=wd)
@@ -753,12 +773,14 @@ def solve_sweep(sys: TransportSystem, D_values, mu_values=None, rtol=1e-12,
     bn = bnorm.cpu().numpy()
     bn = np.where(bn > 0, bn, 1.0)
     if precision == "mixed":
+        n_inner = min(N_INNER, maxiter)
         if nonsym:
             X, rn, tot, passes = _bicgstab_solve(
-                a64, a32, M, RHS, G, rtol * bnorm, inner_rtol)
+                a64, a32, M, RHS, G, rtol * bnorm, inner_rtol, n_inner)
         else:
             X, rn, tot, passes = _mixed_solve(
-                a64, a32, M, RHS, G, rtol * bnorm, cheap_passes, inner_rtol)
+                a64, a32, M, RHS, G, rtol * bnorm, cheap_passes, inner_rtol,
+                n_inner)
         resnorm = rn.cpu().numpy()
         info = {"iters": tot.cpu().numpy(), "resnorm": resnorm,
                 "rel_resnorm": resnorm / bn, "true_rel_resnorm": resnorm / bn,
@@ -770,7 +792,7 @@ def solve_sweep(sys: TransportSystem, D_values, mu_values=None, rtol=1e-12,
     if precision == "f32":
         rtol = max(rtol, 1e-6)
     res = krylov(lambda P: apply_operator(a, P), RHS.to(wd), M=M,
-                 X0=G.to(wd), rtol=rtol)
+                 X0=G.to(wd), rtol=rtol, maxiter=maxiter)
     X = res.X.double()
     true = _colnorm(RHS - apply_operator(a64, X)).cpu().numpy()
     info = {"iters": res.iters, "resnorm": res.resnorm,

@@ -18,10 +18,10 @@ the ``port-mesh`` tag).
 ``Analysis Plots`` and needs matplotlib (without it the run raises the
 ImportError, as the JAX package's does); ``save_paraview=True`` writes the
 legacy-VTK fields and the mesh exports (``utils.vtk``,
-``meshing.visualization``) into ``ParaView Files``.  The JAX package's
-``get_coarse_mesh`` (the two-level preconditioner's companion mesh) is
-not ported: that preconditioner is not, and this path never needs it
-(multigrid below h = 0.08, Jacobi above).
+``meshing.visualization``) into ``ParaView Files``.  The transport
+models get ``get_coarse_mesh``'s mesh, as the JAX package's do: it
+preconditions the solve (``solvers/twolevel.py``) only where no multigrid
+hierarchy is built.
 """
 
 from __future__ import annotations
@@ -49,7 +49,8 @@ from .utils.timers import StageTimer
 from .utils.vtk import (write_vtk_cell_scalar, write_vtk_point_scalar,
                         write_vtk_point_vector)
 
-__all__ = ["run_simulation", "get_mesh", "clear_mesh_cache", "MODE_NAME"]
+__all__ = ["run_simulation", "get_mesh", "get_coarse_mesh",
+           "clear_mesh_cache", "MODE_NAME"]
 
 MODE_NAME = {
     "adv-diff": "Adv-Diff",
@@ -63,10 +64,21 @@ def clear_mesh_cache():
     _MESH_MEMO.clear()
 
 
-def get_mesh(params: Parameters, domain_type: str):
+def get_mesh(params: Parameters, domain_type: str, coarsen: float = 1.0):
     """The mesh of ``params``' geometry and mesh size, through the setup
-    cache."""
-    return make_mesh(params, domain_type)
+    cache; ``coarsen`` > 1 gives the same geometry at h scaled by it (the
+    two-level preconditioner's coarse mesh)."""
+    return make_mesh(params, domain_type, coarsen)
+
+
+def get_coarse_mesh(params: Parameters, domain_type: str, threshold=0.08,
+                    factor=4.0):
+    """The coarse companion mesh of the two-level preconditioner, or None
+    where the fine mesh is coarse enough (h >= ``threshold``) for Jacobi
+    alone."""
+    if params.mesh_size >= threshold:
+        return None
+    return get_mesh(params, domain_type, coarsen=factor)
 
 
 def _save_paraview(mesh, u, p, c, paraview_dir):
@@ -156,12 +168,15 @@ def run_simulation(mode, study_type, config_name, domain_type,
     u_for_transport = None if mode == "no-adv" else u
 
     with timer.stage("transport"):
+        coarse = get_coarse_mesh(params, domain_type)
         if mode == "no-adv":
             c = pure_diffusion_solve(mesh, device, D=params.D, mu=params.mu,
-                                     solver_options=solver_options)
+                                     solver_options=solver_options,
+                                     coarse_mesh=coarse)
         else:
             c = advdiff_solve(mesh, u, device, D=params.D, mu=params.mu,
-                              solver_options=solver_options)
+                              solver_options=solver_options,
+                              coarse_mesh=coarse)
         _sync(device)
     if verbose:
         arr = c.as_numpy()

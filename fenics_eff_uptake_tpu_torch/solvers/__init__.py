@@ -6,3 +6,4 @@ from .cg import cg, jacobi_preconditioner
 from .gmres import gmres
 from .mixed import refined_solve
 from .stokes import stokes_schur_cg
+from .twolevel import build_twolevel, make_preconditioner

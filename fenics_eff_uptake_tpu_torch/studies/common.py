@@ -68,14 +68,19 @@ def make_no_adv_params(mu_factor=1.0, sulci_w_dim=None, sulci_h_dim=None,
 _MESH_MEMO = Memo(MESH_TAG, cap=64)
 
 
-def make_mesh(geom_params: Parameters, domain_type: str = "sulcus"):
+def make_mesh(geom_params: Parameters, domain_type: str = "sulcus",
+              coarsen: float = 1.0):
     """The study mesh of one geometry (the shared host mesher, as
     ``simulation.get_mesh`` builds it), memoised in this process by its
     generation arguments as ``get_mesh`` memoises it: a study that comes
     back to a geometry gets the same MeshData, and with it the memoised
-    systems built on it."""
+    systems built on it.  ``coarsen`` > 1: the same geometry at h scaled
+    by it, without refinement (the two-level preconditioner's coarse
+    mesh)."""
     kw = dict(domain_type=domain_type,
               **geom_params.get_mesh_generator_params())
+    if coarsen != 1.0:
+        kw.update(mesh_size=kw["mesh_size"] * coarsen, refinement_factor=1)
     key = tuple(sorted(kw.items()))
     mesh = _MESH_MEMO.get(key)
     return mesh if mesh is not None else _MESH_MEMO.put(

@@ -245,8 +245,10 @@ def test_unknown_configurations_are_refused(run):
     with pytest.raises(TypeError):
         tml.build_multilevel(run.psys, run.tlevels, run.D, run.mus,
                              ml_dtype=BF16)
+    # JAX's dispatch-chunk length is not a configuration of the port
+    # (maxiter is, and caps the solve: tests/test_torch_twolevel.py)
     with pytest.raises(TypeError):
-        tsw.solve_sweep(run.psys, run.D, run.mus, maxiter=10)
+        tsw.solve_sweep(run.psys, run.D, run.mus, chunk_iters=10)
 
 
 def test_a_study_raises_on_a_column_that_did_not_converge():

@@ -44,7 +44,8 @@ def test_port_modules_load_no_jax_or_triton():
                  "plotting.style", "plotting.single", "plotting.comparison",
                  "plotting.phase_a_plots", "plotting.phase_b_plots",
                  "plotting.no_uptake_plots", "plotting.adv_diff_plots",
-                 "plotting.table"):
+                 "plotting.table", "solvers.twolevel", "studies.artifacts",
+                 "bench", "run_studies"):
         assert f"fenics_eff_uptake_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
