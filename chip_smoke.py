@@ -78,6 +78,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    bf16 output equal to plain's in >= 99% of the entries and within one
    bf16 ulp of it (or, where cancellation leaves a result far below its
    terms, within that f32 bound).
+   Last the graded cases (``phase_kernels_graded``): the w0.4/d2.0
+   sulcus at h = 0.02 with its mouth refined 8 times (92,995 cells, hmin
+   1.85e-3, the fine K band (735, 256, 2816)), under its solved Stokes
+   velocity, at the E_L1 ladder's B = 3: A on the fine K band (with coef)
+   and the fine advection band, B on the fine restriction and
+   prolongation and on the first mid level's restriction (the graded P1
+   mesh into the ungraded P1 mesh at 3h, in windows wider than the JAX
+   package's width menu of at most 4,096 columns: ops/band_plans.py), C
+   in f64 on the K block (full, 1e-12) and in f32 on the Robin block
+   (out=, 2e-5), each with its library call, span fill and bound.
 4. slice: the 20-point Phase-A mu sweep at h = 0.02 through
    studies.phase_a.run_mu_sweep, twice (first and steady run).  Checks that
    every kernel (C in both forms) was launched by the first run, the true f64 relative
@@ -165,6 +175,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    study_metadata.json (1e-4 relative); the realisation floors printed
    beside the artifact's.
 
+9b. el1: the E_L1 refinement ladder of the w = 0.05, d = 1.0 mm sulcus at
+   h = 0.02 through studies.el1_convergence.run_rung at exactly the
+   committed (factor, Pe) pairs of examples/el1_convergence (factors 1, 2
+   and 4 at Pe 0.1, 1, 10; factor 8 at Pe 0.1), the memos released after
+   each rung: every rung's Stokes and transport solves converged (true f64
+   relative residuals <= 1e-9 and <= 1e-11), A, B and C (both forms)
+   launched by every rung, every rung held to the committed JAX rungs of
+   the same (factor, Pe) (cells exactly, hmin 1e-12, E_L1, Q_in, Q_out
+   1e-6 relative, J_open_total 1e-6 of max(|Q_in|, 1e-3)) and its
+   factor-1 rungs to the no-uptake artifact's rows, and every committed
+   summary (E* 1e-3 relative, rate 0.02, the same verdict).  Prints per
+   rung the cells, hmin, bands (T, R, W) and span fills, MINRES and
+   BiCGStab iterations and passes, stage seconds and peak card memory.
+
 10. setup_cache: the mu sweep and the no-uptake study on the reference
    geometry (with its rectangle), run (a) cold in a child process on an
    empty cache directory, (b) disk-warm in a second child process on the
@@ -230,7 +254,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    while the ranks solve).  The study's sharded calls are read from the
    rank group's ``log``.
 
-Every study phase (4, 4b, 5-7, 9, 11) starts on an empty cache directory
+Every study phase (4, 4b, 5-7, 9, 9b, 11) starts on an empty cache directory
 of its own with the memos emptied, so its first run is cold and its
 steady run warm;
 the directories lie under a fresh build/cache/run-* of this run, removed
@@ -439,25 +463,13 @@ def bound_ms(nbytes, flops, elem_size):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def span_elements(band, spans):
-    """Band elements inside the column spans (what these inputs need)."""
-    import torch
-    from fenics_eff_uptake_tpu_torch.ops.banded import SPAN_COLS, SPAN_ROWS
-    T, R, W = band.shape
-    nb = spans.shape[1]
-    rows = torch.clamp(R - SPAN_ROWS * torch.arange(nb, device=band.device),
-                       max=SPAN_ROWS)
-    cols = (torch.clamp(spans[..., 1] * SPAN_COLS, max=W)
-            - spans[..., 0] * SPAN_COLS).clamp(min=0)
-    return int((cols * rows).sum())
-
-
 def band_bounds(band, spans, n_in, n_out, B, extra_bytes=0, x_size=4,
                 y_size=4):
     """Dense and span bounds of a band apply: the band (whole, or its
     spans' elements) read once, X (n_in, B) read once, Y (n_out, B)
     written once, each at its element size, 2 * B FLOPs per band element at
     the rate of the band's type."""
+    from fenics_eff_uptake_tpu_torch.ops.banded import span_elements
     bs = band.element_size()
     io = B * (x_size * n_in + y_size * n_out) + extra_bytes
     dense = band.numel()
@@ -1132,6 +1144,74 @@ def phase_kernels_advdiff(dev):
     del sys_, ml, Rb
     torch.cuda.empty_cache()
     return cases, a_cases, c16
+
+
+# the graded kernel cases: the w0.4/d2.0 family at h = 0.02, its mouth
+# refined 8 times (92,995 cells; hmin 1.85e-3), the widest band of a rung
+# the JAX package reached
+GRADED = (0.4, 2.0, 8)
+
+
+def phase_kernels_graded(dev):
+    """The kernels on a mouth-refined mesh (``GRADED``) at the E_L1
+    ladder's shapes (B = 3, one column per Pe): A on the fine K band (with
+    coef) and the fine advection band, B on the advective hierarchy's fine
+    restriction and prolongation and the first mid level's restriction
+    (the graded P1 mesh into the ungraded P1 mesh at 3h, in windows past
+    the JAX width menu), C in f64 on the K block (full) and in f32 on the
+    Robin block (out=)."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.parallel.sweep import (
+        build_transport_system)
+    from fenics_eff_uptake_tpu_torch.simulation import get_mesh
+    from fenics_eff_uptake_tpu_torch.solvers.multilevel import (
+        build_multilevel_for)
+    from fenics_eff_uptake_tpu_torch.studies.common import stokes_for_study
+    from fenics_eff_uptake_tpu_torch.studies.el1_convergence import release
+    from fenics_eff_uptake_tpu_torch.studies.no_uptake import _make_params
+
+    w, d, factor = GRADED
+    p = _make_params(PECLET[0], w, d, 0.02)
+    p.refinement_factor = factor
+    mesh = get_mesh(p, "sulcus")
+    u, _ = stokes_for_study(mesh, p.H, dev)
+    D = [1.0 / pe for pe in PECLET]
+    adv = build_transport_system(mesh, dev, u_values=u.values,
+                                 u_space=u.space)
+    aml = build_multilevel_for(adv, mesh, D, [0.0] * len(D), u_fine=u)
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(n, dtype=torch.float32):
+        return torch.rand((n, 3), generator=g, device=dev,
+                          dtype=dtype) * 2 - 1
+
+    tag = f"graded w{w:g}/d{d:g} x{factor}"
+    print(f"[kernels] {tag}: {mesh.num_cells} cells, hmin "
+          f"{mesh.hmin():.6g}", flush=True)
+    out = {"band_apply": [], "rect_band_apply": [], "element_apply": []}
+    coef = torch.rand(3, generator=g, device=dev) + 0.5
+    for label, band, spans, cf in (
+            ("K band", adv.Kband, adv.Kspans, coef),
+            ("Adv band", adv.Advband, adv.Advspans, None)):
+        out["band_apply"].append(band_case(
+            f"A {tag} {label} {tuple(band.shape)} B=3", band, spans,
+            rnd(band.shape[0] * band.shape[1]), cf))
+    tb, mid = aml.levels[0].bands, aml.levels[1].bands
+    for way, band, offs, spans, rows in (
+            ("restrict", tb.r, tb.ro, tb.rs, tb.pad_r),
+            ("prolong", tb.p, tb.po, tb.ps, tb.pad_p),
+            ("mid restrict", mid.r, mid.ro, mid.rs, mid.pad_r)):
+        out["rect_band_apply"].append(rect_case(
+            f"B {tag} {way} {tuple(band.shape)} B=3", band, offs, spans,
+            rnd(rows)))
+    out["element_apply"] += [
+        element_case(f"{tag} f64 K", adv.K, rnd(adv.ndofs, torch.float64),
+                     None, 1e-12),
+        element_case(f"{tag} f32 R", adv.R, rnd(adv.ndofs), coef, 2e-5,
+                     "out")]
+    del adv, aml, u, mesh
+    release(dev)
+    return out
 
 
 def _artifacts():
@@ -2246,6 +2326,48 @@ def phase_mesh_convergence(dev):
     return launches, stats, worst, meta
 
 
+# the el1 phase's family: PARITY.md's headline row, the one committed
+# ladder with a factor-8 rung
+EL1_FAMILY = (0.05, 1.0)
+
+
+def phase_el1(dev):
+    """The E_L1 ladder of ``EL1_FAMILY`` at h = 0.02 at exactly its
+    committed (factor, Pe) pairs, rung by rung through
+    ``el1_convergence.run_rung`` (memos released after each), held to the
+    committed JAX rungs and summaries as ``--check`` holds them; every
+    rung must launch A, B and C (both forms).  Returns (the launches of
+    all rungs, the rung stats, the check record)."""
+    from fenics_eff_uptake_tpu_torch.studies import el1_convergence as el
+
+    fresh_cache("el1")
+    w, d = EL1_FAMILY
+    fam = el.committed_families()[EL1_FAMILY]
+    rows, stats, total = [], [], None
+    for factor, pes in el.family_pairs(fam["rows"]).items():
+        zero_launches()
+        r, st = el.run_rung(pes, w, d, 0.02, factor, dev)
+        launches = read_launches()
+        el.release(dev)
+        print(f"[el1] factor {factor} launches: {launches}", flush=True)
+        missing = never_launched(launches)
+        if missing:
+            raise AssertionError(f"kernels never launched by the factor-"
+                                 f"{factor} rung: {missing}")
+        bad = [x["max_rel_resnorm"] for x in r
+               if not x["max_rel_resnorm"] <= 1e-11]
+        if bad:
+            raise AssertionError(f"factor {factor}: rel residuals {bad}")
+        rows += r
+        stats.append(dict(st, launches=launches))
+        total = launches if total is None else {
+            k: total[k] + v for k, v in launches.items()}
+    record = el.check_family(rows, w, d, fam)
+    for where, sm in record["summaries"].items():
+        print(f"[el1] summary {where}: {sm}", flush=True)
+    return total, stats, record
+
+
 # the setup-cache runs: the mu sweep, then the no-uptake study on the
 # reference geometry (and its rectangle)
 SETUP_CACHE_RUNS = ("cold", "disk", "disk_inproc", "memo")
@@ -2919,6 +3041,8 @@ def _main(args, card, t_start):
                                             phase_kernels_advdiff)
     cases["band_apply"] += a_cases
     cases["element_apply bf16"].append(c16)
+    for name, cs in timed("kernels_graded", phase_kernels_graded).items():
+        cases[name] += cs
     launches, stats, stats2, worst = timed("slice", phase_slice)
     tl_launches, tl_rec = timed("twolevel", phase_twolevel)
     nu_launches, nu_stats, nu_stats2, nu_worst = timed("no_uptake",
@@ -2929,6 +3053,7 @@ def _main(args, card, t_start):
                                             phase_no_adv_studies)
     mc_launches, mc_stats, mc_worst, mc_meta = timed(
         "mesh_convergence", phase_mesh_convergence)
+    el_launches, el_stats, el_record = timed("el1", phase_el1)
     sc_launches, sc_recs = timed("setup_cache", phase_setup_cache)
     cfg_rows, cfg_launches = timed("configs", phase_configs)
     pr_launches, pr_stats, pr_worst = timed("per_run", phase_per_run)
@@ -2953,7 +3078,8 @@ def _main(args, card, t_start):
     by_path = {"mu_sweep": launches, "twolevel": tl_launches,
                "no_uptake": nu_launches,
                "adv_diff": ad_launches, "no_adv_studies": na_launches,
-               "mesh_convergence": mc_launches, "setup_cache": sc_launches,
+               "mesh_convergence": mc_launches, "el1": el_launches,
+               "setup_cache": sc_launches,
                "configs": cfg_launches, "per_run": pr_launches,
                "sharded": sh_launches}
     unlaunched = [n for n in meta if sum(p[n] for p in by_path.values()) <= 0]
@@ -2991,6 +3117,7 @@ def _main(args, card, t_start):
                "mesh_convergence": mc_stats,
                "mesh_convergence_golden_worst": mc_worst,
                "mesh_convergence_metadata": mc_meta,
+               "el1": el_stats, "el1_check": el_record,
                "setup_cache": sc_recs,
                "configs": cfg_rows, "per_run": pr_stats,
                "per_run_worst": pr_worst, "sharded": sh_rec,

@@ -5,7 +5,9 @@ whose module imports jax.  Two TPU-only details are left out: the band halo
 is the exact ``ceil(spread / R)`` (the JAX menu of halos only kept compile
 keys stable), and transfer window starts are not 16-aligned and the column
 pad is not rounded to 2048 rows (TPU DMA alignment and compile keys).  The
-window-width menu ``_RECT_W_MENU`` is kept.
+window-width menu ``_RECT_W_MENU`` is kept; where no tile size fits it
+(the JAX package then falls back to its gather transfer), the windows
+widen beyond it (``_RECT_W_STEP``).
 
 Band layouts (see ops/banded.py):
 
@@ -49,7 +51,15 @@ class RectBandPlan(NamedTuple):
 
 _RECT_W_MENU = (128, 256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096)
 _RECT_TILES = (256, 128, 64, 32, 16, 8)   # tile sizes tried, largest first
-_RECT_MAX_BYTES = 500 * 2**20             # larger bands mean no locality
+_RECT_MAX_BYTES = 500 * 2**20             # the menu's band bytes at most
+# Past the menu: on a mesh refined toward the sulcus, a coarse dof's fine
+# contributors spread over up to ~3.5e4 columns of the fine ordering (one
+# restriction row alone over ~2.3e4 at refinement factor 16), so the
+# restriction needs windows that wide; kernel B streams only each row
+# block's column span of them.  Widths round up to _RECT_W_STEP, and the
+# tile size of the fewest band bytes is taken, up to _RECT_WIDE_MAX_BYTES.
+_RECT_W_STEP = 1024
+_RECT_WIDE_MAX_BYTES = 4 * 2**30
 
 
 def rcm_permutation(entity_dofs, ndofs_true: int, ndofs_padded: int):
@@ -120,41 +130,59 @@ def build_band_plan(entity_dofs, ndofs: int, tile: int = 256) -> BandPlan:
                     tiles=T, tile=tile, width=W, halo=halo)
 
 
+def _rect_windows(rows, cols, live, n_rows, t_r):
+    """(T, the window starts, the widest window) of row tiles of t_r."""
+    T = -(-n_rows // t_r)
+    tidx = rows // t_r
+    mn = np.full(T, np.iinfo(np.int64).max)
+    mx = np.full(T, -1)
+    np.minimum.at(mn, tidx[live], cols[live])
+    np.maximum.at(mx, tidx[live], cols[live])
+    empty = mx < 0
+    mn[empty] = 0
+    mx[empty] = 0
+    return T, mn, int((mx - mn).max()) + 1
+
+
 def build_rect_band_plan(rows, cols, vals, n_rows, n_cols):
     """Windowed band of sparse entries (rows, cols, vals), or None when the
-    ordering has no locality (the band would exceed _RECT_MAX_BYTES at every
-    tile size).  Zero entries go to a dump slot; tiles shrink from 256 rows
-    until each tile's window fits the W menu."""
+    ordering has no locality.  Zero entries go to a dump slot.  Tiles
+    shrink from 256 rows until each tile's window fits the W menu within
+    _RECT_MAX_BYTES; where none does, the windows widen in steps of
+    _RECT_W_STEP at the tile size of the fewest band bytes, up to
+    _RECT_WIDE_MAX_BYTES (None past that)."""
     rows = np.asarray(rows, dtype=np.int64).ravel()
     cols = np.asarray(cols, dtype=np.int64).ravel()
     vals = np.asarray(vals).ravel()
     live = vals != 0
+    windows, pick = [], None
     for t_r in _RECT_TILES:
-        T = -(-n_rows // t_r)
-        tidx = rows // t_r
-        mn = np.full(T, np.iinfo(np.int64).max)
-        mx = np.full(T, -1)
-        np.minimum.at(mn, tidx[live], cols[live])
-        np.maximum.at(mx, tidx[live], cols[live])
-        empty = mx < 0
-        mn[empty] = 0
-        mx[empty] = 0
-        offs = mn
-        need = int((mx - offs).max()) + 1
+        T, offs, need = _rect_windows(rows, cols, live, n_rows, t_r)
+        windows.append((t_r, T, offs, need))
         W = next((w for w in _RECT_W_MENU if w >= need), None)
-        if W is None or T * t_r * W * 4 > _RECT_MAX_BYTES:
-            continue
-        n_cols_pad = max(int((offs + W).max()), int(n_cols))
-        w_idx = cols - offs[tidx]
-        flat = (tidx * t_r + rows % t_r) * W + w_idx
-        flat = np.where(live, flat, T * t_r * W)   # dump slot
-        perm = np.argsort(flat, kind="stable")
-        return RectBandPlan(offs=offs.astype(np.int32),
-                            ids=flat[perm].astype(np.int64),
-                            perm=perm.astype(np.int32),
-                            tiles=T, tile=t_r, width=W,
-                            n_rows_pad=T * t_r, n_cols_pad=n_cols_pad)
-    return None
+        if W is not None and T * t_r * W * 4 <= _RECT_MAX_BYTES:
+            pick = (t_r, T, offs, W)
+            break
+    if pick is None:
+        wide = []
+        for t_r, T, offs, need in windows:
+            W = -(-need // _RECT_W_STEP) * _RECT_W_STEP
+            wide.append((T * t_r * W * 4, -t_r, (t_r, T, offs, W)))
+        nbytes, _, pick = min(wide, key=lambda x: x[:2])
+        if nbytes > _RECT_WIDE_MAX_BYTES:
+            return None
+    t_r, T, offs, W = pick
+    tidx = rows // t_r
+    n_cols_pad = max(int((offs + W).max()), int(n_cols))
+    w_idx = cols - offs[tidx]
+    flat = (tidx * t_r + rows % t_r) * W + w_idx
+    flat = np.where(live, flat, T * t_r * W)   # dump slot
+    perm = np.argsort(flat, kind="stable")
+    return RectBandPlan(offs=offs.astype(np.int32),
+                        ids=flat[perm].astype(np.int64),
+                        perm=perm.astype(np.int32),
+                        tiles=T, tile=t_r, width=W,
+                        n_rows_pad=T * t_r, n_cols_pad=n_cols_pad)
 
 
 def aligned_transfer_plans(cols, weights, n_fine, n_coarse):

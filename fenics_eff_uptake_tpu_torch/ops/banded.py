@@ -56,7 +56,7 @@ from .band_plans import BandPlan, RectBandPlan
 from .elemspmv import make_segment_plan, planned_segment_sum
 
 __all__ = ["band_from_elements", "rect_band_values", "band_spans",
-           "SPAN_ROWS", "SPAN_COLS", "band_apply", "band_apply_plain",
+           "span_elements", "SPAN_ROWS", "SPAN_COLS", "band_apply", "band_apply_plain",
            "check_band_apply_args", "rect_band_apply",
            "rect_band_apply_plain", "check_rect_band_apply_args",
            "BAND_APPLY_DTYPES", "RECT_BAND_APPLY_DTYPES"]
@@ -101,6 +101,18 @@ def band_spans(band):
     lo = torch.where(occ, k, nc).amin(-1)
     lo = torch.where(hi > 0, lo, 0)
     return torch.stack([lo, hi], -1).to(torch.int32).contiguous()
+
+
+def span_elements(band, spans):
+    """The band elements inside the column spans: what a kernel streams
+    of the band (``band.numel()`` with full spans)."""
+    T, R, W = band.shape
+    nb = spans.shape[1]
+    rows = torch.clamp(R - SPAN_ROWS * torch.arange(nb, device=band.device),
+                       max=SPAN_ROWS)
+    cols = (torch.clamp(spans[..., 1] * SPAN_COLS, max=W)
+            - spans[..., 0] * SPAN_COLS).clamp(min=0)
+    return int((cols * rows).sum())
 
 
 def _check_spans(name, band, spans, dev):

@@ -257,7 +257,9 @@ def _transfer_plans(cols, weights, n_fine, n_coarse):
     process and kept in the setup cache (tag ``port-tbandplan``): pure in
     (cols, weights, sizes), and ~0.05-0.1 s of host argsorts per level."""
     cols, weights = np.asarray(cols), np.asarray(weights)
-    key = cache_key_of("tbandplan-v1", cols, weights, int(n_fine),
+    # v2: a transfer past the width menu has a (widened) plan, where a v1
+    # entry holds "none"
+    key = cache_key_of("tbandplan-v2", cols, weights, int(n_fine),
                        int(n_coarse))
     hit = _TBAND_PLAN_MEMO.get(key)
     if hit is not None:

@@ -45,7 +45,7 @@ def test_port_modules_load_no_jax_or_triton():
                  "plotting.phase_a_plots", "plotting.phase_b_plots",
                  "plotting.no_uptake_plots", "plotting.adv_diff_plots",
                  "plotting.table", "solvers.twolevel", "studies.artifacts",
-                 "bench", "run_studies"):
+                 "bench", "run_studies", "studies.el1_convergence"):
         assert f"fenics_eff_uptake_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -116,6 +116,8 @@ def test_chip_smoke_loads_no_jax():
     assert "fenics_eff_uptake_tpu_torch.studies.adv_diff" in names, names
     assert "fenics_eff_uptake_tpu_torch.studies.phase_b" in names, names
     assert ("fenics_eff_uptake_tpu_torch.studies.mesh_convergence"
+            in names), names
+    assert ("fenics_eff_uptake_tpu_torch.studies.el1_convergence"
             in names), names
     assert "fenics_eff_uptake_tpu_torch.utils" in names, names
     bad = [n for n in names

@@ -13,9 +13,11 @@
   input the CUDA kernels do not take raises in the argument checkers.  The
   band kernels take any batch width (B = 33 and 96 on the card).
 * Column spans (``band_spans``): they cover every nonzero and are tight on
-  random banded matrices and on the real K, Adv and transfer bands at
-  h = 0.15; a block without nonzeros gets an empty span; masking a band
-  outside its spans changes nothing; malformed spans are refused.
+  random banded matrices, on the real K, Adv and transfer bands at
+  h = 0.15 and on those of a mouth-refined mesh (factor 4, h = 0.1,
+  larger than unrefined); a block without nonzeros gets an empty span;
+  masking a band outside its spans changes nothing; malformed spans are
+  refused.
 * Kernel against plain on the card (marker ``cuda``; skipped without one),
   at one column (B = 1, the per-run models' width: kernels A and B, and C
   in both forms and per-sample) and
@@ -24,7 +26,8 @@
   full-span launch bit for bit, a B = 96 launch's columns equal a B = 3
   launch's, empty-span blocks and padding tiles give zero rows, kernel B
   with unaligned window starts and spans past ``n_cols`` matches plain, and
-  a launch without spans raises.
+  a launch without spans raises; on the graded bands (factor 4) A and B
+  match plain and equal the full-span launch.
 
 The JAX side is imported inside a fixture, so the file also runs where jax
 is absent: ``python -m pytest tests/test_torch_kernels.py -m cuda
@@ -448,6 +451,51 @@ def test_band_spans_of_real_bands(real_bands):
         assert float((spans[..., 1] - spans[..., 0]).float().mean()) < full
 
 
+def _graded_bands(device, factor=4):
+    """The K and Adv bands and the fine restriction and prolongation on
+    the reference sulcus at h = 0.1 with its mouth refined ``factor``
+    times (a Poiseuille-like velocity), on ``device``: [(name, band,
+    spans, offs or None)], and the fine mesh."""
+    from fenics_eff_uptake_tpu_torch.fem.space import FunctionSpace
+    from fenics_eff_uptake_tpu_torch.meshing.generator import generate_mesh
+    from fenics_eff_uptake_tpu_torch.parallel.sweep import \
+        build_transport_system
+    from fenics_eff_uptake_tpu_torch.solvers.multilevel import (
+        build_multilevel, level_meshes_for)
+    mesh = generate_mesh(width=10.0, height=1.0, sulcus_depth=1.0,
+                         sulcus_width=0.5, mesh_size=0.1,
+                         refinement_factor=factor, domain_type="sulcus")
+    V = FunctionSpace(mesh, "P2", vs=2)
+    u = np.zeros(V.ndofs)
+    u[0::2] = 4.0 * V.dof_coords[:, 1] * (1.0 - V.dof_coords[:, 1])
+    sys = build_transport_system(mesh, device, u_values=u, u_space=V)
+    ml = build_multilevel(sys, level_meshes_for(mesh), np.ones(3),
+                          np.zeros(3))
+    t = ml.levels[0].bands
+    return [("K", sys.Kband, sys.Kspans, None),
+            ("Adv", sys.Advband, sys.Advspans, None),
+            ("restrict", t.r, t.rs, t.ro),
+            ("prolong", t.p, t.ps, t.po)], mesh
+
+
+def test_band_spans_of_graded_bands():
+    """On a mouth-refined mesh (factor 4) the bands are larger than on
+    the same geometry unrefined, and their spans stay tight and cover
+    every nonzero."""
+    graded, mesh = _graded_bands("cpu")
+    plain, mesh1 = _graded_bands("cpu", factor=1)
+    assert mesh.hmin() < mesh1.hmin() / 2
+    for g, p in zip(graded, plain):
+        assert g[1].numel() > p[1].numel(), g[0]
+    for name, band, spans, _ in graded:
+        assert torch.equal(spans, tb.band_spans(band)), name
+        _assert_spans_tight(band, spans)
+        assert torch.equal(_mask_outside(band, spans), band), name
+        assert tb.span_elements(band, spans) < band.numel(), name
+    band, spans = graded[0][1], graded[0][2]
+    assert tb.span_elements(band, _full_spans(band)) == band.numel()
+
+
 def test_malformed_spans_are_refused():
     band = torch.zeros((3, 256, 768))
     dev = torch.device("cpu")
@@ -677,6 +725,37 @@ def test_span_launch_equals_full_span_launch(cuda, B):
         narrow = tb.band_apply(band, X[:, :3].contiguous(),
                                coef[:3].contiguous(), spans=spans)
         assert torch.equal(Y[:, :3], narrow)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+def test_graded_band_kernels_match_plain(cuda, B):
+    """Kernels A and B on the bands of a mouth-refined mesh (factor 4):
+    A on the K band (with coef) and the Adv band, B on the fine
+    restriction and prolongation, each within 1e-5 of plain and equal to
+    the full-span launch bit for bit."""
+    bands, _ = _graded_bands(cuda)
+    rng = np.random.default_rng(70 + B)
+    coef = torch.as_tensor(rng.random(B).astype(np.float32) + 0.5,
+                           device=cuda)
+    for name, band, spans, offs in bands:
+        T, R, W = band.shape
+        if offs is None:
+            X = torch.as_tensor(rng.standard_normal((T * R, B)).astype(
+                np.float32), device=cuda)
+            cf = coef if name == "K" else None
+            Y = tb.band_apply(band, X, cf, spans=spans)
+            ref = tb.band_apply_plain(band, X, cf)
+            full = tb.band_apply(band, X, cf, spans=_full_spans(band))
+        else:
+            n = int(offs.max()) + W
+            X = torch.as_tensor(rng.standard_normal((n, B)).astype(
+                np.float32), device=cuda)
+            Y = tb.rect_band_apply(band, offs, X, spans)
+            ref = tb.rect_band_apply_plain(band, offs, X)
+            full = tb.rect_band_apply(band, offs, X, _full_spans(band))
+        assert _rel(Y.cpu(), ref.cpu()) < 1e-5, name
+        assert torch.equal(Y, full), name
 
 
 @pytest.mark.cuda
