@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --band-parity [--tree DIR] [--save F | --against F]
+    python3 chip_smoke.py --profiler-probe
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -268,9 +270,26 @@ adv-diff study's rectangle batch (device busy time by kernel, and the
 device's idle share against the unprofiled solve's wall time).  Full
 reports go to build/chip_smoke/profile_*.txt and *_trace.json.
 
+Kernels A and B run through their bound forms (``BandKernel``,
+``RectBandKernel``: the f32 form's work list and tensor map made once),
+each case first held bit for bit to the free function; every case of A
+and B then prints its launches in each path phase (``banded.
+launches_by_band``: the kernel at that band and width, first and steady
+runs alike).  Device times are kept only from whole traces
+(``device_ms``).
+
 Then prints one JSON line of per-kernel results and, last, the device line.
 Imports nothing of JAX.  Run alone, without the repository around it, it
 exits 1 before touching the card.
+
+Other modes, each on its own: ``--band-parity`` (the kernel phases' f32
+cases of A and B on the tree ``--tree``, outputs saved or held bit for
+bit to a saved run's, device and call ms of the free functions and bound
+forms, and the busy time of the adv-diff rectangle solve and a factor-8
+E_L1 rung: two trees compared in one call, in turns; the kernel phases
+run with ``PARITY_CASES`` in place of ``SMOKE_CASES``);
+``--profiler-probe`` (how often a torch.profiler trace is empty or
+partial).
 """
 
 import argparse
@@ -286,6 +305,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -371,21 +391,104 @@ def phase_device():
     return card
 
 
+# the names of torch.cuda._sleep's CUDA records (found once, by
+# ``_sentinel_names``): it closes every profiled window (``_profiled``)
+# and is left out of its sums
+SENTINEL = set()
+
+
+def _sentinel_names():
+    """The names of the CUDA records a trace of torch.cuda._sleep alone
+    holds (those of a few traces, should one lose its record)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not SENTINEL:
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+            SENTINEL.update(e.name for e in prof.events()
+                            if str(e.device_type).endswith("CUDA"))
+        print(f"[profiler] window sentinel records: {sorted(SENTINEL)}",
+              flush=True)
+    return SENTINEL
+
+
 def _profiled_us(fn, cpu=True):
     """Summed durations (us) of the CUDA records (kernels, copies, fills)
     that torch.profiler takes while fn() runs, the device synced at the
     end.  ``cpu`` False leaves the host's operator records out: the same
     device records (a whole solve's sum within 1%), and a third of the
     time to take and read the trace of a solve of 100,000 launches."""
+    return _profiled(fn, cpu)[0]
+
+
+def _profiled(fn, cpu=True, bracket=True):
+    """(``_profiled_us``, the number of CUDA records summed).  A trace may
+    lose a CUDA record at its start (``device_ms``): ``bracket`` puts a
+    sentinel kernel (``_sentinel_names``) at each end of the window, left
+    out of the sums, so that the lost record is one of those."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    sentinel = _sentinel_names()
     torch.cuda.synchronize()
     with profile(activities=([ProfilerActivity.CPU] if cpu else [])
                  + [ProfilerActivity.CUDA]) as prof:
+        if bracket:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if str(e.device_type).endswith("CUDA"))
+        if bracket:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if str(e.device_type).endswith("CUDA")
+          and e.name not in sentinel]
+    return sum(us), len(us)
+
+
+def profiler_probe(traces=60):
+    """--profiler-probe: how often a torch.profiler trace holds no CUDA
+    record, or fewer than it should, for short windows (one and 20 calls
+    of kernel A on the fine K band's shape, 20 fills of a kernel C-sized
+    vector, 20 tiny torch adds), bare and bracketed by sentinel kernels
+    (``_profiled``).  Each window is taken ``traces`` times in a row,
+    bare and bracketed in turns.  Prints one JSON line."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.device import setup
+    from fenics_eff_uptake_tpu_torch.ops import _build, banded
+    card = phase_device()
+    dev = setup("cuda")
+    _build.library()
+    g = torch.Generator(device=dev).manual_seed(4)
+    band = torch.rand((401, 256, 1280), generator=g, device=dev)
+    band[:, :, :600] = 0
+    kern = banded.BandKernel(band, banded.band_spans(band))
+    X = torch.rand((401 * 256, 20), generator=g, device=dev)
+    small = torch.zeros(517 * 20, device=dev)
+    fns = {"A fine K shape x1": (1, lambda: kern(X)),
+           "A fine K shape x20": (20, lambda: [kern(X) for _ in range(20)]),
+           "fill x20": (20, lambda: [small.fill_(1.0) for _ in range(20)]),
+           "tiny add x20": (20, lambda: [small.add_(1.0) for _ in range(20)])}
+    out = {}
+    for label, (want, fn) in fns.items():
+        fn()
+        counts = {False: [], True: []}
+        for _ in range(traces):
+            for bracket in (False, True):
+                counts[bracket].append(_profiled(fn, bracket=bracket)[1])
+        for bracket, ns in counts.items():
+            key = f"{label} {'bracketed' if bracket else 'bare'}"
+            out[key] = {"traces": traces, "records": want,
+                        "empty": sum(n == 0 for n in ns),
+                        "short": sum(0 < n < want for n in ns)}
+            print(f"[probe] {key}: of {traces} traces {out[key]['empty']} "
+                  f"hold no CUDA record and {out[key]['short']} fewer than "
+                  f"{want}", flush=True)
+    print(json.dumps({"profiler_probe": out, "card": card}), flush=True)
 
 
 def device_ms(fn, calls=20, warmup=3):
@@ -393,10 +496,18 @@ def device_ms(fn, calls=20, warmup=3):
     (kernels, copies, fills) that torch.profiler takes over ``calls``
     calls, summed, over the calls.
 
-    The profiler now and then returns a trace without any CUDA record; it
-    is taken again, at most twice.  Where it stays empty (the profiler of
-    this process has stopped recording the card) the device time is not
-    measured: None, here and, without a retake, in every later call."""
+    The profiler now and then returns a trace that holds only some of the
+    CUDA records, or none (``profiler_probe``): once it starts, a trace
+    loses its first record, so every window is bracketed by sentinel
+    kernels (``_profiled``).  A trace loses records but never gains one,
+    so the records of one call are the most that three one-call traces
+    hold (or, should a trace of the calls hold more than ``calls`` times
+    that, its count over ``calls``, rounded up), and a trace of the calls
+    is kept only if it holds ``calls`` times that many.  The time is the mean of two whole traces within 5%
+    of each other, else the median of three (the first whole ones of up
+    to five traces).  Where no trace is whole (the profiler of this
+    process has stopped recording the card) the device time is not
+    measured: None, here and, with fewer retakes, in every later call."""
     for _ in range(warmup):
         fn()
 
@@ -404,13 +515,26 @@ def device_ms(fn, calls=20, warmup=3):
         for _ in range(calls):
             fn()
 
-    for attempt in range(1 if device_ms.profiler_lost else 3):
-        us = _profiled_us(many)
-        if us > 0:
-            device_ms.profiler_lost = False
-            return us / calls / 1e3
-        print(f"[kernels] profiler trace {attempt + 1} holds no CUDA record",
+    one = max(_profiled(fn)[1] for _ in range(3))
+    whole = []
+    for attempt in range(3 if device_ms.profiler_lost else 5):
+        us, n = _profiled(many)
+        if one > 0 and n == calls * one:
+            whole.append(us / calls / 1e3)
+            # two whole traces within 5% of each other, or three
+            if len(whole) == 3 or (len(whole) == 2 and abs(
+                    whole[0] - whole[1]) <= 0.05 * max(whole)):
+                break
+            continue
+        print(f"[kernels] profiler trace {attempt + 1} holds {n} CUDA "
+              f"records of {calls} calls, one call's {one}: not whole",
               flush=True)
+        one = max(one, -(-n // calls))     # no trace gains a record
+    if whole:
+        # now and then a whole trace reads far below its neighbours: two
+        # that agree, or the median of three
+        device_ms.profiler_lost = False
+        return float(np.median(whole))
     if not device_ms.profiler_lost:
         print("[kernels] FINDING: torch.profiler records no device time in "
               "this process; device times from here on are not measured "
@@ -566,13 +690,173 @@ def compare(label, kernel, plain, rtol, library=None, bounds=None,
     return out
 
 
+# --band-parity: the f32 cases of kernels A and B of one tree, outputs
+# saved or compared bit for bit, free functions (and bound forms) timed
+PARITY = {}
+
+
+def parity_case(label, band, free, bound, bound_name):
+    """One f32 case of --band-parity: the free function's output saved
+    (``--save``) or held bit for bit to a saved run's (``--against``), its
+    device time, and, where the tree has the bound form ``bound_name``,
+    the bound form's output (bit for bit the free function's) and device
+    time.  Other cases (bf16 bands) are skipped."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.ops import banded
+    if band.dtype != torch.float32:
+        return None
+    y = free()
+    torch.cuda.synchronize()
+    rec = {"case": label, "free_ms": device_ms(free),
+           "free_call_ms": median_ms(free)}
+    bind = getattr(banded, bound_name, None)
+    if bind is not None:
+        call = bound(bind)
+        bound_equals_free(label, call(), y)
+        rec.update(bound_ms=device_ms(call), bound_call_ms=median_ms(call))
+    y = y.cpu()
+    PARITY["outputs"][label] = y
+    saved = PARITY.get("against")
+    if saved is not None:
+        if label not in saved:
+            rec["equal"] = None
+        else:
+            rec["equal"] = bool(torch.equal(y, saved[label]))
+            rec["max_abs_diff"] = float((y - saved[label]).abs().max())
+    PARITY["records"].append(rec)
+    print(f"[parity] {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def parity_band(label, band, spans, X, coef, rtol=1e-5):
+    """--band-parity's kernel A case (``parity_case``)."""
+    from fenics_eff_uptake_tpu_torch.ops import banded
+    return parity_case(
+        label, band, lambda: banded.band_apply(band, X, coef, spans=spans),
+        lambda bind: (lambda k: lambda: k(X, coef))(bind(band, spans)),
+        "BandKernel")
+
+
+def parity_rect(label, band, offs, spans, Xq, rtol=1e-5):
+    """--band-parity's kernel B case (``parity_case``)."""
+    from fenics_eff_uptake_tpu_torch.ops import banded
+    return parity_case(
+        label, band, lambda: banded.rect_band_apply(band, offs, Xq, spans),
+        lambda bind: (lambda k: lambda: k(Xq))(bind(band, offs, spans)),
+        "RectBandKernel")
+
+
+def band_parity(args):
+    """--band-parity: run the kernel phases' f32 cases of kernels A and B
+    on the tree ``--tree`` (its package and its kernels, built in its own
+    build/), every other case skipped; per case the device ms of the free
+    function and, where the tree has them, of the bound forms (which must
+    equal the free function bit for bit); ``--save FILE`` keeps the
+    outputs, ``--against FILE`` holds them bit for bit to a saved run's
+    and fails on any difference.  The inputs are this script's, so two
+    trees see the same.  Run trees in turns in one call: parent, change,
+    change, parent."""
+    import torch
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    os.environ["FEU_CACHE_DIR"] = str(tree / "build" / "cache" /
+                                      f"parity-{os.getpid()}")
+    import fenics_eff_uptake_tpu_torch as pkg
+    if Path(pkg.__file__).resolve().parents[1] != tree:
+        raise SystemExit(f"chip_smoke: imported {pkg.__file__}, not the "
+                         f"package of {tree}")
+    from fenics_eff_uptake_tpu_torch.device import setup
+    card = phase_device()
+    dev = setup("cuda")
+    card_peaks(dev)
+    PARITY.update(outputs={}, records=[], against=None if not args.against
+                  else torch.load(args.against))
+    t0 = time.time()
+    for phase in (phase_kernels, phase_kernels_flow, phase_kernels_advdiff,
+                  phase_kernels_graded):
+        phase(dev, PARITY_CASES)
+    busy = parity_busy(dev)
+    if args.save:
+        torch.save(PARITY["outputs"], args.save)
+    recs = PARITY["records"]
+    bad = [r["case"] for r in recs if r.get("equal") is False]
+    missing = [r["case"] for r in recs if "equal" in r and r["equal"] is None]
+    print(json.dumps({"parity": {"tree": str(tree), "card": card,
+                                 "seconds": time.time() - t0,
+                                 "busy": busy, "cases": recs, "differ": bad,
+                                 "not_saved": missing}}), flush=True)
+    if bad:
+        raise SystemExit(f"chip_smoke: {len(bad)} cases differ from "
+                         f"{args.against}: {bad}")
+
+
+def parity_busy(dev):
+    """--band-parity's solves: the device busy ms (CUDA records of one
+    profiled run, device records only) and the unprofiled wall seconds of
+    the adv-diff study's rectangle batch solve (step-mu BiCGStab, B = 9;
+    steady, after two runs) and of one E_L1 rung (the el1 phase's family
+    at factor 8, Pe 0.1; cold: no disk cache, memos released before each
+    run), with their iterations."""
+    import torch
+    from fenics_eff_uptake_tpu_torch.parallel.sweep import solve_sweep
+    from fenics_eff_uptake_tpu_torch.studies import el1_convergence as el
+    out = {}
+
+    def timed(tag, fn, prep=lambda: None):
+        prep()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        prep()
+        busy = _busy_ms(fn)
+        out[tag] = {"wall_s": wall, "busy_ms": busy, "result": res}
+        print(f"[parity] {tag}: wall {wall:.3f} s, device busy "
+              + ("not measured" if busy is None else f"{busy:.3f} ms")
+              + f"; {res}", flush=True)
+
+    sys_, ml, Rb, D = rect_step_setup(dev)
+
+    def rect():
+        X, info = solve_sweep(sys_, D, multilevel=ml, robin_matrices=Rb)
+        return {"iters": [int(i) for i in info["iters"]]}
+    rect()
+    rect()
+    timed("adv_diff rectangle solve B=9", rect)
+    del sys_, ml, Rb
+    w, d = EL1_FAMILY
+    os.environ["FEU_DISK_CACHE"] = "0"
+
+    def rung():
+        rows, st = el.run_rung([0.1], w, d, 0.02, 8, dev, verbose=False)
+        return {"cells": st["cells"], "minres": st["minres_iters"],
+                "iters": st["iters"], "bands": st["bands"]}
+    try:
+        timed("el1 factor 8 rung", rung, prep=lambda: el.release(dev))
+    finally:
+        os.environ.pop("FEU_DISK_CACHE")
+        el.release(dev)
+    return out
+
+
+def bound_equals_free(label, y_bound, y_free):
+    """The bound form of kernel A or B and the free function (the kernel
+    bound for its one call) give the same bits."""
+    import torch
+    torch.cuda.synchronize()
+    if not torch.equal(y_bound, y_free):
+        raise AssertionError(f"{label}: the bound kernel differs from the "
+                             "free function")
+
+
 def band_case(label, band, spans, X, coef, rtol=1e-5):
     """Kernel A on one band: kernel, plain, and the plain version's one
     cuBLAS call (bmm on the windows, built before the timing)."""
     import torch
     import torch.nn.functional as F
-    from fenics_eff_uptake_tpu_torch.ops.banded import (band_apply,
-                                                        band_apply_plain)
+    from fenics_eff_uptake_tpu_torch.ops.banded import (
+        BandKernel, band_apply, band_apply_plain)
     T, R, W = band.shape
     halo = (W // R - 1) // 2
     win = F.pad(X, (0, 0, halo * R, halo * R)).unfold(0, W, R).contiguous()
@@ -582,13 +866,18 @@ def band_case(label, band, spans, X, coef, rtol=1e-5):
     if band.dtype == torch.bfloat16:     # bf16 operands, bf16 Y
         terms = band_apply_plain(band.float().abs(), X.float().abs(),
                                  None if coef is None else coef.float())
-    return compare(
-        label, lambda: band_apply(band, X, coef, spans=spans),
+    kern = BandKernel(band, spans)
+    bound_equals_free(label, kern(X, coef),
+                      band_apply(band, X, coef, spans=spans))
+    rec = compare(
+        label, lambda: kern(X, coef),
         lambda: band_apply_plain(band, X, coef), rtol,
         library=lambda: torch.bmm(band, win.transpose(1, 2)),
         bounds=band_bounds(band, spans, n, n, B,
                            0 if coef is None else xs * B, xs, xs),
         terms=terms)
+    rec["key"] = ["band_apply", str(band.dtype), T, R, W, B]
+    return rec
 
 
 def rect_case(label, band, offs, spans, Xq, rtol=1e-5):
@@ -597,7 +886,7 @@ def rect_case(label, band, offs, spans, Xq, rtol=1e-5):
     before the timing)."""
     import torch
     from fenics_eff_uptake_tpu_torch.ops.banded import (
-        rect_band_apply, rect_band_apply_plain)
+        RectBandKernel, rect_band_apply, rect_band_apply_plain)
     T, R, W = band.shape
     idx = offs.long()[:, None] + torch.arange(W, device=Xq.device)
     win = Xq.to(band.dtype)[idx].contiguous()
@@ -616,13 +905,17 @@ def rect_case(label, band, offs, spans, Xq, rtol=1e-5):
                 print(f"[kernels] {label}: this PyTorch's bmm has no f32 "
                       "output for bf16 operands; library time is the bf16 "
                       "output's", flush=True)
-    return compare(
-        label, lambda: rect_band_apply(band, offs, Xq, spans),
+    kern = RectBandKernel(band, offs, spans)
+    bound_equals_free(label, kern(Xq), rect_band_apply(band, offs, Xq, spans))
+    rec = compare(
+        label, lambda: kern(Xq),
         lambda: rect_band_apply_plain(band, offs, Xq), rtol,
         library=library,
         bounds=band_bounds(band, spans, Xq.shape[0], T * R, Xq.shape[1],
                            4 * T, xs, xs),
         terms=terms)
+    rec["key"] = ["rect_band_apply", str(band.dtype), T, R, W, Xq.shape[1]]
+    return rec
 
 
 def element_case(label, blk, X, coef, rtol, form="full"):
@@ -812,7 +1105,18 @@ def chunk_case(label, blk, lay, X, coef, form, per_sample=None):
                         f"({max(pad, 0)} padding)", ch, X, coef, 1e-12, form)
 
 
-def phase_kernels(dev):
+# what the kernel phases do with each case: the smoke compares each kernel
+# with its plain version; --band-parity keeps kernels A and B's f32 cases
+# (``parity_case``) and skips the rest (their inputs are drawn all the
+# same, so both modes see the same inputs)
+SMOKE_CASES = SimpleNamespace(band=band_case, rect=rect_case,
+                              element=element_case, chunk=chunk_case)
+PARITY_CASES = SimpleNamespace(band=parity_band, rect=parity_rect,
+                               element=lambda *a, **k: None,
+                               chunk=lambda *a, **k: None)
+
+
+def phase_kernels(dev, cases=SMOKE_CASES):
     """Each kernel against its plain version at the sweep's own shapes."""
     import torch
     from fenics_eff_uptake_tpu_torch.parallel.sweep import (
@@ -841,7 +1145,7 @@ def phase_kernels(dev):
     for label, s in (("fine", sys_), ("mid", ml.levels[1].sys)):
         band = s.Kband
         X = rnd(band.shape[0] * band.shape[1], torch.float32)
-        out["band_apply"].append(band_case(
+        out["band_apply"].append(cases.band(
             f"A {label} band {tuple(band.shape)} B={B_SWEEP}", band,
             s.Kspans, X, coef32))
     # B: the fine level's restriction and prolongation bands
@@ -850,7 +1154,7 @@ def phase_kernels(dev):
             ("restrict", tb.r, tb.ro, tb.rs, tb.pad_r),
             ("prolong", tb.p, tb.po, tb.ps, tb.pad_p)):
         Xq = rnd(rows, torch.float32)
-        out["rect_band_apply"].append(rect_case(
+        out["rect_band_apply"].append(cases.rect(
             f"B fine {label} {tuple(band.shape)} B={B_SWEEP}", band, offs,
             spans, Xq))
     # C: f64 K in the full form (the defect residual's), the Robin blocks
@@ -864,7 +1168,7 @@ def phase_kernels(dev):
             ("f32 R", sys_.R, torch.float32, 2e-5, "full"),
             ("f32 R", sys_.R, torch.float32, 2e-5, "out"),
             ("f32 mid R", mid_R, torch.float32, 2e-5, "out")):
-        out["element_apply"].append(element_case(
+        out["element_apply"].append(cases.element(
             label, blk, rnd(blk.ndofs, dtype), coef32.to(dtype), rtol,
             form))
     # the bf16 operand forms on the same bands and blocks: A on the mid K
@@ -872,7 +1176,7 @@ def phase_kernels(dev):
     # in both forms on the fine transfers, C on the fine Robin block in
     # the out= form (tolerances: compare's ``terms``)
     bf16 = torch.bfloat16
-    out["band_apply bf16"] = [band_case(
+    out["band_apply bf16"] = [cases.band(
         f"A bf16 {TC} {label} band {tuple(s.Kband.shape)} B={B_SWEEP}",
         s.Kband.to(bf16), s.Kspans,
         rnd(s.Kband.shape[0] * s.Kband.shape[1], bf16), coef32.to(bf16))
@@ -883,11 +1187,11 @@ def phase_kernels(dev):
             ("prolong", tb.p, tb.po, tb.ps, tb.pad_p)):
         for xd, form in ((torch.float32, "bf16 band, f32 X"),
                          (bf16, "all bf16")):
-            out["rect_band_apply bf16"].append(rect_case(
+            out["rect_band_apply bf16"].append(cases.rect(
                 f"B {form} {TC} fine {label} {tuple(band.shape)} "
                 f"B={B_SWEEP}",
                 band.to(bf16), offs, spans, rnd(rows, xd)))
-    out["element_apply bf16"] = [element_case(
+    out["element_apply bf16"] = [cases.element(
         "R", sys_.R.with_bf16(), rnd(sys_.ndofs, bf16), coef32.to(bf16),
         1e-5, "out")]
     # B = 1, the per-run models' width (run_simulation): A on the fine K
@@ -903,19 +1207,19 @@ def phase_kernels(dev):
     for label, s, coef in (("fine", sys_, coef1), ("fine", sys_, None),
                            ("mid", ml.levels[1].sys, coef1)):
         band = s.Kband
-        out["band_apply"].append(band_case(
+        out["band_apply"].append(cases.band(
             f"A {label} band {tuple(band.shape)} B=1"
             + ("" if coef is not None else " no coef"), band, s.Kspans,
             rnd1(band.shape[0] * band.shape[1], torch.float32), coef))
     for label, band, offs, spans, rows in (
             ("restrict", tb.r, tb.ro, tb.rs, tb.pad_r),
             ("prolong", tb.p, tb.po, tb.ps, tb.pad_p)):
-        out["rect_band_apply"].append(rect_case(
+        out["rect_band_apply"].append(cases.rect(
             f"B fine {label} {tuple(band.shape)} B=1", band, offs, spans,
             rnd1(rows, torch.float32)))
     for label, blk, form in (("f64 K", sys_.K, "full"),
                              ("f64 R", sys_.R, "out")):
-        out["element_apply"].append(element_case(
+        out["element_apply"].append(cases.element(
             label, blk, rnd1(blk.ndofs, torch.float64),
             coef1.to(torch.float64), 1e-12, form))
     # the sharded path (phase 12): the last rank's f64 chunks of K (full
@@ -926,12 +1230,12 @@ def phase_kernels(dev):
     coef_s = coef32[:bs].double()
     for label, blk, form in (("f64 K", sys_.K, "full"),
                              ("f64 R", sys_.R, "out")):
-        out["element_apply"].append(chunk_case(
+        out["element_apply"].append(cases.chunk(
             label, blk, lay, rnd(blk.ndofs, torch.float64)[:, :bs]
             .contiguous(), coef_s, form))
     for label, blk, form in (("f64 mid K", ml.levels[1].sys.K, "full"),
                              ("f64 mid R", mid_R, "out")):
-        out["element_apply"].append(element_case(
+        out["element_apply"].append(cases.element(
             label, blk, rnd(blk.ndofs, torch.float64)[:, :bs].contiguous(),
             coef_s, 1e-12, form))
     del sys_, ml
@@ -939,7 +1243,7 @@ def phase_kernels(dev):
     return out
 
 
-def phase_kernels_flow(dev):
+def phase_kernels_flow(dev, cases=SMOKE_CASES):
     """The kernels at the no-uptake path's shapes (reference geometry,
     h = 0.02): the advection band and block under the solved Stokes
     velocity and the advective hierarchy's fine transfers (B = 3), the
@@ -983,7 +1287,7 @@ def phase_kernels_flow(dev):
             ("velocity band", vel.Kband, vel.Kspans, 96,
              torch.rand(96, generator=g, device=dev) + 0.5)):
         X = rnd(band.shape[0] * band.shape[1], B)
-        out["band_apply"].append(band_case(
+        out["band_apply"].append(cases.band(
             f"A {label} {tuple(band.shape)} B={B}", band, spans, X, coef))
     # B: each hierarchy's fine restriction and prolongation at the widths
     # the path gives them (transport cycles, Stokes cycles, deflation)
@@ -994,16 +1298,16 @@ def phase_kernels_flow(dev):
                 ("restrict", tb.r, tb.ro, tb.rs, tb.pad_r),
                 ("prolong", tb.p, tb.po, tb.ps, tb.pad_p)):
             Xq = rnd(rows, B)
-            out["rect_band_apply"].append(rect_case(
+            out["rect_band_apply"].append(cases.rect(
                 f"B {label} {way} {tuple(band.shape)} B={B}", band, offs,
                 spans, Xq))
     # C: the f64 Adv block in the full form (1e-12), and the f32 fine and
     # mid Robin blocks in the out= form (2e-5), every cycle's Robin apply
     # (the study's mu is 0; a random coef here, as the time is the same)
-    out["element_apply"].append(element_case(
+    out["element_apply"].append(cases.element(
         "f64 Adv", adv.Adv, rnd(adv.ndofs, 3, torch.float64), None, 1e-12))
     for label, blk in (("f32 R", adv.R), ("f32 mid R", aml.levels[1].sys.R)):
-        out["element_apply"].append(element_case(
+        out["element_apply"].append(cases.element(
             label, blk, rnd(blk.ndofs, 3),
             torch.rand(3, generator=g, device=dev) + 0.5, 2e-5, "out"))
     # the bf16 forms at the shapes the mult cycle of this path gives them
@@ -1014,7 +1318,7 @@ def phase_kernels_flow(dev):
     bf16 = torch.bfloat16
     mid = aml.levels[1].sys
     coef3 = torch.rand(3, generator=g, device=dev) + 0.5
-    out["band_apply bf16"] = [band_case(
+    out["band_apply bf16"] = [cases.band(
         f"A bf16 {TC} {label} {tuple(band.shape)} B=3", band.to(bf16), spans,
         rnd(band.shape[0] * band.shape[1], 3, bf16),
         None if coef is None else coef.to(bf16))
@@ -1023,7 +1327,7 @@ def phase_kernels_flow(dev):
             ("mid K band", mid.Kband, mid.Kspans, coef3),
             ("mid Adv band", mid.Advband, mid.Advspans, None))]
     tb = aml.levels[0].bands
-    out["rect_band_apply bf16"] = [rect_case(
+    out["rect_band_apply bf16"] = [cases.rect(
         f"B {form} {TC} transport {way} {tuple(band.shape)} B=3",
         band.to(bf16),
         offs, spans, rnd(rows, 3, xd))
@@ -1032,7 +1336,7 @@ def phase_kernels_flow(dev):
             ("prolong", tb.p, tb.po, tb.ps, tb.pad_p))
         for xd, form in ((torch.float32, "bf16 band, f32 X"),
                          (bf16, "all bf16"))]
-    out["element_apply bf16"] = [element_case(
+    out["element_apply bf16"] = [cases.element(
         label, blk.with_bf16(), rnd(blk.ndofs, 3, bf16), coef3.to(bf16),
         1e-5, "out") for label, blk in (("R", adv.R), ("mid R", mid.R))]
     # the sharded Stokes saddle apply: the last rank's chunk of the
@@ -1040,7 +1344,7 @@ def phase_kernels_flow(dev):
     # f64 advection chunk at its B = 2 columns
     lay = shard_layout(dev)
     for label, blk in (("f64 velocity K", vel.K), ("f64 Adv", adv.Adv)):
-        out["element_apply"].append(chunk_case(
+        out["element_apply"].append(cases.chunk(
             label, blk, lay, rnd(blk.ndofs, 2, torch.float64), None, "full"))
     del adv, aml, vel, vml
     torch.cuda.empty_cache()
@@ -1090,7 +1394,7 @@ def rect_step_setup(dev):
     return sys_, ml, Rb, D
 
 
-def phase_kernels_advdiff(dev):
+def phase_kernels_advdiff(dev, cases=SMOKE_CASES):
     """Kernel C's per-sample form at the adv-diff path's shapes (the
     rectangle at h = 0.02, B = 9): the fine Robin batch in f64 (the true
     residuals'; out= and full) and in f32 (every inner apply and fine
@@ -1109,7 +1413,7 @@ def phase_kernels_advdiff(dev):
                           dtype=dtype) * 2 - 1
 
     fine = ml.levels[0].R_batch
-    cases = []
+    c_cases = []
     for label, blk, dtype, rtol, form in (
             ("f64 R", fine, torch.float64, 1e-12, "out"),
             ("f64 R", fine, torch.float64, 1e-12, "full"),
@@ -1117,13 +1421,13 @@ def phase_kernels_advdiff(dev):
             ("f32 mid R", ml.levels[1].R_batch, torch.float32, 2e-5, "out"),
             ("f32 mid2 R", ml.levels[2].R_batch, torch.float32, 2e-5,
              "out")):
-        cases.append(element_case(label, blk, rnd(blk.ndofs, dtype), None,
+        c_cases.append(cases.element(label, blk, rnd(blk.ndofs, dtype), None,
                                   rtol, form))
     # B = 1: one run with a callable mu (its per-sample Robin block, f64
     # out=, the true residuals')
     one = sys_.R.per_sample(Rb[:1])
     X1 = rnd(one.ndofs, torch.float64)[:, :1].contiguous()
-    cases.append(element_case("f64 R B=1", one, X1, None, 1e-12, "out"))
+    c_cases.append(cases.element("f64 R B=1", one, X1, None, 1e-12, "out"))
     # the sharded step-mu batch: B = 9 padded to 10 with the last column,
     # the last rank's 5 columns on its chunk of the fine Robin block (out=,
     # as the sharded operator adds it; full for its rows left zero)
@@ -1131,19 +1435,19 @@ def phase_kernels_advdiff(dev):
     Rb_p = torch.cat([Rb, Rb[-1:]]).double()
     bs = Rb_p.shape[0] // lay.dp
     for form in ("out", "full"):
-        cases.append(chunk_case(
+        c_cases.append(cases.chunk(
             "f64 R", sys_.R, lay, rnd(sys_.ndofs, torch.float64)[:, :bs]
             .contiguous(), None, form, per_sample=Rb_p))
-    c16 = element_case("R", fine.with_bf16(),
+    c16 = cases.element("R", fine.with_bf16(),
                        rnd(fine.ndofs, torch.bfloat16), None, 1e-5, "out")
     band = sys_.Advband
     X = rnd(band.shape[0] * band.shape[1], torch.float32)
-    a_cases = [band_case(f"A rectangle Adv band {tuple(band.shape)} B={nb}",
+    a_cases = [cases.band(f"A rectangle Adv band {tuple(band.shape)} B={nb}",
                          band, sys_.Advspans, X[:, :nb].contiguous(), None)
                for nb in (B, 1)]
     del sys_, ml, Rb
     torch.cuda.empty_cache()
-    return cases, a_cases, c16
+    return c_cases, a_cases, c16
 
 
 # the graded kernel cases: the w0.4/d2.0 family at h = 0.02, its mouth
@@ -1152,7 +1456,7 @@ def phase_kernels_advdiff(dev):
 GRADED = (0.4, 2.0, 8)
 
 
-def phase_kernels_graded(dev):
+def phase_kernels_graded(dev, cases=SMOKE_CASES):
     """The kernels on a mouth-refined mesh (``GRADED``) at the E_L1
     ladder's shapes (B = 3, one column per Pe): A on the fine K band (with
     coef) and the fine advection band, B on the advective hierarchy's fine
@@ -1193,7 +1497,7 @@ def phase_kernels_graded(dev):
     for label, band, spans, cf in (
             ("K band", adv.Kband, adv.Kspans, coef),
             ("Adv band", adv.Advband, adv.Advspans, None)):
-        out["band_apply"].append(band_case(
+        out["band_apply"].append(cases.band(
             f"A {tag} {label} {tuple(band.shape)} B=3", band, spans,
             rnd(band.shape[0] * band.shape[1]), cf))
     tb, mid = aml.levels[0].bands, aml.levels[1].bands
@@ -1201,13 +1505,17 @@ def phase_kernels_graded(dev):
             ("restrict", tb.r, tb.ro, tb.rs, tb.pad_r),
             ("prolong", tb.p, tb.po, tb.ps, tb.pad_p),
             ("mid restrict", mid.r, mid.ro, mid.rs, mid.pad_r)):
-        out["rect_band_apply"].append(rect_case(
+        out["rect_band_apply"].append(cases.rect(
             f"B {tag} {way} {tuple(band.shape)} B=3", band, offs, spans,
             rnd(rows)))
+    # the mid restriction's 8-row tiles at one column too
+    out["rect_band_apply"].append(cases.rect(
+        f"B {tag} mid restrict {tuple(mid.r.shape)} B=1", mid.r, mid.ro,
+        mid.rs, rnd(mid.pad_r)[:, :1].contiguous()))
     out["element_apply"] += [
-        element_case(f"{tag} f64 K", adv.K, rnd(adv.ndofs, torch.float64),
+        cases.element(f"{tag} f64 K", adv.K, rnd(adv.ndofs, torch.float64),
                      None, 1e-12),
-        element_case(f"{tag} f32 R", adv.R, rnd(adv.ndofs), coef, 2e-5,
+        cases.element(f"{tag} f32 R", adv.R, rnd(adv.ndofs), coef, 2e-5,
                      "out")]
     del adv, aml, u, mesh
     release(dev)
@@ -2577,20 +2885,20 @@ def cycle_vs_plain(name, ml, R, **cycle_kw):
         return elemspmv.element_apply_plain(
             self.matrices(X.dtype), self.dofs, self.scatter, X, coef, out)
 
-    kept = (multilevel.band_apply, multilevel.rect_band_apply,
+    kept = (banded.BandKernel.__call__, banded.RectBandKernel.__call__,
             sweep._Block.apply_batched)
     n0 = read_launches()
-    multilevel.band_apply = (
-        lambda band, X, coef=None, spans=None:
-        banded.band_apply_plain(band, X, coef))
-    multilevel.rect_band_apply = (
-        lambda band, offs, Xq, spans=None:
-        banded.rect_band_apply_plain(band, offs, Xq))
+    banded.BandKernel.__call__ = (
+        lambda self, X, coef=None:
+        banded.band_apply_plain(self.band, X, coef))
+    banded.RectBandKernel.__call__ = (
+        lambda self, Xq: banded.rect_band_apply_plain(self.band, self.offs,
+                                                      Xq))
     sweep._Block.apply_batched = plain_block
     try:
         Mp = M(R)
     finally:
-        (multilevel.band_apply, multilevel.rect_band_apply,
+        (banded.BandKernel.__call__, banded.RectBandKernel.__call__,
          sweep._Block.apply_batched) = kept
     torch.cuda.synchronize()
     if read_launches() != n0:
@@ -2984,8 +3292,25 @@ def main(argv=None):
                     help="also profile both paths (host and device)")
     ap.add_argument("--setup-cache-child", choices=SETUP_CACHE_RUNS[:2],
                     help=argparse.SUPPRESS)
+    ap.add_argument("--band-parity", action="store_true",
+                    help="only the f32 cases of kernels A and B, of the "
+                         "tree --tree: outputs (--save, --against) and "
+                         "device times")
+    ap.add_argument("--tree", default=str(ROOT),
+                    help="--band-parity: the root of a checkout")
+    ap.add_argument("--save", help="--band-parity: write the outputs here")
+    ap.add_argument("--against",
+                    help="--band-parity: hold the outputs bit for bit to "
+                         "those of this file")
+    ap.add_argument("--profiler-probe", action="store_true",
+                    help="only count torch.profiler traces without CUDA "
+                         "records, with and without a padded window")
     args = ap.parse_args(argv)
     t_start = time.time()
+    if args.band_parity:
+        return band_parity(args)
+    if args.profiler_probe:
+        return profiler_probe()
     if not (ROOT / "fenics_eff_uptake_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: fenics_eff_uptake_tpu_torch/ is not "
                          f"beside this script in {ROOT}; run it from a "
@@ -3027,9 +3352,14 @@ def _main(args, card, t_start):
 
     phase_s = {"build": build_s}
 
+    from fenics_eff_uptake_tpu_torch.ops import banded
+    band_launches = {}      # phase -> launches of A and B by band and B
+
     def timed(name, fn):
         t = time.time()
+        banded.launches_by_band.clear()
         out = fn(dev)
+        band_launches[name] = dict(banded.launches_by_band)
         phase_s[name] = time.time() - t
         print(f"[time] {name}: {phase_s[name]:.1f}s", flush=True)
         return out
@@ -3065,8 +3395,8 @@ def _main(args, card, t_start):
     # package has no Pallas kernel for it, only the unrolled multiply-adds
     # of _Block.apply_batched
     meta = {
-        "band_apply": ("band_apply.cu", f"{PALLAS}:155"),
-        "rect_band_apply": ("band_apply.cu", f"{PALLAS}:274"),
+        "band_apply": ("band_f32.cu", f"{PALLAS}:155"),
+        "rect_band_apply": ("band_f32.cu", f"{PALLAS}:274"),
         "element_apply": ("element_apply.cu", f"{PALLAS}:51"),
         PER_SAMPLE: ("element_apply.cu", f"{JAX_SWEEP}:104"),
         # the bf16 operand forms: the TPU kernels' bf16 branches; launched
@@ -3082,6 +3412,21 @@ def _main(args, card, t_start):
                "setup_cache": sc_launches,
                "configs": cfg_launches, "per_run": pr_launches,
                "sharded": sh_launches}
+    # each A and B case's launches on the paths: every launch of its
+    # kernel on its band at its width in each path phase (first and
+    # steady runs alike)
+    paths = [p for p in band_launches if not p.startswith("kernels")]
+    for name in ("band_apply", "rect_band_apply", "band_apply bf16",
+                 "rect_band_apply bf16"):
+        for c in cases[name]:
+            key = tuple(c["key"])
+            c["launches_by_path"] = {p: band_launches[p][key] for p in paths
+                                     if band_launches[p].get(key)}
+            print(f"[launches] {c['case']}: "
+                  + (", ".join(f"{p} {n}" for p, n in
+                               c["launches_by_path"].items())
+                     or "no path launches it at this band and width"),
+                  flush=True)
     unlaunched = [n for n in meta if sum(p[n] for p in by_path.values()) <= 0]
     if unlaunched:
         raise AssertionError(f"kernels no path launched: {unlaunched}")

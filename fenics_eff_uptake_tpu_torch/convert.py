@@ -19,10 +19,9 @@ from .fem.space import Function, FunctionSpace
 from .meshing.generator import _mesh_from_arrays, _mesh_to_arrays
 from .meshing.geometry import SulcusGeometry
 from .meshing.mesh_data import MeshData
-from .ops.banded import band_spans
 from .parallel.sweep import TransportSystem, _Block, system_from_arrays
 from .solvers.multilevel import (Level, MultilevelData, Transfer,
-                                 TransferBands)
+                                 transfer_bands)
 
 __all__ = ["mesh_from", "space_from", "transport_system_from_arrays",
            "robin_batch_from", "multilevel_from_arrays",
@@ -122,12 +121,11 @@ def multilevel_from_arrays(levels: List[dict], Ainv, free_c, omega, D_vec,
         bands = None
         if lv.get("tb_p") is not None:
             p, r = f32(lv["tb_p"]), f32(lv["tb_r"])
-            bands = TransferBands(
+            bands = transfer_bands(
                 p=p, po=_i32(lv["tb_po"], device),
                 r=r, ro=_i32(lv["tb_ro"], device),
                 sig=idx(lv["tb_sig"]), isig=idx(lv["tb_isig"]),
-                pad_p=int(lv["pad_p"]), pad_r=int(lv["pad_r"]),
-                ps=band_spans(p), rs=band_spans(r))
+                pad_p=int(lv["pad_p"]), pad_r=int(lv["pad_r"]))
         rb = lv.get("R_batch")
         out.append(Level(sys=sys_l, dinv=f32(lv["dinv"]), free=sys_l.free,
                          transfer=tr, bands=bands,

@@ -32,13 +32,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
-    "feu_band_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "feu_rect_band_apply": [_P, _P, _P, _P, _P, _I, _I, _I,
-                            ctypes.c_longlong, _I, _P],
+    "feu_band_bind": [_P],
+    "feu_band_launch": [_P, _P, _L, _P, _P, _I, _I, _I, _P],
+    "feu_band_plan_layout": [_P, _I],
     "feu_band_apply_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "feu_rect_band_apply_bf16": [_P, _P, _P, _P, _P, _I, _I, _I,
-                                 ctypes.c_longlong, _I, _I, _P],
+    "feu_rect_band_apply_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
+                                 _I, _P],
     "feu_element_apply": [_P, _P, _P, _P, _I, _I, _P],
 }
 
@@ -118,8 +119,17 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+# csrc/band_f32.cu kErrEncode: a tensor map that did not encode returns it
+# plus the driver's CUresult
+ERR_ENCODE = 100000
+
+
 def check(err: int, name: str) -> None:
-    """Raise if a kernel entry point returned a CUDA error."""
+    """Raise if a kernel entry point returned a CUDA error (or a tensor
+    map's encoding failed)."""
+    if err >= ERR_ENCODE:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed, "
+                           f"CUresult {err - ERR_ENCODE}")
     if err != 0:
         msg = library().feu_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

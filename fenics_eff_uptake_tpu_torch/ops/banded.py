@@ -11,11 +11,19 @@ whose window start is per-tile data:
 
     band[t, r, w] = P[t*R + r, offs[t] + w]
 
-:func:`band_apply` (kernel A) and :func:`rect_band_apply` (kernel B)
-dispatch on the device of X: CPU tensors take the plain PyTorch versions,
-CUDA tensors the kernels of ``csrc/band_apply.cu`` (or raise).  The band
+:class:`BandKernel` (kernel A) and :class:`RectBandKernel` (kernel B)
+are a band bound once, where it is made: its fixed tensors are checked
+there, its f32 form gets its work list (:func:`work_list`) and the
+tensor map of ``csrc/band_f32.cu``, and a call checks only what changes
+(X, coef) and launches.  They dispatch on the device of X: CPU tensors
+take the plain PyTorch versions, CUDA tensors the kernels of
+``csrc/band_f32.cu`` (f32) and ``csrc/band_apply.cu`` (bf16), or raise.
+:func:`band_apply` and :func:`rect_band_apply` are the same kernels
+bound for the one call; a band's work list is kept with its spans
+(:func:`work_list`), so binding it again launches nothing.  The band
 values are scattered on the band's device by the deterministic
-``planned_segment_sum``.  Host plans live in ``ops/band_plans.py``.
+``planned_segment_sum``.  Host plans live in
+``ops/band_plans.py``.
 
 Less than half of a band holds anything.  :func:`band_spans` records, for
 each block of ``SPAN_ROWS`` band rows, the range of ``SPAN_COLS``-column
@@ -48,6 +56,9 @@ zero adds nothing).
 
 from __future__ import annotations
 
+import collections
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -56,14 +67,20 @@ from .band_plans import BandPlan, RectBandPlan
 from .elemspmv import make_segment_plan, planned_segment_sum
 
 __all__ = ["band_from_elements", "rect_band_values", "band_spans",
-           "span_elements", "SPAN_ROWS", "SPAN_COLS", "band_apply", "band_apply_plain",
-           "check_band_apply_args", "rect_band_apply",
-           "rect_band_apply_plain", "check_rect_band_apply_args",
-           "BAND_APPLY_DTYPES", "RECT_BAND_APPLY_DTYPES"]
+           "span_elements", "SPAN_ROWS", "SPAN_COLS", "MAX_COLS",
+           "band_order", "band_items", "work_list", "box_rows",
+           "chunk_subs", "ring_stages", "BandKernel", "RectBandKernel",
+           "band_apply", "band_apply_plain", "check_band_apply_args",
+           "rect_band_apply", "rect_band_apply_plain",
+           "check_rect_band_apply_args", "BAND_APPLY_DTYPES",
+           "RECT_BAND_APPLY_DTYPES", "launches_by_band"]
 
-# the kernels' row block and column chunk (csrc/band_apply.cu kRows, kK)
+# the kernels' span block and column sub-box (csrc/band_f32.cu kSpanRows,
+# kSub; csrc/band_apply.cu kRows, kK), and the widest column block of one
+# item (kMaxCols)
 SPAN_ROWS = 64
 SPAN_COLS = 32
+MAX_COLS = 96
 
 
 def band_from_elements(A_e, plan: BandPlan):
@@ -113,6 +130,83 @@ def span_elements(band, spans):
     cols = (torch.clamp(spans[..., 1] * SPAN_COLS, max=W)
             - spans[..., 0] * SPAN_COLS).clamp(min=0)
     return int((cols * rows).sum())
+
+
+def band_order(spans, W):
+    """(T * nrb,) int32 on the spans' device: the band's span blocks
+    (t * nrb + row block) in the f32 kernels' work order, the most
+    sub-boxes first, ties in index order.  A few device operations, no
+    host sync."""
+    nk = (spans[..., 1].clamp(max=-(-W // SPAN_COLS))
+          - spans[..., 0].clamp(min=0)).clamp(min=0).reshape(-1)
+    return torch.argsort(nk, descending=True, stable=True).to(torch.int32)
+
+
+def band_items(spans, W, offs=None):
+    """(T * nrb, 4) int32 on the spans' device: the f32 kernels' bound work
+    list, one record per span block in ``band_order``: the block
+    t * nrb + row block, its span [lo, hi) in sub-boxes, and kernel B's
+    window start offs[t] (0 for kernel A)."""
+    order = band_order(spans, W)
+    nrb = spans.shape[1]
+    off = (torch.zeros_like(order) if offs is None
+           else offs[order.long() // nrb])
+    return torch.cat([order[:, None], spans.reshape(-1, 2)[order.long()],
+                      off[:, None]], 1).to(torch.int32).contiguous()
+
+
+def work_list(spans, W, offs=None):
+    """``band_items(spans, W, offs)``, kept on the spans tensor: binding
+    the band again (the free functions bind for each call) reuses it
+    until spans or offs change in place or another W or offs comes."""
+    memo = getattr(spans, "_feu_work_list", None)
+    if (memo is None or memo[0] != W or memo[1] is not offs
+            or memo[2] != spans._version
+            or (offs is not None and memo[3] != offs._version)):
+        memo = (W, offs, spans._version,
+                None if offs is None else offs._version,
+                band_items(spans, W, offs))
+        spans._feu_work_list = memo
+    return memo[4]
+
+
+def box_rows(R):
+    """Rows of the f32 kernels' band boxes: a band of R <= 16 rows takes
+    16-row boxes (the graded mid restriction's R = 8), others 64 (one span
+    block)."""
+    return 16 if R <= 16 else SPAN_ROWS
+
+
+def chunk_subs(R, B, blocks):
+    """Sub-boxes per ring stage of the f32 kernels at R rows, B columns and
+    ``blocks`` span blocks: the 16-row boxes take 8 (256 columns) up to 4
+    columns and 2 above; the 64-row boxes 1 up to 48 columns (small
+    stages fit more CTAs on an SM) but 2 up to 4 columns on bands of
+    fewer than 1,000 blocks (few CTAs: wider chunks), and 2 above 48
+    columns (the fastest of a grid of widths and depths on an H100)."""
+    b = min(B, MAX_COLS)
+    if R <= 16:
+        return 8 if b <= 4 else 2
+    if b <= 4:
+        return 2 if blocks < 1000 else 1
+    return 1 if b <= 48 else 2
+
+
+def ring_stages(R, B, blocks):
+    """Ring stages of the f32 kernels at R rows, B columns and ``blocks``
+    span blocks: 4 for the 16-row boxes; for the 64-row boxes 3 up to 4
+    columns, 2 above 48, and between them 2 on bands of 1,000 blocks and
+    more (their items fill the card: smaller rings fit more CTAs on an
+    SM) and 3 on smaller ones (few CTAs: a deeper ring keeps more bytes
+    in flight each) (as ``chunk_subs``, the fastest on an H100)."""
+    if R <= 16:
+        return 4
+    b = min(B, MAX_COLS)
+    if b <= 4:
+        return 3
+    if b > 48:
+        return 2
+    return 2 if blocks >= 1000 else 3
 
 
 def _check_spans(name, band, spans, dev):
@@ -205,23 +299,13 @@ def band_apply(band, X, coef=None, spans=None):
     ``spans`` (``band_spans(band)``, or of the f32 band a bf16 one was
     rounded from) is required on CUDA tensors; the plain version ignores
     it.  f32 operands, or band, X and coef all bf16 (f32 sums, Y bf16).
-    ``band_apply.launches`` counts the launches, ``.launches_bf16`` those
-    of the bf16 form among them."""
+    The kernel bound for this one call (:class:`BandKernel`).
+    ``band_apply.launches`` counts the launches of kernel A,
+    bound or not, ``.launches_bf16`` those of the bf16 form among them."""
     if X.device.type == "cpu":
         return band_apply_plain(band, X, coef)
     check_band_apply_args(band, X, coef, spans)
-    T, R, W = band.shape
-    Y = torch.empty_like(X)
-    bf16 = band.dtype == torch.bfloat16
-    lib = _build.library()
-    err = (lib.feu_band_apply_bf16 if bf16 else lib.feu_band_apply)(
-        band.data_ptr(), spans.data_ptr(), X.data_ptr(),
-        None if coef is None else coef.data_ptr(), Y.data_ptr(),
-        T, R, W, X.shape[1], _build.raw_stream(X.device.index))
-    _build.check(err, "band_apply")
-    band_apply.launches += 1
-    band_apply.launches_bf16 += bf16
-    return Y
+    return BandKernel(band, spans)(X, coef)
 
 
 band_apply.launches = 0
@@ -265,35 +349,214 @@ def rect_band_apply(band, offs, Xp, spans=None):
     of the f32 band a bf16 one was rounded from) is required on CUDA
     tensors; the plain version ignores it.  f32 operands; a bf16 band with
     f32 Xp (rounded to bf16 as it is read; Y f32); or band and Xp in bf16
-    (Y bf16); f32 sums in each.  ``rect_band_apply.launches`` counts the
-    launches, ``.launches_bf16_band`` those with a bf16 band and f32 Xp
-    and ``.launches_bf16`` those all in bf16 among them."""
+    (Y bf16); f32 sums in each.  The kernel bound for this one call
+    (:class:`RectBandKernel`).
+    ``rect_band_apply.launches`` counts the launches of kernel B, bound or
+    not, ``.launches_bf16_band`` those with a bf16 band and f32 Xp and
+    ``.launches_bf16`` those all in bf16 among them."""
     if Xp.device.type == "cpu":
         return rect_band_apply_plain(band, offs, Xp)
     check_rect_band_apply_args(band, offs, Xp, spans)
-    T, R, W = band.shape
-    Y = torch.empty((T * R, Xp.shape[1]), dtype=Xp.dtype, device=Xp.device)
-    lib = _build.library()
-    stream = _build.raw_stream(Xp.device.index)
-    bf16_band = band.dtype == torch.bfloat16
-    x_bf16 = Xp.dtype == torch.bfloat16
-    if bf16_band:
-        err = lib.feu_rect_band_apply_bf16(
-            band.data_ptr(), spans.data_ptr(), offs.data_ptr(),
-            Xp.data_ptr(), Y.data_ptr(), T, R, W, Xp.shape[0], Xp.shape[1],
-            int(x_bf16), stream)
-    else:
-        err = lib.feu_rect_band_apply(
-            band.data_ptr(), spans.data_ptr(), offs.data_ptr(),
-            Xp.data_ptr(), Y.data_ptr(), T, R, W, Xp.shape[0], Xp.shape[1],
-            stream)
-    _build.check(err, "rect_band_apply")
-    rect_band_apply.launches += 1
-    rect_band_apply.launches_bf16 += bf16_band and x_bf16
-    rect_band_apply.launches_bf16_band += bf16_band and not x_bf16
-    return Y
+    return RectBandKernel(band, offs, spans)(Xp)
 
 
 rect_band_apply.launches = 0
 rect_band_apply.launches_bf16 = 0
 rect_band_apply.launches_bf16_band = 0
+
+# launches of kernels A and B by (kernel, band dtype, T, R, W, B): which
+# bands and widths a path runs the kernels at (the counters above sum them)
+launches_by_band = collections.Counter()
+
+
+# ---------------------------------------------------------------------------
+# the bound forms
+# ---------------------------------------------------------------------------
+
+class _BandStruct(ctypes.Structure):
+    """csrc/band_f32.cu ``BandPlan``: one bound f32 band."""
+    _fields_ = ([("map", ctypes.c_ulonglong * 16)]
+                + [(n, ctypes.c_void_p) for n in ("band", "items", "offs")]
+                + [(n, ctypes.c_int) for n in ("T", "R", "W", "halo", "rb")])
+
+
+class _Bound:
+    """What kernels A and B share: the band and its spans, checked once;
+    an f32 band's work list (``work_list``) and tensor map
+    (``csrc/band_f32.cu`` ``feu_band_bind``, which raises through
+    ``_build.check`` where the map does not encode)."""
+
+    __slots__ = ("band", "spans", "offs", "items", "device", "_plan",
+                 "_addr", "_launch", "_index", "_key")
+    name = ""
+
+    def __init__(self, band, spans, offs, halo):
+        if band.dim() != 3:
+            raise ValueError(f"{self.name}: band must be (T, R, W), got "
+                             f"{tuple(band.shape)}")
+        if band.dtype not in (_F32, _BF16):
+            raise TypeError(f"{self.name}: the band must be f32 or bf16, "
+                            f"got {band.dtype}")
+        self.band, self.spans, self.offs = band, spans, offs
+        self.device = band.device
+        self._key = (self.name, str(band.dtype), *band.shape)
+        self.items = self._plan = None
+        self._addr = self._launch = None
+        self._index = band.device.index
+        if band.device.type != "cuda":
+            return
+        T, R, W = band.shape
+        _check_cuda(self.name, band,
+                    [band] + ([] if offs is None else [offs]), band.device)
+        _check_spans(self.name, band, spans, band.device)
+        if band.dtype != _F32:
+            return
+        self.items = work_list(spans, W, offs)
+        self._plan = _BandStruct(
+            band=band.data_ptr(), items=self.items.data_ptr(),
+            offs=None if offs is None else offs.data_ptr(),
+            T=T, R=R, W=W, halo=halo, rb=box_rows(R))
+        self._addr = ctypes.addressof(self._plan)
+        lib = _build.library()
+        _build.check(lib.feu_band_bind(self._addr), f"{self.name} bind")
+        self._launch = lib.feu_band_launch
+
+    def _check_x(self, X, allowed):
+        _check_dtypes(self.name, self.band, X, allowed)
+        if X.dim() != 2 or X.shape[1] < 1:
+            raise ValueError(f"{self.name}: X must be (n, B) with B >= 1, "
+                             f"got {tuple(X.shape)}")
+        if X.device != self.device:
+            raise ValueError(f"{self.name} needs X on the band's device "
+                             f"{self.device}, got {X.device}")
+        if not X.is_contiguous():
+            raise ValueError(f"{self.name} needs a contiguous X")
+
+    def _run(self, X, n, coef, Y):
+        T, R, W = self.band.shape
+        B = X.shape[1]
+        blocks = T * -(-R // SPAN_ROWS)
+        err = self._launch(self._addr, X.data_ptr(), n,
+                           None if coef is None else coef.data_ptr(),
+                           Y.data_ptr(), B, chunk_subs(R, B, blocks),
+                           ring_stages(R, B, blocks),
+                           _build.raw_stream(self._index))
+        if err:
+            _build.check(err, self.name)
+
+    def __eq__(self, other):
+        # the same kernel: one class, equal band, spans and offs
+        if type(other) is not type(self):
+            return NotImplemented
+        return all(
+            (a is None and b is None) or (
+                a is not None and b is not None and a.dtype == b.dtype
+                and a.device == b.device and torch.equal(a, b))
+            for a, b in ((self.band, other.band),
+                         (self.spans, other.spans),
+                         (self.offs, other.offs)))
+
+    __hash__ = None
+
+
+class BandKernel(_Bound):
+    """Kernel A bound to one (T, R, W) band, f32 or bf16, and its spans
+    (``band_spans``, or of the f32 band a bf16 one was rounded from).
+
+    The band and spans are checked here, once, and an f32 band gets its
+    work list (``work_list``: ``band_items``, the most sub-boxes first)
+    and its tensor map; neither may change after.  ``kernel(X, coef)`` checks X
+    and coef (dtype, shape, device, contiguity) and launches on the
+    current stream: Y = coef * (A @ X).  A CPU X takes
+    ``band_apply_plain``.  Launches count in ``band_apply.launches`` (and
+    ``.launches_bf16``)."""
+
+    __slots__ = ()
+    name = "band_apply"
+
+    def __init__(self, band, spans):
+        if band.dim() == 3:
+            T, R, W = band.shape
+            if W % R or (W // R) % 2 != 1:
+                raise ValueError(f"W={W} is not (2*halo+1)*R for R={R}")
+            halo = (W // R - 1) // 2
+        else:
+            halo = 0
+        super().__init__(band, spans, None, halo)
+
+    def check(self, X, coef=None):
+        """Raise unless the kernel can take X and coef as they are."""
+        self._check_x(X, BAND_APPLY_DTYPES)
+        T, R, W = self.band.shape
+        if X.shape[0] != T * R:
+            raise ValueError(f"X has {X.shape[0]} rows, band covers {T * R}")
+        if coef is not None and (
+                coef.dtype != X.dtype or tuple(coef.shape) != (X.shape[1],)
+                or coef.device != X.device or not coef.is_contiguous()):
+            raise ValueError("coef must be (B,) of X's dtype, contiguous "
+                             "on X's device")
+
+    def __call__(self, X, coef=None):
+        if X.device.type == "cpu":
+            return band_apply_plain(self.band, X, coef)
+        self.check(X, coef)
+        T, R, W = self.band.shape
+        n, B = X.shape
+        Y = torch.empty_like(X)
+        if self._launch is not None:
+            self._run(X, n, coef, Y)
+        else:
+            err = _build.library().feu_band_apply_bf16(
+                self.band.data_ptr(), self.spans.data_ptr(), X.data_ptr(),
+                None if coef is None else coef.data_ptr(), Y.data_ptr(),
+                T, R, W, B, _build.raw_stream(self._index))
+            _build.check(err, self.name)
+            band_apply.launches_bf16 += 1
+        band_apply.launches += 1
+        launches_by_band[self._key + (B,)] += 1
+        return Y
+
+
+class RectBandKernel(_Bound):
+    """Kernel B bound to one (T, R, W) transfer band (f32 or bf16), its
+    window starts ``offs`` (T,) int32 and its spans, checked once, as
+    :class:`BandKernel`.  ``kernel(Xp)``: Y (T*R, B) = rect_band @ Xp for
+    Xp of any number of rows (windows past its end read zeros); an f32
+    band takes f32 Xp, a bf16 band f32 or bf16 Xp.  A CPU Xp takes
+    ``rect_band_apply_plain``.  Launches count in
+    ``rect_band_apply.launches`` (and its bf16 counters)."""
+
+    __slots__ = ()
+    name = "rect_band_apply"
+
+    def __init__(self, band, offs, spans):
+        if band.dim() == 3 and (offs.dtype != torch.int32
+                                or tuple(offs.shape) != (band.shape[0],)):
+            raise ValueError("offs must be (T,) int32")
+        super().__init__(band, spans, offs, 0)
+
+    def check(self, Xp):
+        """Raise unless the kernel can take Xp as it is."""
+        self._check_x(Xp, RECT_BAND_APPLY_DTYPES)
+
+    def __call__(self, Xp):
+        if Xp.device.type == "cpu":
+            return rect_band_apply_plain(self.band, self.offs, Xp)
+        self.check(Xp)
+        T, R, W = self.band.shape
+        n, B = Xp.shape
+        Y = torch.empty((T * R, B), dtype=Xp.dtype, device=Xp.device)
+        if self._launch is not None:
+            self._run(Xp, n, None, Y)
+        else:
+            x_bf16 = Xp.dtype == _BF16
+            err = _build.library().feu_rect_band_apply_bf16(
+                self.band.data_ptr(), self.spans.data_ptr(),
+                self.offs.data_ptr(), Xp.data_ptr(), Y.data_ptr(), T, R, W,
+                n, B, int(x_bf16), _build.raw_stream(self._index))
+            _build.check(err, self.name)
+            rect_band_apply.launches_bf16 += x_bf16
+            rect_band_apply.launches_bf16_band += not x_bf16
+        rect_band_apply.launches += 1
+        launches_by_band[self._key + (B,)] += 1
+        return Y

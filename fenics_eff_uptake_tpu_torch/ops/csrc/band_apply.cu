@@ -13,40 +13,19 @@
 // plans 16-aligned it for DMA; nothing here relies on that); window rows
 // outside [0, n_cols) read as zero.
 //
-// Both kernels share one blocking: a block owns 64 band rows of one tile
-// (kRows, SPAN_ROWS) and streams the 32-column chunks (kK, SPAN_COLS) of
-// their column span through a ring of cp.async stages.  Less than half of a
-// band holds anything, and in every 64-row block the nonzeros sit in one
-// contiguous span of chunks: the caller passes that span per block
-// (ops/banded.band_spans: int32 (T, ceil(R/64), 2), [lo, hi) in chunks),
-// and a block streams only its span's chunks; a block with an empty span
-// still stores its rows (zeros, times the coef).  A skipped chunk is
-// all-zero band and adds nothing.  Band copies are 16-byte .cg cp.async
-// (rows 16-byte aligned); out-of-range band elements are zero-filled by the
-// copy itself (src-size 0).  Dynamic shared memory is enabled per instance
-// with cudaFuncSetAttribute.
-//
-// The f32 form.  At B <= 20 columns each 4-byte band element feeds at most
-// 20 FMAs, so it is bound by device-memory bandwidth on the band; at B = 96
-// (the Stokes deflation's one wide apply) by f32 FMA throughput.
-//   * The ring holds kStages = 3 stages (2 x 8 KB of band in flight per
-//     block while it computes one, one barrier per chunk); it is kept short
-//     so that more blocks reside per SM.  X rows (B * 4 bytes) are copied by
-//     16-byte copies when B % 4 == 0, else by 4-byte .ca copies.
-//   * Each instance keeps accumulators for all of its columns, up to
-//     kMaxCols = 96 (the widest batch the paths use), so a band slab is read
-//     from device memory once whatever B is; above 96, blocks of 96 columns.
-//     A thread owns TM rows (strided by 64 / TM) and TN columns (float4
-//     groups interleaved across the CG column groups), a register tile: per
-//     4 window columns it reads TM float4 of band and TN float4 of X from
-//     shared memory (conflict-free: the band pitch is 36 floats, neighbouring
-//     lanes read neighbouring X groups or broadcast) for 4 * TM * TN FMAs.
-//   * IEEE f32 fmaf, no tensor cores, no TF32 (the TPU kernel's
-//     Precision.HIGHEST contract), each output's FMA chain in ascending w
-//     over its span: every skipped term is fmaf(0, x, acc) == acc for finite
-//     x, so the result equals the full-width sum bit for bit, and a column's
-//     values do not depend on B or on the instance.  Kernel A's optional
-//     per-column coef is fused into the store.
+// This file holds their bf16 operand forms; the f32 forms are in
+// band_f32.cu.  Both kernels here share one blocking: a block owns 64 band
+// rows of one tile (kRows, SPAN_ROWS) and streams the 32-column chunks (kK,
+// SPAN_COLS) of their column span through a ring of cp.async stages.  Less
+// than half of a band holds anything, and in every 64-row block the
+// nonzeros sit in one contiguous span of chunks: the caller passes that
+// span per block (ops/banded.band_spans: int32 (T, ceil(R/64), 2), [lo, hi)
+// in chunks), and a block streams only its span's chunks; a block with an
+// empty span still stores its rows (zeros, times the coef).  A skipped
+// chunk is all-zero band and adds nothing.  Band copies are 16-byte .cg
+// cp.async (rows 16-byte aligned); out-of-range band elements are
+// zero-filled by the copy itself (src-size 0).  Dynamic shared memory is
+// enabled per instance with cudaFuncSetAttribute.
 //
 // The bf16 operand forms (the TPU kernels' single-pass MXU branch, reached
 // by the bf16 cycle and by bf16 transfer bands):
@@ -65,7 +44,7 @@
 //   * four warps, one per 16 rows of the 64-row block; each warp holds all
 //     of the block's columns as NT = ceil(cols / 8) n8 tiles of f32
 //     accumulators (NT in {1, 3, 6, 12}: at most 96 columns, 48 registers);
-//     above 96 columns, blocks of 96 as in the f32 form;
+//     above 96 columns, blocks of 96 columns;
 //   * per 32-column chunk two k16 steps, each one ldmatrix.x4 of the band
 //     (16 x 16) and one ldmatrix.x4.trans of the X stage per two n8 tiles
 //     (x2.trans for an odd last tile), then NT mma.  The ring's band pitch of
@@ -100,8 +79,8 @@
 // spans of the f32 band serve its bf16 copy: bf16 has f32's exponent range,
 // so rounding turns no nonzero into zero short of f32's own subnormals, and
 // a value that did round to zero only adds an exact 0 to the sum.
-// Band pointers not 16-byte aligned and W % 4 != 0 (f32) or W % 8 != 0
-// (bf16) are refused (cudaErrorInvalidValue), never worked around.
+// Band pointers not 16-byte aligned and W % 8 != 0 are refused
+// (cudaErrorInvalidValue), never worked around.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,7 +95,6 @@ constexpr int kK = 32;            // window columns of one chunk (SPAN_COLS)
 // band row pitch in shared memory, in values: the chunk plus 16 bytes
 template <typename TB>
 constexpr int kPitchOf = kK + 16 / (int)sizeof(TB);
-constexpr int kStages = 3;        // copy ring depth, f32 form
 constexpr int kTcStages = 4;      // copy ring depth, tensor-core form
 constexpr int kTcThreads = 128;   // four warps, 16 rows each
 constexpr int kMaxCols = 96;      // widest one-pass column block
@@ -126,16 +104,8 @@ __device__ __forceinline__ unsigned smem_addr(const void* p)
     return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// src_bytes = 0 fills the destination with zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes)
-{
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(src_bytes));
-}
-
-// the same, with the rest of the 128-byte line prefetched into L2: a bf16
+// a 16-byte copy (src_bytes = 0 fills the destination with zeros and reads
+// nothing), with the rest of the 128-byte line prefetched into L2: a bf16
 // chunk row is 64 bytes, and the next chunk reads the line's other half
 __device__ __forceinline__ void cp_async16_pf(void* dst, const void* src,
                                               int src_bytes)
@@ -144,14 +114,6 @@ __device__ __forceinline__ void cp_async16_pf(void* dst, const void* src,
         "cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(
             smem_addr(dst)),
         "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes)
-{
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit()
@@ -163,230 +125,6 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait()
 {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// ---------------------------------------------------------------------------
-// the f32 form
-// ---------------------------------------------------------------------------
-
-// how a block copies its X rows into a ring stage
-enum XCopy { kXWord = 1, kXVec = 2 };
-
-// one instance: TM rows x TN columns per thread, CG column groups
-template <int TM, int TN, int CG>
-struct Tile {
-    static_assert(kRows % TM == 0 && TN % 4 == 0, "tile shape");
-    static constexpr int kRG = kRows / TM;               // row groups
-    static constexpr int kThreads = kRG * CG;
-    static constexpr int kCols = TN * CG;                // columns per block
-    static constexpr int kPitch = kPitchOf<float>;
-    static constexpr int kBandBytes = kRows * kPitch * 4;
-    static constexpr int kStageBytes = kBandBytes + kK * kCols * 4;
-    static_assert(kBandBytes % 16 == 0 && kStageBytes % 16 == 0, "stages");
-    static constexpr int kSmem = kStages * kStageBytes;
-};
-
-// One chunk's FMAs of a thread (row group rg, column group cg): per 4 window
-// columns, TM x 4 band values and TN x 4 X values from a stage for
-// 4 * TM * TN FMAs, each output's chain in ascending w.
-template <int TM, int TN, int CG>
-__device__ __forceinline__ void fma_chunk(float (&acc)[TM][TN],
-                                          const float* sb, const float* sx,
-                                          int rg, int cg)
-{
-    constexpr int kRG = kRows / TM;
-    constexpr int kCols = TN * CG;
-    constexpr int kPitch = kPitchOf<float>;
-#pragma unroll
-    for (int k4 = 0; k4 < kK; k4 += 4) {
-        float4 a[TM];
-#pragma unroll
-        for (int m = 0; m < TM; ++m)
-            a[m] = *reinterpret_cast<const float4*>(
-                sb + (rg + m * kRG) * kPitch + k4);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            const float* xk = sx + (k4 + q) * kCols;
-#pragma unroll
-            for (int j = 0; j < TN / 4; ++j) {
-                const float4 x = *reinterpret_cast<const float4*>(
-                    xk + 4 * (j * CG + cg));
-#pragma unroll
-                for (int m = 0; m < TM; ++m) {
-                    const float av = q == 0   ? a[m].x
-                                     : q == 1 ? a[m].y
-                                     : q == 2 ? a[m].z
-                                              : a[m].w;
-                    acc[m][4 * j] = fmaf(av, x.x, acc[m][4 * j]);
-                    acc[m][4 * j + 1] = fmaf(av, x.y, acc[m][4 * j + 1]);
-                    acc[m][4 * j + 2] = fmaf(av, x.z, acc[m][4 * j + 2]);
-                    acc[m][4 * j + 3] = fmaf(av, x.w, acc[m][4 * j + 3]);
-                }
-            }
-        }
-    }
-}
-
-template <int TM, int TN, int CG, bool RECT>
-__global__ void __launch_bounds__(Tile<TM, TN, CG>::kThreads)
-span_band_kernel(const float* __restrict__ band,
-                 const int* __restrict__ spans, const int* __restrict__ offs,
-                 const float* __restrict__ X, const float* __restrict__ coef,
-                 float* __restrict__ Y, int R, int W, int halo, long long n,
-                 int B, int xcopy)
-{
-    using Tl = Tile<TM, TN, CG>;
-    constexpr int kThreads = Tl::kThreads;
-    constexpr int kCols = Tl::kCols;
-    constexpr int kRG = Tl::kRG;
-    constexpr int kPitch = Tl::kPitch;
-    extern __shared__ __align__(16) unsigned char smem[];
-
-    const int t = blockIdx.x;
-    const int nrb = gridDim.y;
-    const int r0 = blockIdx.y * kRows;
-    const int col0 = blockIdx.z * kCols;
-    const int nb = min(kCols, B - col0);      // this block's columns
-    const int rows = min(kRows, R - r0);
-    const int tid = threadIdx.x;
-    const int cg = tid % CG;
-    const int rg = tid / CG;
-    const int* sp = spans + 2 * ((long long)t * nrb + blockIdx.y);
-    const int lo = max(sp[0], 0);
-    const int nk = min(sp[1], (W + kK - 1) / kK) - lo;   // chunks streamed
-    const long long start =
-        RECT ? (long long)offs[t] : (long long)(t - halo) * R;
-    const float* bt = band + ((long long)t * R + r0) * W;
-
-    // chunk k (window columns [k*kK, k*kK + kK)) into ring stage s
-    auto load_chunk = [&](int k, int s) {
-        float* sb = reinterpret_cast<float*>(smem + s * Tl::kStageBytes);
-        float* sx = reinterpret_cast<float*>(smem + s * Tl::kStageBytes
-                                             + Tl::kBandBytes);
-        const int c0 = k * kK;
-        for (int i = tid; i < kRows * (kK / 4); i += kThreads) {
-            const int rr = i / (kK / 4);
-            const int c = 4 * (i % (kK / 4));
-            const bool ok = rr < rows && c0 + c < W;   // W % 4 == 0
-            cp_async16(sb + rr * kPitch + c,
-                       ok ? bt + (long long)rr * W + c0 + c : band,
-                       ok ? 16 : 0);
-        }
-        if (xcopy == kXVec) {     // B % 4 == 0: 16-byte aligned X rows
-            for (int i = tid; i < kK * (kCols / 4); i += kThreads) {
-                const int rr = i / (kCols / 4);
-                const int c = 4 * (i % (kCols / 4));
-                const long long row = start + c0 + rr;
-                const bool ok = c0 + rr < W && row >= 0 && row < n && c < nb;
-                cp_async16(sx + rr * kCols + c,
-                           ok ? X + row * B + col0 + c : X, ok ? 16 : 0);
-            }
-        } else {                  // 4-byte pieces
-            for (int i = tid; i < kK * kCols; i += kThreads) {
-                const int rr = i / kCols;
-                const int c = i % kCols;
-                const long long row = start + c0 + rr;
-                const bool ok = c0 + rr < W && row >= 0 && row < n && c < nb;
-                cp_async4(sx + rr * kCols + c,
-                          ok ? X + row * B + col0 + c : X, ok ? 4 : 0);
-            }
-        }
-    };
-
-    float acc[TM][TN];
-#pragma unroll
-    for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[m][j] = 0.f;
-
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-        if (s < nk) load_chunk(lo + s, s);
-        cp_async_commit();    // empty groups keep the count uniform
-    }
-    for (int i = 0; i < nk; ++i) {
-        cp_async_wait<kStages - 2>();   // this thread's copies of chunk i
-        __syncthreads();    // everyone's copies landed; chunk i-1 consumed
-        const int next = i + kStages - 1;
-        if (next < nk) load_chunk(lo + next, next % kStages);
-        cp_async_commit();
-        const unsigned char* st = smem + (i % kStages) * Tl::kStageBytes;
-        fma_chunk<TM, TN, CG>(
-            acc, reinterpret_cast<const float*>(st),
-            reinterpret_cast<const float*>(st + Tl::kBandBytes), rg, cg);
-    }
-
-#pragma unroll
-    for (int m = 0; m < TM; ++m) {
-        const int r = rg + m * kRG;
-        if (r >= rows) continue;
-        float* yr = Y + ((long long)t * R + r0 + r) * B + col0;
-#pragma unroll
-        for (int j = 0; j < TN / 4; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int b = 4 * (j * CG + cg) + e;
-                if (b < nb)
-                    yr[b] = (!RECT && coef != nullptr)
-                                ? acc[m][4 * j + e] * coef[col0 + b]
-                                : acc[m][4 * j + e];
-            }
-        }
-    }
-}
-
-template <int TM, int TN, int CG, bool RECT>
-cudaError_t launch(const float* band, const int* spans, const int* offs,
-                   const float* X, const float* coef, float* Y, int T, int R,
-                   int W, int halo, long long n, int B, cudaStream_t stream)
-{
-    using Tl = Tile<TM, TN, CG>;
-    // the dynamic shared memory ceiling, raised once per device
-    static bool raised[64] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-    if (!raised[dev]) {
-        err = cudaFuncSetAttribute(
-            span_band_kernel<TM, TN, CG, RECT>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
-        if (err != cudaSuccess) return err;
-        raised[dev] = true;
-    }
-    // 16-byte X copies where its rows allow (a block's first column is a
-    // multiple of 4 * CG), else 4-byte ones
-    const uintptr_t xa = reinterpret_cast<uintptr_t>(X);
-    const int xcopy = (B % 4 == 0 && xa % 16 == 0) ? kXVec : kXWord;
-    const dim3 grid(T, (R + kRows - 1) / kRows,
-                    (B + Tl::kCols - 1) / Tl::kCols);
-    span_band_kernel<TM, TN, CG, RECT>
-        <<<grid, Tl::kThreads, Tl::kSmem, stream>>>(
-            band, spans, offs, X, coef, Y, R, W, halo, n, B, xcopy);
-    return cudaGetLastError();
-}
-
-template <bool RECT>
-cudaError_t dispatch(const float* band, const int* spans, const int* offs,
-                     const float* X, const float* coef, float* Y, int T,
-                     int R, int W, int halo, long long n, int B,
-                     cudaStream_t stream)
-{
-    if (T < 1 || R < 1 || R > 65535 * kRows || W < 4 || W % 4 != 0 ||
-        B < 1 || (B + kMaxCols - 1) / kMaxCols > 65535 ||
-        reinterpret_cast<uintptr_t>(band) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(X) % 4 != 0)
-        return cudaErrorInvalidValue;
-    // register tiles: one column block up to 96 columns
-#define FEU_LAUNCH(TM, TN, CG)                                             \
-    launch<TM, TN, CG, RECT>(band, spans, offs, X, coef, Y, T, R, W, halo, \
-                             n, B, stream)
-    if (B <= 4) return FEU_LAUNCH(1, 4, 1);
-    if (B <= 8) return FEU_LAUNCH(1, 4, 2);
-    if (B <= 24) return FEU_LAUNCH(4, 4, 6);
-    if (B <= 48) return FEU_LAUNCH(4, 8, 6);
-    return FEU_LAUNCH(4, 8, 12);
-#undef FEU_LAUNCH
 }
 
 // ---------------------------------------------------------------------------
@@ -716,35 +454,6 @@ cudaError_t dispatch_tc(const bf16* band, const int* spans, const int* offs,
 }  // namespace
 
 extern "C" {
-
-// Kernel A.  band (T, R, W) f32, spans (T, ceil(R/64), 2) int32, X (T*R, B)
-// f32, coef (B,) f32 or null, Y (T*R, B) f32; all contiguous on the
-// stream's device.
-int feu_band_apply(const void* band, const void* spans, const void* X,
-                   const void* coef, void* Y, int T, int R, int W, int B,
-                   void* stream)
-{
-    if (W % R != 0 || (W / R) % 2 != 1) return (int)cudaErrorInvalidValue;
-    const int halo = (W / R - 1) / 2;
-    return (int)dispatch<false>(
-        static_cast<const float*>(band), static_cast<const int*>(spans),
-        nullptr, static_cast<const float*>(X),
-        static_cast<const float*>(coef), static_cast<float*>(Y), T, R, W,
-        halo, (long long)T * R, B, static_cast<cudaStream_t>(stream));
-}
-
-// Kernel B.  band (T, R, W) f32, spans (T, ceil(R/64), 2) int32, offs (T,)
-// int32, Xp (n_cols, B) f32, Y (T*R, B) f32.
-int feu_rect_band_apply(const void* band, const void* spans, const void* offs,
-                        const void* Xp, void* Y, int T, int R, int W,
-                        long long n_cols, int B, void* stream)
-{
-    return (int)dispatch<true>(
-        static_cast<const float*>(band), static_cast<const int*>(spans),
-        static_cast<const int*>(offs), static_cast<const float*>(Xp),
-        nullptr, static_cast<float*>(Y), T, R, W, 0, n_cols, B,
-        static_cast<cudaStream_t>(stream));
-}
 
 // Kernel A on bf16 operands (tensor cores).  band (T, R, W) with W % 8 == 0,
 // X (T*R, B), coef (B,) or null and Y (T*R, B) all bf16; spans as for the

@@ -181,7 +181,7 @@ def host_system(sys, elements_only=False):
     maps, all that ``_split_block`` reads (a fine system, whose chunks the
     ranks plan anew)."""
     s = sys._replace(Kband=None, Advband=None, Kspans=None, Advspans=None,
-                     space=None)
+                     Kkern=None, Advkern=None, space=None)
     if not elements_only:
         return system_to(s, "cpu")
 

@@ -61,7 +61,7 @@ from ..fem.space import FunctionSpace
 from ..meshing.mesh_data import MARKERS, MeshData
 from ..ops.band_plans import (BandPlan, best_bandwidth_permutation,
                               build_band_plan)
-from ..ops.banded import band_apply, band_from_elements, band_spans
+from ..ops.banded import BandKernel, band_from_elements, band_spans
 from ..ops.elemspmv import (CHUNK_SLOTS, FILL_TILES, MIN_TILE_ROWS,
                             TILE_ROWS, ElementKernel, Scatter, TilePlan,
                             _i32, element_apply_plain, make_scatter,
@@ -214,6 +214,18 @@ class TransportSystem(NamedTuple):
     Advspans: Optional[torch.Tensor] = None
     mu_sweep_D: Optional[float] = None      # build_mu_sweep_system's fixed
                                             # D, which solve_mu_sweep uses
+    Kkern: Optional[BandKernel] = None      # kernel A bound to each band
+    Advkern: Optional[BandKernel] = None    #   (with_kernels)
+
+
+def with_kernels(sys: TransportSystem) -> TransportSystem:
+    """The system with kernel A bound to each of its bands (none where it
+    has no band): every system with bands carries them."""
+    return sys._replace(
+        Kkern=None if sys.Kband is None else BandKernel(sys.Kband,
+                                                        sys.Kspans),
+        Advkern=None if sys.Advband is None else BandKernel(sys.Advband,
+                                                            sys.Advspans))
 
 
 def _to(x, device):
@@ -221,12 +233,13 @@ def _to(x, device):
 
 
 def system_to(sys: TransportSystem, device) -> TransportSystem:
-    """The same system with every tensor on ``device``."""
-    return sys._replace(
+    """The same system with every tensor on ``device`` (its band kernels
+    bound there)."""
+    return with_kernels(sys._replace(
         K=sys.K.to(device), R=_to(sys.R, device), Adv=_to(sys.Adv, device),
         free=sys.free.to(device), bc_values=sys.bc_values.to(device),
         Kband=_to(sys.Kband, device), Advband=_to(sys.Advband, device),
-        Kspans=_to(sys.Kspans, device), Advspans=_to(sys.Advspans, device))
+        Kspans=_to(sys.Kspans, device), Advspans=_to(sys.Advspans, device)))
 
 
 def unpermute_columns(sys: TransportSystem, Xcols):
@@ -346,7 +359,7 @@ def system_from_arrays(d, space: FunctionSpace, device) -> TransportSystem:
         v = d.get(k)
         return None if v is None else np.asarray(v)
 
-    return TransportSystem(
+    return with_kernels(TransportSystem(
         K=K, R=_block_from_arrays(d, "R", device), Adv=Adv,
         free=torch.tensor(np.asarray(d["free"], dtype=bool), device=device),
         bc_values=torch.tensor(np.asarray(d["bc_values"]),
@@ -354,7 +367,7 @@ def system_from_arrays(d, space: FunctionSpace, device) -> TransportSystem:
         ndofs=int(d["ndofs"]), space=space, Kband=Kband,
         Kspans=None if Kband is None else band_spans(Kband),
         perm=host("perm"), iperm=host("iperm"), Advband=Advband,
-        Advspans=None if Advband is None else band_spans(Advband))
+        Advspans=None if Advband is None else band_spans(Advband)))
 
 
 def build_transport_system(mesh: MeshData, device, element="P2",
@@ -429,14 +442,14 @@ def _assemble_system(mesh, device, element, u_values, u_space, dirichlet,
     if with_robin and bottom.any():
         R_e, R_dofs = robin_facet_block(space, bottom, device)
         R = _Block.build(R_e, iperm[R_dofs], ndofs)
-    return TransportSystem(
+    return with_kernels(TransportSystem(
         K=K, R=R,
         free=torch.as_tensor(free[perm], device=device),
         bc_values=torch.as_tensor(bc_values[perm], dtype=torch.float64,
                                   device=device),
         ndofs=ndofs, space=space, Kband=Kband, Kspans=band_spans(Kband),
         perm=perm, iperm=iperm, Adv=Adv, Advband=Advband,
-        Advspans=Advspans), plan
+        Advspans=Advspans)), plan
 
 
 def robin_matrices_for_mu(sys: TransportSystem, mu):
@@ -456,10 +469,8 @@ class OperatorArgs(NamedTuple):
     K: _Block
     Adv: Optional[_Block]
     R: Optional[_Block]
-    Kband: Optional[torch.Tensor]   # the bands: f32 view only
-    Advband: Optional[torch.Tensor]
-    Kspans: Optional[torch.Tensor]  # and their spans
-    Advspans: Optional[torch.Tensor]
+    Kkern: Optional[BandKernel]     # kernel A on the bands: f32 view only
+    Advkern: Optional[BandKernel]
     free: torch.Tensor
     D_vec: torch.Tensor             # (B,) in the view's dtype
     mu_vec: torch.Tensor
@@ -475,10 +486,8 @@ def operator_args(sys: TransportSystem, D_vec, mu_vec, f32: bool,
     dev = sys.free.device
     return OperatorArgs(
         K=sys.K, Adv=sys.Adv, R=sys.R, R_batch=R_batch,
-        Kband=sys.Kband if f32 else None,
-        Advband=sys.Advband if f32 else None,
-        Kspans=sys.Kspans if f32 else None,
-        Advspans=sys.Advspans if f32 else None, free=sys.free,
+        Kkern=sys.Kkern if f32 else None,
+        Advkern=sys.Advkern if f32 else None, free=sys.free,
         D_vec=torch.as_tensor(D_vec, device=dev).to(dt),
         mu_vec=torch.as_tensor(mu_vec, device=dev).to(dt))
 
@@ -486,13 +495,13 @@ def operator_args(sys: TransportSystem, D_vec, mu_vec, f32: bool,
 def _apply_raw(a: OperatorArgs, X):
     # summation order K, Adv, R as in the JAX programs; R adds into Y's
     # boundary rows in place (Y is this function's own)
-    if a.Kband is not None:
-        Y = band_apply(a.Kband, X, coef=a.D_vec, spans=a.Kspans)
+    if a.Kkern is not None:
+        Y = a.Kkern(X, a.D_vec)
     else:
         Y = a.K.apply_batched(X, coef=a.D_vec)
     if a.Adv is not None:
-        Y = Y + (band_apply(a.Advband, X, spans=a.Advspans)
-                 if a.Advband is not None else a.Adv.apply_batched(X))
+        Y = Y + (a.Advkern(X) if a.Advkern is not None
+                 else a.Adv.apply_batched(X))
     if a.R_batch is not None:
         Y = a.R_batch.apply_batched(X, out=Y)
     elif a.R is not None:

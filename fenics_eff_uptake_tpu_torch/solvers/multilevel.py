@@ -57,7 +57,7 @@ import torch.nn.functional as F
 from ..fem.space import FunctionSpace
 from ..meshing.generator import MESH_TAG, generate_mesh
 from ..ops.band_plans import RectBandPlan, aligned_transfer_plans
-from ..ops.banded import (band_apply, band_spans, rect_band_apply,
+from ..ops.banded import (BandKernel, RectBandKernel, band_spans,
                           rect_band_values)
 from ..ops.elemspmv import make_segment_plan, planned_segment_sum
 from ..fem.assembly import robin_facet_block
@@ -98,6 +98,18 @@ class TransferBands(NamedTuple):
     pad_r: int                # restriction input rows
     ps: torch.Tensor          # band_spans of p
     rs: torch.Tensor          # band_spans of r
+    pk: RectBandKernel        # kernel B bound to p
+    rk: RectBandKernel        # and to r
+
+
+def transfer_bands(p, po, r, ro, sig, isig, pad_p, pad_r) -> TransferBands:
+    """One transfer's bands on their device, with their spans and kernel B
+    bound to each."""
+    ps, rs = band_spans(p), band_spans(r)
+    return TransferBands(p=p, po=po, r=r, ro=ro, sig=sig, isig=isig,
+                         pad_p=pad_p, pad_r=pad_r, ps=ps, rs=rs,
+                         pk=RectBandKernel(p, po, ps),
+                         rk=RectBandKernel(r, ro, rs))
 
 
 class Level(NamedTuple):
@@ -130,9 +142,10 @@ class MultilevelData(NamedTuple):
                               # Newton-Schulz the worst max|I - A X|
     lowp: Optional[dict] = None   # copies in other dtypes, made at first use
                               # (_level_arrays, _coarse_f64): per level the
-                              # bf16 bands and Robin blocks and the f64
-                              # cycle's gather plans, none of which depends on
-                              # the columns, and ("Ainv64", B), which does
+                              # bf16 bands (with the kernels bound to them)
+                              # and Robin blocks and the f64 cycle's gather
+                              # plans, none of which depends on the columns,
+                              # and ("Ainv64", B), which does
 
 
 def coarse_level_meshes(mesh_kwargs, mesh_size, factors=LEVEL_FACTORS):
@@ -495,13 +508,12 @@ def build_multilevel(sys: TransportSystem, level_meshes, D_values,
         p_p, p_r, sig, isig = plans
         w = torch.as_tensor(tr.weights, device=dev)
         p, r = rect_band_values(p_p, w), rect_band_values(p_r, w)
-        bands = TransferBands(
+        bands = transfer_bands(
             p=p, po=torch.as_tensor(p_p.offs, device=dev),
             r=r, ro=torch.as_tensor(p_r.offs, device=dev),
             sig=torch.as_tensor(sig, dtype=torch.long, device=dev),
             isig=torch.as_tensor(isig, dtype=torch.long, device=dev),
-            pad_p=p_p.n_cols_pad, pad_r=p_r.n_cols_pad,
-            ps=band_spans(p), rs=band_spans(r))
+            pad_p=p_p.n_cols_pad, pad_r=p_r.n_cols_pad)
         rb = Rb_smooth[l]
         levels.append(Level(
             sys=level_sys[l], dinv=dinvs[l], free=level_sys[l].free,
@@ -583,12 +595,12 @@ CYCLE_DTYPES = (None, torch.float32, torch.bfloat16, torch.float64)
 
 class _LevelArrays(NamedTuple):
     """One level's arrays in a cycle's working dtype (``_level_arrays``)."""
-    Kband: Optional[torch.Tensor]      # level bands (None: the f64 cycle
-    Advband: Optional[torch.Tensor]    #   applies the element blocks)
+    K: Optional[BandKernel]            # kernel A on the level bands (None:
+    Adv: Optional[BandKernel]          #   the f64 cycle applies the blocks)
     R: Optional[_Block]
     R_batch: Optional[_Block]
-    p: Optional[torch.Tensor]          # transfer bands (None: gather path)
-    r: Optional[torch.Tensor]
+    p: Optional[RectBandKernel]        # kernel B on the transfer bands
+    r: Optional[RectBandKernel]        #   (None: gather path)
     gather: Optional[tuple]            # (cols (n, 3) long, weights (n, 3),
                                        #   segment plan of the restriction)
 
@@ -635,17 +647,26 @@ def _level_arrays(ml: MultilevelData, l: int, dtype, transfer_dtype):
                          "cycle runs without them")
     tb = la.bands
     if dtype == _BF16 or transfer_dtype == _BF16:
-        # the f32 bands' spans serve their bf16 copies (ops/banded.py)
-        p, r = cached(("tb16", l),
-                      lambda: (tb.p.to(_BF16), tb.r.to(_BF16)))
+        # the bf16 copies, then kernel B bound to each (the f32 bands'
+        # spans serve their bf16 copies: ops/banded.py)
+        def transfers16():
+            p16, r16 = tb.p.to(_BF16), tb.r.to(_BF16)
+            return (p16, r16, RectBandKernel(p16, tb.po, tb.ps),
+                    RectBandKernel(r16, tb.ro, tb.rs))
+        p, r = cached(("tb16", l), transfers16)[2:]
     else:
-        p, r = tb.p, tb.r
+        p, r = tb.pk, tb.rk
     if dtype != _BF16:
-        return _LevelArrays(la.sys.Kband, la.sys.Advband, la.sys.R,
+        return _LevelArrays(la.sys.Kkern, la.sys.Advkern, la.sys.R,
                             la.R_batch, p, r, None)
-    Kb, Ab = cached(("bands16", l), lambda: (
-        la.sys.Kband.to(_BF16),
-        None if la.sys.Advband is None else la.sys.Advband.to(_BF16)))
+
+    def bands16():
+        sy = la.sys
+        K16 = sy.Kband.to(_BF16)
+        A16 = None if sy.Advband is None else sy.Advband.to(_BF16)
+        return (K16, A16, BandKernel(K16, sy.Kspans),
+                None if A16 is None else BandKernel(A16, sy.Advspans))
+    Kb, Ab = cached(("bands16", l), bands16)[2:]
     R = (None if la.sys.R is None
          else cached(("R16", l), la.sys.R.with_bf16))
     Rb = (None if la.R_batch is None
@@ -722,9 +743,9 @@ def make_ml_preconditioner(ml: MultilevelData, cycle="hybrid", dtype=None,
             if la.sys.Adv is not None:
                 Y = Y + la.sys.Adv.apply_batched(Xm)
         else:
-            Y = band_apply(ar.Kband, Xm, coef=Dw, spans=la.sys.Kspans)
-            if ar.Advband is not None:
-                Y = Y + band_apply(ar.Advband, Xm, spans=la.sys.Advspans)
+            Y = ar.K(Xm, Dw)
+            if ar.Adv is not None:
+                Y = Y + ar.Adv(Xm)
         if ar.R_batch is not None:
             Y = ar.R_batch.apply_batched(Xm, out=Y)
         elif ar.R is not None:
@@ -740,7 +761,7 @@ def make_ml_preconditioner(ml: MultilevelData, cycle="hybrid", dtype=None,
                 contrib.reshape(-1, R.shape[1]), plan)
         tb = la.bands
         Xq = F.pad(R, (0, 0, 0, tb.pad_r - R.shape[0]))
-        Ys = rect_band_apply(ar.r, tb.ro, Xq, tb.rs)[:la.transfer.n_coarse]
+        Ys = ar.r(Xq)[:la.transfer.n_coarse]
         return Ys[tb.isig]
 
     def prolong(l, Xc):
@@ -751,7 +772,7 @@ def make_ml_preconditioner(ml: MultilevelData, cycle="hybrid", dtype=None,
         tb = la.bands
         Xs = Xc[tb.sig]
         Xq = F.pad(Xs, (0, 0, 0, tb.pad_p - Xs.shape[0]))
-        return rect_band_apply(ar.p, tb.po, Xq, tb.ps)[:la.free.shape[0]]
+        return ar.p(Xq)[:la.free.shape[0]]
 
     def coarse(rc):
         rc = torch.where(ml.free_c[:, None], rc, 0.0)

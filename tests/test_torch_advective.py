@@ -44,6 +44,7 @@ from fenics_eff_uptake_tpu_torch.convert import (mesh_from,
                                                  multilevel_from_arrays,
                                                  transport_system_from_arrays,
                                                  velocity_from_values)
+from fenics_eff_uptake_tpu_torch.ops.banded import band_apply
 from fenics_eff_uptake_tpu_torch.parallel import sweep as tsw
 from fenics_eff_uptake_tpu_torch.solvers import multilevel as tml
 
@@ -189,10 +190,10 @@ def test_advective_system_matches_jax(run):
                 np.asarray(run.jsys.Adv.A64)[:N]) < 1e-12
     X = np.zeros((run.jsys.ndofs, 3), np.float32)
     X[:n] = np.random.default_rng(1).standard_normal((n, 3))
-    Yj = tsw.band_apply(torch.tensor(np.asarray(run.jsys.Advband)),
-                        torch.as_tensor(X)).numpy()
-    Yp = tsw.band_apply(run.psys.Advband,
-                        torch.as_tensor(X[:run.psys.ndofs])).numpy()
+    Yj = band_apply(torch.tensor(np.asarray(run.jsys.Advband)),
+                    torch.as_tensor(X)).numpy()
+    Yp = band_apply(run.psys.Advband,
+                    torch.as_tensor(X[:run.psys.ndofs])).numpy()
     assert _rel(Yp[:n], Yj[:n]) < 1e-5
 
 

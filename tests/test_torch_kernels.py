@@ -28,6 +28,14 @@
   with unaligned window starts and spans past ``n_cols`` matches plain, and
   a launch without spans raises; on the graded bands (factor 4) A and B
   match plain and equal the full-span launch.
+* The f32 kernels' bound forms (``BandKernel``, ``RectBandKernel``: a
+  work list longest span first, TMA band boxes) on the card at every tile
+  shape (R = 8, 16, 100, 256) and batch width (B = 1 to 200, across the
+  96-column blocks): bit for bit the free functions (bound for the
+  call), within 1e-5 of plain, zero rows on empty spans, kernel B on
+  unaligned window starts past the rows of Xp, a column's values the same
+  at any B; bad input refused at bind and at call time, with no launch;
+  the library's ``BandPlan`` offsets are ``_BandStruct``'s.
 
 The JAX side is imported inside a fixture, so the file also runs where jax
 is absent: ``python -m pytest tests/test_torch_kernels.py -m cuda
@@ -796,3 +804,146 @@ def test_launch_without_spans_raises(cuda):
     with pytest.raises(ValueError, match="spans"):
         tb.rect_band_apply(band, offs, X)
     assert (tb.band_apply.launches, tb.rect_band_apply.launches) == n0
+
+
+# ---------------------------------------------------------------------------
+# the f32 kernels' work list, bound forms and tile shapes on the card
+# ---------------------------------------------------------------------------
+
+_WORK_B = [1, 2, 3, 4, 5, 8, 9, 20, 24, 33, 48, 49, 96, 97, 200]
+_WORK_R = [8, 16, 100, 256]
+
+
+def _work_band(rng, R, T=9):
+    """A sparse (T, R, 3R) band with an empty tile (2) and, at R > 64, an
+    empty 64-row block (tile 5, block 1)."""
+    return _sparse_band(rng, T, R, 3 * R, empty_tiles=[2],
+                        empty_blocks=[(5, 1)] if R > 64 else [])
+
+
+def _columns_do_not_depend_on_b(Y, narrow):
+    """Columns 0, B // 2 and B - 1 of Y equal one-column launches bit for
+    bit (``narrow(c)``)."""
+    B = Y.shape[1]
+    for c in sorted({0, B // 2, B - 1}):
+        assert torch.equal(Y[:, c:c + 1], narrow(c)), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", _WORK_B)
+@pytest.mark.parametrize("R", _WORK_R)
+def test_bound_band_kernel_widths_and_tiles(cuda, R, B):
+    """Kernel A bound (work list longest span first) at every tile shape
+    and batch width: equal to the free function (bound for the call) bit
+    for bit, to plain within 1e-5, zero rows (times coef) on the empty
+    tile and block, one launch a call, and a column's values the same at
+    any B."""
+    rng = np.random.default_rng(1000 * R + B)
+    band = torch.as_tensor(_work_band(rng, R), device=cuda)
+    T = band.shape[0]
+    X = torch.as_tensor(rng.standard_normal((T * R, B)).astype(np.float32),
+                        device=cuda)
+    coef = torch.as_tensor(rng.random(B).astype(np.float32) + 0.5,
+                           device=cuda)
+    spans = tb.band_spans(band)
+    kern = tb.BandKernel(band, spans)
+    assert torch.equal(kern.items, tb.band_items(spans, band.shape[2]))
+    assert torch.equal(kern.items[:, 0],
+                       tb.band_order(spans, band.shape[2]))
+    n0 = tb.band_apply.launches
+    Y = kern(X, coef)
+    assert tb.band_apply.launches == n0 + 1
+    assert torch.equal(Y, tb.band_apply(band, X, coef, spans=spans))
+    assert _rel(Y.cpu(), tb.band_apply_plain(band, X, coef).cpu()) < 1e-5
+    Yt = Y.reshape(T, R, B)
+    assert not Yt[2].any()
+    if R > 64:
+        assert not Yt[5, 64:128].any()
+    _columns_do_not_depend_on_b(
+        Y, lambda c: kern(X[:, c:c + 1].contiguous(),
+                          coef[c:c + 1].contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", _WORK_B)
+@pytest.mark.parametrize("R", _WORK_R)
+def test_bound_rect_kernel_widths_and_tiles(cuda, R, B):
+    """Kernel B bound at every tile shape and batch width, on unaligned
+    window starts whose last windows run past the rows of Xp: equal to
+    the free function bit for bit, to plain on Xp zero-padded within
+    1e-5, zero rows on the empty tile and block, and a column's values
+    the same at any B."""
+    rng = np.random.default_rng(2000 * R + B)
+    band = torch.as_tensor(_work_band(rng, R), device=cuda)
+    T, _, W = band.shape
+    offs_np = np.array([0, 3, 17, 41, 70, 77, 301, 302, 999], np.int32)
+    offs = torch.as_tensor(offs_np, device=cuda)
+    n = int(offs_np[-1]) + W // 2          # the last windows pass the end
+    Xp = torch.as_tensor(rng.standard_normal((n, B)).astype(np.float32),
+                         device=cuda)
+    spans = tb.band_spans(band)
+    kern = tb.RectBandKernel(band, offs, spans)
+    n0 = tb.rect_band_apply.launches
+    Y = kern(Xp)
+    assert tb.rect_band_apply.launches == n0 + 1
+    assert torch.equal(Y, tb.rect_band_apply(band, offs, Xp, spans))
+    Xz = torch.cat([Xp, torch.zeros((W, B), device=cuda)])
+    assert _rel(Y.cpu(), tb.rect_band_apply_plain(band, offs, Xz).cpu()) \
+        < 1e-5
+    Yt = Y.reshape(T, R, B)
+    assert not Yt[2].any()
+    if R > 64:
+        assert not Yt[5, 64:128].any()
+    _columns_do_not_depend_on_b(
+        Y, lambda c: kern(Xp[:, c:c + 1].contiguous()))
+
+
+@pytest.mark.cuda
+def test_bound_kernels_refuse_bad_input_on_the_card(cuda):
+    rng = np.random.default_rng(3)
+    band = torch.as_tensor(_work_band(rng, 256, T=6), device=cuda)
+    spans = tb.band_spans(band)
+    offs = torch.tensor([0, 5, 9, 9, 30, 31], dtype=torch.int32,
+                        device=cuda)
+    # at bind time: spans missing, on the CPU or of another dtype; a band
+    # not 16-byte aligned; W % 4 != 0; offs on the CPU
+    for bad in (None, spans.cpu(), spans.long()):
+        with pytest.raises(ValueError):
+            tb.BandKernel(band, bad)
+    flat = torch.zeros(band.numel() + 1, device=cuda)[1:]
+    with pytest.raises(ValueError):
+        tb.BandKernel(flat.view(band.shape), spans)
+    odd = torch.zeros((3, 6, 18), device=cuda)
+    with pytest.raises(ValueError):
+        tb.BandKernel(odd, tb.band_spans(odd))
+    with pytest.raises(ValueError):
+        tb.RectBandKernel(band, offs.cpu(), spans)
+    # at call time, no launch
+    kern = tb.BandKernel(band, spans)
+    rk = tb.RectBandKernel(band, offs, spans)
+    X = torch.zeros((6 * 256, 4), device=cuda)
+    n0 = (tb.band_apply.launches, tb.rect_band_apply.launches)
+    for Xb, coef in ((X.double(), None), (X[:-1], None),
+                     (X.t().contiguous().t(), None), (X, torch.ones(5,
+                                                                    device=cuda)),
+                     (X, torch.ones(4, device=cuda).double()),
+                     (X, torch.ones(4))):
+        with pytest.raises((TypeError, ValueError)):
+            kern(Xb, coef)
+    for Xb in (X.double(), X.t().contiguous().t(), X.bfloat16()):
+        with pytest.raises((TypeError, ValueError)):
+            rk(Xb)
+    assert (tb.band_apply.launches, tb.rect_band_apply.launches) == n0
+
+
+@pytest.mark.cuda
+def test_band_struct_layout_on_the_card(cuda):
+    """The library's own offsets of ``BandPlan`` are ``_BandStruct``'s."""
+    import ctypes
+    from fenics_eff_uptake_tpu_torch.ops import _build
+    out = (ctypes.c_longlong * 16)()
+    m = _build.library().feu_band_plan_layout(out, 16)
+    S = tb._BandStruct
+    assert list(out[:m]) == [ctypes.sizeof(S)] + [
+        getattr(S, f).offset for f in ("band", "items", "offs", "T", "R",
+                                       "W", "halo", "rb")]
