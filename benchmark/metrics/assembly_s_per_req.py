@@ -1,0 +1,9 @@
+"""``assembly_s_per_req``: host seconds of the harness's ``assembly`` span
+per request (it ends in a device sync), over the requests that were not
+profiled; nothing where no request has the span."""
+
+
+def read(run):
+    s = [q["stages"]["assembly"] for q in run.untraced()
+         if "assembly" in q["stages"]]
+    return sum(s) / len(s) if s else None
