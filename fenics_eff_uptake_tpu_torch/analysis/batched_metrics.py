@@ -30,6 +30,7 @@ from ..fem.space import FunctionSpace
 from ..meshing.mesh_data import MARKERS, MeshData
 from .flux import boundary_quad, mouth_quad
 from .mu_eff import compute_mu_eff_arc, compute_mu_eff_enh
+from ..utils.profiling import span
 
 __all__ = ["SweepMetrics", "build_sweep_metrics", "metrics_to_dicts"]
 
@@ -84,7 +85,13 @@ def build_sweep_metrics(space: FunctionSpace, mesh: MeshData, D,
     """The all-metrics function of a sweep with default diffusivity ``D``
     and, optionally, the velocity Function ``u`` (numpy values on a P2
     vector space of the same mesh) and the B columns' uptake profiles
-    ``mu_profiles`` (vectorised callables mu_b(x))."""
+    ``mu_profiles`` (vectorised callables mu_b(x)).  A ``metrics``
+    span."""
+    with span("metrics"):
+        return _build_sweep_metrics(space, mesh, D, device, u, mu_profiles)
+
+
+def _build_sweep_metrics(space, mesh, D, device, u, mu_profiles):
     device = torch.device(device)
     raw = {}
     for name in ("left", "right", "top", "bottom"):
@@ -199,7 +206,14 @@ def metrics_to_dicts(sm: SweepMetrics, mesh: MeshData, X, mu_values,
     ``D_values`` (B,): per-column diffusivities (Pe sweeps); default the
     build-time D in every column.
 
-    Returns (flux_metrics_list, mass_metrics_list, mu_eff_list)."""
+    Returns (flux_metrics_list, mass_metrics_list, mu_eff_list).  A
+    ``metrics`` span."""
+    with span("metrics"):
+        return _metrics_to_dicts(sm, mesh, X, mu_values, params_list,
+                                 D_values)
+
+
+def _metrics_to_dicts(sm, mesh, X, mu_values, params_list, D_values):
     B = X.shape[0]
     mu_vec = torch.as_tensor(np.asarray(mu_values, dtype=np.float64),
                              device=X.device)

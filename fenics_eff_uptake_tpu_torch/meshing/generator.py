@@ -35,6 +35,7 @@ from .geometry import SulcusGeometry, sample_curve, sample_segment
 from .mesh_data import MeshData, orient_ccw
 from .markers import build_mesh_data
 from ..utils.diskcache import cache_key_of, count, load_arrays, store_arrays
+from ..utils.profiling import span
 
 __all__ = ["MeshGenerator", "generate_mesh", "structured_rectangle"]
 
@@ -122,10 +123,11 @@ def _triangulate(points, n_fixed, size_fn, n_smooth=4, min_area_frac=1e-9):
     framework's replacement for the reference's Gmsh subprocess.  Returns
     (points, cells), degenerate slivers dropped, CCW cells.
     """
-    pts, cells = native.smooth_and_triangulate(points, n_fixed,
-                                               max(0, n_smooth))
-    cells = _filter_degenerate(pts, cells, min_area_frac)
-    return pts, orient_ccw(pts, cells)
+    with span("meshing.triangulate"):
+        pts, cells = native.smooth_and_triangulate(points, n_fixed,
+                                                   max(0, n_smooth))
+        cells = _filter_degenerate(pts, cells, min_area_frac)
+        return pts, orient_ccw(pts, cells)
 
 
 # ---------------------------------------------------------------------------
@@ -185,27 +187,34 @@ def generate_mesh(width, height, sulcus_depth, sulcus_width, mesh_size,
     The triangulation is pure in its scalar arguments, so the finished
     MeshData is persisted across processes (an .npz per argument set):
     study drivers regenerate the same meshes every run, and the native
-    kernel + marker build cost ~0.7 s at h=0.02."""
-    key = cache_key_of("mesh-v1", float(width), float(height),
-                       float(sulcus_depth), float(sulcus_width),
-                       float(mesh_size), int(refinement_factor), domain_type,
-                       int(n_smooth))
-    hit = load_arrays(MESH_TAG, key)
-    geom_c = SulcusGeometry(width=width, height=height,
-                            sulcus_width=sulcus_width,
-                            sulcus_depth=sulcus_depth,
-                            mesh_size=mesh_size,
-                            refinement_factor=int(refinement_factor))
-    dt = ("rectangular" if domain_type == "rectangular"
-          or sulcus_width <= 0 or sulcus_depth <= 0 else "sulcus")
-    if hit is not None:
-        return _mesh_from_arrays(hit, geom_c, dt)
-    count(MESH_TAG, "miss")
-    md = _generate_mesh_impl(width, height, sulcus_depth, sulcus_width,
-                             mesh_size, refinement_factor, domain_type,
-                             n_smooth)
-    store_arrays(MESH_TAG, key, _mesh_to_arrays(md))
-    return md
+    kernel + marker build cost ~0.7 s at h=0.02.
+
+    A ``meshing`` span; a build on a miss has the children
+    ``meshing.seeds`` (boundary sampling, quadtree seeds and their filter),
+    ``meshing.triangulate`` (the native kernel) and ``meshing.mesh_data``
+    (the merge and the MeshData), one seeds and triangulate pair per
+    region."""
+    with span("meshing"):
+        key = cache_key_of("mesh-v1", float(width), float(height),
+                           float(sulcus_depth), float(sulcus_width),
+                           float(mesh_size), int(refinement_factor),
+                           domain_type, int(n_smooth))
+        hit = load_arrays(MESH_TAG, key)
+        geom_c = SulcusGeometry(width=width, height=height,
+                                sulcus_width=sulcus_width,
+                                sulcus_depth=sulcus_depth,
+                                mesh_size=mesh_size,
+                                refinement_factor=int(refinement_factor))
+        dt = ("rectangular" if domain_type == "rectangular"
+              or sulcus_width <= 0 or sulcus_depth <= 0 else "sulcus")
+        if hit is not None:
+            return _mesh_from_arrays(hit, geom_c, dt)
+        count(MESH_TAG, "miss")
+        md = _generate_mesh_impl(width, height, sulcus_depth, sulcus_width,
+                                 mesh_size, refinement_factor, domain_type,
+                                 n_smooth)
+        store_arrays(MESH_TAG, key, _mesh_to_arrays(md))
+        return md
 
 
 def _generate_mesh_impl(width, height, sulcus_depth, sulcus_width,
@@ -224,63 +233,68 @@ def _generate_mesh_impl(width, height, sulcus_depth, sulcus_width,
         # one convex region; size field still refines near the (imaginary)
         # sulcus nodes, matching the reference's rectangular .geo
         # (mesh.py:328-339 with is_sulcus=False).
-        bottom = sample_segment([0.0, 0.0], [L, 0.0], fld)
-        right = sample_segment([L, 0.0], [L, H], fld)
-        top = sample_segment([L, H], [0.0, H], fld)
-        left = sample_segment([0.0, H], [0.0, 0.0], fld)
-        outline = _dedupe_polyline([bottom, right, top, left])
-        seeds = _quadtree_seeds((0.0, 0.0, L, H), fld, s0=geom.lc)
-
         def inside(p):
             return ((p[:, 0] > 0) & (p[:, 0] < L)
                     & (p[:, 1] > 0) & (p[:, 1] < H))
 
-        seeds = _filter_seeds(seeds, outline, fld, inside)
-        pts = np.concatenate([outline, seeds], axis=0)
+        with span("meshing.seeds"):
+            bottom = sample_segment([0.0, 0.0], [L, 0.0], fld)
+            right = sample_segment([L, 0.0], [L, H], fld)
+            top = sample_segment([L, H], [0.0, H], fld)
+            left = sample_segment([0.0, H], [0.0, 0.0], fld)
+            outline = _dedupe_polyline([bottom, right, top, left])
+            seeds = _quadtree_seeds((0.0, 0.0, L, H), fld, s0=geom.lc)
+            seeds = _filter_seeds(seeds, outline, fld, inside)
+            pts = np.concatenate([outline, seeds], axis=0)
         pts, cells = _triangulate(pts, len(outline), fld, n_smooth=n_smooth)
-        return build_mesh_data(pts, cells, geom, "rectangular")
+        with span("meshing.mesh_data"):
+            return build_mesh_data(pts, cells, geom, "rectangular")
 
     # ---- sulcus domain: channel + cavity, shared mouth line ---------------
-    mouth = sample_segment([xL, 0.0], [xR, 0.0], fld, min_segments=4)
-    bl = sample_segment([0.0, 0.0], [xL, 0.0], fld)
-    br = sample_segment([xR, 0.0], [L, 0.0], fld)
-    right = sample_segment([L, 0.0], [L, H], fld)
-    top = sample_segment([L, H], [0.0, H], fld)
-    left = sample_segment([0.0, H], [0.0, 0.0], fld)
-    curve = sample_curve(geom, fld, min_segments=6)
-
-    # channel region (the full rectangle; mouth points sit on its bottom edge)
-    chan_outline = _dedupe_polyline([bl, mouth, br, right, top, left])
-    chan_seeds = _quadtree_seeds((0.0, 0.0, L, H), fld, s0=geom.lc)
-
     def inside_chan(p):
         return ((p[:, 0] > 0) & (p[:, 0] < L)
                 & (p[:, 1] > 0) & (p[:, 1] < H))
-
-    chan_seeds = _filter_seeds(chan_seeds, chan_outline, fld, inside_chan)
-    chan_pts = np.concatenate([chan_outline, chan_seeds], axis=0)
-    chan_pts, chan_cells = _triangulate(
-        chan_pts, len(chan_outline), fld, n_smooth=n_smooth)
-
-    # cavity region (convex: mouth chord above, sine dip below)
-    cav_outline = _dedupe_polyline([mouth, curve[::-1]])
-    cav_seeds = _quadtree_seeds(
-        (xL, -geom.sulcus_depth, xR, 0.0), fld, s0=min(geom.lc, max(
-            geom.sulcus_width, geom.sulcus_depth)))
 
     def inside_cav(p):
         yb = geom.curve_y(p[:, 0])
         return ((p[:, 0] > xL) & (p[:, 0] < xR)
                 & (p[:, 1] < 0) & (p[:, 1] > yb))
 
-    cav_seeds = _filter_seeds(cav_seeds, cav_outline, fld, inside_cav)
-    cav_pts = np.concatenate([cav_outline, cav_seeds], axis=0)
+    with span("meshing.seeds"):
+        mouth = sample_segment([xL, 0.0], [xR, 0.0], fld, min_segments=4)
+        bl = sample_segment([0.0, 0.0], [xL, 0.0], fld)
+        br = sample_segment([xR, 0.0], [L, 0.0], fld)
+        right = sample_segment([L, 0.0], [L, H], fld)
+        top = sample_segment([L, H], [0.0, H], fld)
+        left = sample_segment([0.0, H], [0.0, 0.0], fld)
+        curve = sample_curve(geom, fld, min_segments=6)
+
+        # channel region (the full rectangle; mouth points sit on its
+        # bottom edge)
+        chan_outline = _dedupe_polyline([bl, mouth, br, right, top, left])
+        chan_seeds = _quadtree_seeds((0.0, 0.0, L, H), fld, s0=geom.lc)
+        chan_seeds = _filter_seeds(chan_seeds, chan_outline, fld,
+                                   inside_chan)
+        chan_pts = np.concatenate([chan_outline, chan_seeds], axis=0)
+    chan_pts, chan_cells = _triangulate(
+        chan_pts, len(chan_outline), fld, n_smooth=n_smooth)
+
+    # cavity region (convex: mouth chord above, sine dip below)
+    with span("meshing.seeds"):
+        cav_outline = _dedupe_polyline([mouth, curve[::-1]])
+        cav_seeds = _quadtree_seeds(
+            (xL, -geom.sulcus_depth, xR, 0.0), fld, s0=min(geom.lc, max(
+                geom.sulcus_width, geom.sulcus_depth)))
+        cav_seeds = _filter_seeds(cav_seeds, cav_outline, fld, inside_cav)
+        cav_pts = np.concatenate([cav_outline, cav_seeds], axis=0)
     cav_pts, cav_cells = _triangulate(
         cav_pts, len(cav_outline), fld, n_smooth=n_smooth)
 
     # ---- merge along the mouth (exact float equality on shared points) ----
-    merged, cells = _merge_regions(chan_pts, chan_cells, cav_pts, cav_cells)
-    return build_mesh_data(merged, cells, geom, "sulcus")
+    with span("meshing.mesh_data"):
+        merged, cells = _merge_regions(chan_pts, chan_cells, cav_pts,
+                                       cav_cells)
+        return build_mesh_data(merged, cells, geom, "sulcus")
 
 
 def _merge_regions(pts_a, cells_a, pts_b, cells_b):

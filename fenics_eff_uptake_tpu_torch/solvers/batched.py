@@ -16,7 +16,8 @@ device program, and so counts a column's iterations in whole chunks.  Here
 the loop tests convergence on the host once per iteration (one device sync
 each) and stops when no column is active; ``iters`` counts the iterations
 each column was active for, which is what the JAX loop gives with chunks
-of one iteration.
+of one iteration.  The host reads go through ``utils.profiling.host_read``
+(counted in ``host_syncs``) and each iteration counts in ``krylov_steps``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..utils import profiling
+from ..utils.profiling import host_read
 
 __all__ = ["batched_cg", "batched_bicgstab", "BatchedResult"]
 
@@ -52,9 +56,8 @@ def _start(A, B_rhs, X0, rtol, atol):
 
 def _result(X, R, tol, cit):
     rn = _colnorm(R)
-    return BatchedResult(X=X, iters=cit.cpu().numpy(),
-                         resnorm=rn.cpu().numpy(),
-                         converged=(rn <= tol).cpu().numpy())
+    return BatchedResult(X=X, iters=host_read(cit), resnorm=host_read(rn),
+                         converged=host_read(rn <= tol))
 
 
 def batched_cg(A: Callable, B_rhs, M: Optional[Callable] = None, X0=None,
@@ -71,8 +74,9 @@ def batched_cg(A: Callable, B_rhs, M: Optional[Callable] = None, X0=None,
                       device=B_rhs.device)
     for _ in range(maxiter):
         active = _colnorm(R) > tol
-        if not bool(active.any()):
+        if not bool(host_read(active.any())):
             break
+        profiling.krylov_steps += 1
         AP = A(P)
         pAp = torch.sum(P * AP, dim=0)
         alpha = torch.where(active & (pAp != 0),
@@ -105,8 +109,9 @@ def batched_bicgstab(A: Callable, B_rhs, M: Optional[Callable] = None,
     cit = torch.zeros(B, dtype=torch.int64, device=B_rhs.device)
     for _ in range(maxiter):
         active = _colnorm(R) > tol
-        if not bool(active.any()):
+        if not bool(host_read(active.any())):
             break
+        profiling.krylov_steps += 1
         rho_new = torch.sum(Rhat * R, dim=0)
         beta = torch.where(
             active,

@@ -65,6 +65,7 @@ from ..meshing.mesh_data import MARKERS
 from ..parallel.sweep import (TransportSystem, _Block, _np,
                               build_transport_system, fine_dinv, system_to)
 from ..utils.diskcache import Memo, cache_key_of, cached_arrays, count
+from ..utils.profiling import span
 
 __all__ = ["Transfer", "TransferBands", "Level", "MultilevelData",
            "coarse_level_meshes", "level_meshes_for", "level_velocities",
@@ -468,60 +469,65 @@ def build_multilevel(sys: TransportSystem, level_meshes, D_values,
                  else [np.asarray(r, dtype=np.float64)
                        for r in robin_matrices_levels])
     u_levels = u_levels or [(None, None)] * n_levels
-    lsys = [build_transport_system(m, "cpu", element="P1", u_values=uv,
-                                   u_space=us, dirichlet=dirichlet,
-                                   with_robin=with_robin)
-            for m, (uv, us) in zip(level_meshes, u_levels)]
+    # levels[0] smooths with the fine batch, levels[l + 1] with level mesh
+    # l's; the last level mesh's batch enters the coarsest inverses
+    Rb_smooth = [robin_matrices_fine] + Rb_levels[:-1]
+    with span("ml_setup.level_systems"):
+        lsys = [build_transport_system(m, "cpu", element="P1", u_values=uv,
+                                       u_space=us, dirichlet=dirichlet,
+                                       with_robin=with_robin)
+                for m, (uv, us) in zip(level_meshes, u_levels)]
+        level_sys = [sys] + [system_to(s, dev) for s in lsys[:-1]]
+        dinvs = [fine_dinv(s, D, mu, robin_matrices=rb).to(dev)
+                 for s, rb in zip([sys] + lsys[:-1], Rb_smooth)]
+        R_batch = [None if rb is None else s.R.per_sample(rb)
+                   for s, rb in zip(level_sys, Rb_smooth)]
 
     def coords_of(s, verts=None):
         c = np.asarray(s.space.dof_coords if verts is None else verts)
         return c[s.perm[:len(c)]]
 
-    hint0 = None
-    if level_meshes[0] is sys.space.mesh:
-        cd = np.asarray(sys.space.scalar_dofmap.cell_dofs)
-        hint0 = np.zeros(sys.space.ndofs_scalar, dtype=np.int64)
-        hint0[cd.ravel()] = np.repeat(np.arange(len(cd)), cd.shape[1])
-        hint0 = hint0[sys.perm[:len(hint0)]]
-    transfers = [_interp(coords_of(sys), level_meshes[0], _np(sys.free),
-                         sys.ndofs, lsys[0].ndofs, lsys[0].iperm,
-                         hint_cells=hint0)]
-    for i in range(n_levels - 1):
-        transfers.append(_interp(
-            coords_of(lsys[i], level_meshes[i].vertices),
-            level_meshes[i + 1], _np(lsys[i].free), lsys[i].ndofs,
-            lsys[i + 1].ndofs, lsys[i + 1].iperm))
+    with span("ml_setup.transfers"):
+        hint0 = None
+        if level_meshes[0] is sys.space.mesh:
+            cd = np.asarray(sys.space.scalar_dofmap.cell_dofs)
+            hint0 = np.zeros(sys.space.ndofs_scalar, dtype=np.int64)
+            hint0[cd.ravel()] = np.repeat(np.arange(len(cd)), cd.shape[1])
+            hint0 = hint0[sys.perm[:len(hint0)]]
+        transfers = [_interp(coords_of(sys), level_meshes[0], _np(sys.free),
+                             sys.ndofs, lsys[0].ndofs, lsys[0].iperm,
+                             hint_cells=hint0)]
+        for i in range(n_levels - 1):
+            transfers.append(_interp(
+                coords_of(lsys[i], level_meshes[i].vertices),
+                level_meshes[i + 1], _np(lsys[i].free), lsys[i].ndofs,
+                lsys[i + 1].ndofs, lsys[i + 1].iperm))
 
-    level_sys = [sys] + [system_to(s, dev) for s in lsys[:-1]]
-    # levels[0] smooths with the fine batch, levels[l + 1] with level mesh
-    # l's; the last level mesh's batch enters the coarsest inverses
-    Rb_smooth = [robin_matrices_fine] + Rb_levels[:-1]
-    dinvs = [fine_dinv(s, D, mu, robin_matrices=rb).to(dev)
-             for s, rb in zip([sys] + lsys[:-1], Rb_smooth)]
     levels = []
-    for l, tr in enumerate(transfers):
-        plans = _transfer_plans(tr.cols, tr.weights, level_sys[l].ndofs,
-                                tr.n_coarse)
-        if plans is None:
-            raise ValueError(f"level {l} transfer has no index locality; "
-                             "the windowed-band form does not apply")
-        p_p, p_r, sig, isig = plans
-        w = torch.as_tensor(tr.weights, device=dev)
-        p, r = rect_band_values(p_p, w), rect_band_values(p_r, w)
-        bands = transfer_bands(
-            p=p, po=torch.as_tensor(p_p.offs, device=dev),
-            r=r, ro=torch.as_tensor(p_r.offs, device=dev),
-            sig=torch.as_tensor(sig, dtype=torch.long, device=dev),
-            isig=torch.as_tensor(isig, dtype=torch.long, device=dev),
-            pad_p=p_p.n_cols_pad, pad_r=p_r.n_cols_pad)
-        rb = Rb_smooth[l]
-        levels.append(Level(
-            sys=level_sys[l], dinv=dinvs[l], free=level_sys[l].free,
-            transfer=tr, bands=bands,
-            R_batch=None if rb is None else level_sys[l].R.per_sample(rb)))
-    Ainv, A_c, cinfo = _coarse_inverses(
-        lsys[-1], D, mu, robin_matrices=Rb_levels[-1],
-        method=coarse_inverse, device=dev)
+    with span("ml_setup.transfer_bands"):
+        for l, tr in enumerate(transfers):
+            plans = _transfer_plans(tr.cols, tr.weights, level_sys[l].ndofs,
+                                    tr.n_coarse)
+            if plans is None:
+                raise ValueError(f"level {l} transfer has no index "
+                                 "locality; the windowed-band form does "
+                                 "not apply")
+            p_p, p_r, sig, isig = plans
+            w = torch.as_tensor(tr.weights, device=dev)
+            p, r = rect_band_values(p_p, w), rect_band_values(p_r, w)
+            bands = transfer_bands(
+                p=p, po=torch.as_tensor(p_p.offs, device=dev),
+                r=r, ro=torch.as_tensor(p_r.offs, device=dev),
+                sig=torch.as_tensor(sig, dtype=torch.long, device=dev),
+                isig=torch.as_tensor(isig, dtype=torch.long, device=dev),
+                pad_p=p_p.n_cols_pad, pad_r=p_r.n_cols_pad)
+            levels.append(Level(
+                sys=level_sys[l], dinv=dinvs[l], free=level_sys[l].free,
+                transfer=tr, bands=bands, R_batch=R_batch[l]))
+    with span("ml_setup.coarse_inverse"):
+        Ainv, A_c, cinfo = _coarse_inverses(
+            lsys[-1], D, mu, robin_matrices=Rb_levels[-1],
+            method=coarse_inverse, device=dev)
     return MultilevelData(levels=tuple(levels), Ainv=Ainv,
                           free_c=lsys[-1].free.to(dev), omega=OMEGA,
                           D_vec=torch.as_tensor(D, device=dev),
@@ -572,20 +578,29 @@ def build_multilevel_for(sys, mesh, D_values, mu_values=None, u_fine=None,
     mu_callables: the columns' spatially varying mu_b(x) of a step-mu
     sweep (the level Robin matrices are assembled from them on each level
     mesh), with robin_matrices_fine the fine system's batch.
-    coarse_inverse: as ``build_multilevel`` takes it."""
+    coarse_inverse: as ``build_multilevel`` takes it.
+
+    The build is an ``ml_setup`` span; its children (``ml_setup.`` then
+    level_meshes, level_velocities, level_systems, transfers,
+    transfer_bands, coarse_inverse) follow one another."""
     g = mesh.geom
     if g is None or g.mesh_size >= H_THRESHOLD:
         return None
-    meshes = level_meshes_for(mesh)
-    u_levels = (None if u_fine is None
-                else level_velocities(u_fine, meshes))
-    robin_levels = (None if mu_callables is None
-                    else level_robin_matrices(meshes, mu_callables))
-    return build_multilevel(sys, meshes, D_values, mu_values,
-                            u_levels=u_levels,
-                            robin_matrices_levels=robin_levels,
-                            robin_matrices_fine=robin_matrices_fine,
-                            coarse_inverse=coarse_inverse)
+    with span("ml_setup"):
+        with span("ml_setup.level_meshes"):
+            meshes = level_meshes_for(mesh)
+        u_levels = robin_levels = None
+        if u_fine is not None:
+            with span("ml_setup.level_velocities"):
+                u_levels = level_velocities(u_fine, meshes)
+        if mu_callables is not None:
+            with span("ml_setup.level_systems"):
+                robin_levels = level_robin_matrices(meshes, mu_callables)
+        return build_multilevel(sys, meshes, D_values, mu_values,
+                                u_levels=u_levels,
+                                robin_matrices_levels=robin_levels,
+                                robin_matrices_fine=robin_matrices_fine,
+                                coarse_inverse=coarse_inverse)
 
 
 _BF16 = torch.bfloat16

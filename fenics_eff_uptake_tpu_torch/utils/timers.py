@@ -3,7 +3,8 @@
 
 The reference prints only the total elapsed time; ``run_simulation`` keeps
 the seconds of each stage (mesh, stokes, transport, metrics, mu_eff,
-mesh_io) with this.
+mesh_io) with this.  Each stage is also a program span of its name
+(``utils/profiling.span``), so the stages show in a trace.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import time
 from contextlib import contextmanager
 from typing import Dict
+
+from .profiling import span
 
 __all__ = ["StageTimer"]
 
@@ -24,7 +27,8 @@ class StageTimer:
     def stage(self, name):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.times[name] = self.times.get(name, 0.0) + dt
