@@ -44,6 +44,13 @@ they are XLA ops in the JAX package; the segment sums are the deterministic
 ``FEU_STOKES``) keeps the solved field in the setup cache (tag
 ``port-stokes``), as the JAX package's ``stokes_solve`` does: a converged
 field is stored, and a hit reloads it in place of the setup and solve.
+
+Tracing (``utils.profiling``): spans ``stokes.setup`` (``stokes_setup``
+in ``stokes_solve_mg``), ``stokes.pass`` (one per MINRES pass) and
+``stokes.certify`` (the f64 defect residuals); each ``saddle_solve``
+counts one in ``stokes_solves``, its MINRES iterations in
+``minres_steps`` and its host reads in ``stokes_host_syncs``, never in
+the transport solves' counters.
 """
 
 from __future__ import annotations
@@ -67,7 +74,9 @@ from ..solvers.minres import minres_tree
 from ..solvers.stokes import stokes_schur_cg
 from ..solvers.multilevel import (build_multilevel, level_meshes_for,
                                   make_ml_preconditioner)
+from ..utils import profiling
 from ..utils.diskcache import cache_key_of, count, load_arrays, store_arrays
+from ..utils.profiling import span, stokes_read
 
 __all__ = ["taylor_hood_spaces", "stokes_zero_fields", "StokesSetup",
            "stokes_setup", "saddle_solve", "stokes_solve_mg",
@@ -291,7 +300,7 @@ def stokes_setup(mesh: MeshData, H: float, device, ml_dtype=None,
     wide = make_ml_preconditioner(_widened(ml, 2 * KZ), **cyc)
     W = wide(VT.float().permute(0, 2, 1).reshape(ns, 2 * KZ).contiguous())
     Wm = W.reshape(ns, KZ, 2).permute(0, 2, 1)
-    S_Z = torch.einsum("nik,niz->kz", VT, Wm.double()).cpu().numpy()
+    S_Z = stokes_read(torch.einsum("nik,niz->kz", VT, Wm.double()))
     S_Z = 0.5 * (S_Z + S_Z.T)
     # zero (rank-dropped) columns: identity diagonal so the inverse exists;
     # their Z columns are zero, so they add nothing to the correction
@@ -332,7 +341,15 @@ def _sync(device):
 
 
 def _norm(x):
-    return float(torch.sqrt(sum(torch.sum(t * t) for t in x)))
+    return float(stokes_read(torch.sqrt(sum(torch.sum(t * t) for t in x))))
+
+
+def _defect(st, x):
+    """The f64 saddle residual b - S x and its norm."""
+    with span("stokes.certify"):
+        SU, Sp = st.S64(x)
+        r = (st.b[0] - SU, st.b[1] - Sp)
+        return r, _norm(r)
 
 
 def saddle_solve(st: StokesSetup, rtol=OUTER_RTOL, precision="mixed"):
@@ -345,32 +362,32 @@ def saddle_solve(st: StokesSetup, rtol=OUTER_RTOL, precision="mixed"):
     result) and converged."""
     b = st.b
     bnorm = _norm(b)
+    profiling.stokes_solves += 1
     if precision == "f64":
         if st.M64 is None:
             raise ValueError("this setup has no f64 preconditioner")
-        res = minres_tree(st.S64, b, st.M64, rtol=rtol, maxiter=3000,
-                          chunk_iters=CHUNK)
-        SU, Sp = st.S64(res.x)
-        rn = _norm((b[0] - SU, b[1] - Sp))
+        with span("stokes.pass"):
+            res = minres_tree(st.S64, b, st.M64, rtol=rtol, maxiter=3000,
+                              chunk_iters=CHUNK)
+        _, rn = _defect(st, res.x)
         return res.x, {"outer_iters": int(res.iters), "passes": 1,
                        "resnorm": rn, "rel_resnorm": rn / max(bnorm, 1e-300),
                        "converged": bool(res.converged)}
     x = tuple(torch.zeros_like(t) for t in b)
     total_iters = passes = 0
     for _ in range(MAX_PASSES):
-        SU, Sp = st.S64(x)
-        r = (b[0] - SU, b[1] - Sp)
-        rn = _norm(r)
+        r, rn = _defect(st, x)
         if rn <= rtol * max(bnorm, 1e-300):
             break
-        res = minres_tree(st.S32, tuple(t.float() for t in r), st.M32,
-                          rtol=PASS_RTOL, maxiter=3000, chunk_iters=CHUNK)
+        with span("stokes.pass"):
+            res = minres_tree(st.S32, tuple(t.float() for t in r), st.M32,
+                              rtol=PASS_RTOL, maxiter=3000,
+                              chunk_iters=CHUNK)
         total_iters += res.iters
         passes += 1
         x = tuple(xi + di.double() for xi, di in zip(x, res.x))
     else:
-        SU, Sp = st.S64(x)
-        rn = _norm((b[0] - SU, b[1] - Sp))
+        _, rn = _defect(st, x)
     return x, {"outer_iters": int(total_iters), "passes": passes,
                "resnorm": rn, "rel_resnorm": rn / max(bnorm, 1e-300),
                "converged": bool(rn <= rtol * max(bnorm, 1e-300))}
@@ -387,15 +404,16 @@ def stokes_solve_mg(mesh: MeshData, H: float, device, rtol=OUTER_RTOL,
     sync)."""
     device = torch.device(device)
     t0 = time.time()
-    st = stokes_setup(mesh, H, device, precision=precision,
-                      pin_outlet_pressure=pin_outlet_pressure,
-                      **cycle_options)
+    with span("stokes.setup"):
+        st = stokes_setup(mesh, H, device, precision=precision,
+                          pin_outlet_pressure=pin_outlet_pressure,
+                          **cycle_options)
     t1 = _sync(device)
     x, info = saddle_solve(st, rtol, precision)
     t2 = _sync(device)
-    U = (st.G + x[0]).cpu().numpy()[st.sysV.iperm[:st.sysV.space.ndofs]]
+    U = stokes_read(st.G + x[0])[st.sysV.iperm[:st.sysV.space.ndofs]]
     u = Function(st.V, U.reshape(-1))
-    p = Function(st.Q, x[1].cpu().numpy())
+    p = Function(st.Q, stokes_read(x[1]))
     info.update(inner_iters=0, method="minres+mg", setup_s=t1 - t0,
                 solve_s=t2 - t1)
     u.solver_info = info

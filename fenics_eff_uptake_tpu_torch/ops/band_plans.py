@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import numpy as np
 
+from ..utils import profiling
+
 __all__ = ["BandPlan", "RectBandPlan", "rcm_permutation",
            "best_bandwidth_permutation", "build_band_plan",
            "build_rect_band_plan", "aligned_transfer_plans"]
@@ -150,7 +152,10 @@ def build_rect_band_plan(rows, cols, vals, n_rows, n_cols):
     shrink from 256 rows until each tile's window fits the W menu within
     _RECT_MAX_BYTES; where none does, the windows widen in steps of
     _RECT_W_STEP at the tile size of the fewest band bytes, up to
-    _RECT_WIDE_MAX_BYTES (None past that)."""
+    _RECT_WIDE_MAX_BYTES (None past that).  A plan built counts in
+    ``utils.profiling``: ``rect_band_plans``, ``rect_band_widened`` (past
+    the menu), ``rect_band_entries`` (its live entries) and
+    ``rect_band_slots`` (T * R * W)."""
     rows = np.asarray(rows, dtype=np.int64).ravel()
     cols = np.asarray(cols, dtype=np.int64).ravel()
     vals = np.asarray(vals).ravel()
@@ -163,7 +168,8 @@ def build_rect_band_plan(rows, cols, vals, n_rows, n_cols):
         if W is not None and T * t_r * W * 4 <= _RECT_MAX_BYTES:
             pick = (t_r, T, offs, W)
             break
-    if pick is None:
+    widened = pick is None
+    if widened:
         wide = []
         for t_r, T, offs, need in windows:
             W = -(-need // _RECT_W_STEP) * _RECT_W_STEP
@@ -178,6 +184,10 @@ def build_rect_band_plan(rows, cols, vals, n_rows, n_cols):
     flat = (tidx * t_r + rows % t_r) * W + w_idx
     flat = np.where(live, flat, T * t_r * W)   # dump slot
     perm = np.argsort(flat, kind="stable")
+    profiling.rect_band_plans += 1
+    profiling.rect_band_widened += widened
+    profiling.rect_band_entries += int(np.count_nonzero(live))
+    profiling.rect_band_slots += T * t_r * W
     return RectBandPlan(offs=offs.astype(np.int32),
                         ids=flat[perm].astype(np.int64),
                         perm=perm.astype(np.int32),

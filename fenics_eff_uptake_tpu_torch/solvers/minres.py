@@ -14,6 +14,10 @@ The iteration is ESW Algorithm 6.1, as in the JAX package:
   once converged and the masked counter is the true iteration count;
 * the host reads |eta| once per chunk of ``chunk_iters`` steps (the JAX
   chunked dispatch): one device sync per chunk, not per step.
+
+Its host reads go through ``utils.profiling.stokes_read`` (counted in
+``stokes_host_syncs``) and its iterations count in ``minres_steps``: the
+solver serves the Stokes saddle system only.
 """
 
 from __future__ import annotations
@@ -21,6 +25,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..utils import profiling
+from ..utils.profiling import stokes_read
 
 __all__ = ["MinresResult", "minres_tree"]
 
@@ -71,10 +78,10 @@ def minres_tree(A, b, M, rtol=1e-10, maxiter=2000,
     s_old = s = zero
     c_old = c = one
     it = zero
-    tol = rtol * max(float(gam), 1e-300)
+    rn = float(stokes_read(gam))
+    tol = rtol * max(rn, 1e-300)
 
     dispatched = 0
-    rn = float(gam)
     while dispatched < maxiter and rn > tol:
         for _ in range(chunk_iters):
             active = eta.abs() > tol
@@ -111,5 +118,7 @@ def minres_tree(A, b, M, rtol=1e-10, maxiter=2000,
             w_old, w = _sel(active, w, w_old), _sel(active, w_new, w)
             it = torch.where(active, it + 1, it)
         dispatched += chunk_iters
-        rn = float(eta.abs())
-    return MinresResult(x=x, iters=int(it), resnorm=rn, converged=rn <= tol)
+        rn = float(stokes_read(eta.abs()))
+    iters = int(stokes_read(it))
+    profiling.minres_steps += iters
+    return MinresResult(x=x, iters=iters, resnorm=rn, converged=rn <= tol)

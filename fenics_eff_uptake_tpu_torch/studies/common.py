@@ -42,6 +42,7 @@ from ..parallel.sweep import (build_transport_system,
                               robin_matrices_for_mu, solve_sweep)
 from ..solvers.multilevel import build_multilevel_for
 from ..utils.diskcache import Memo
+from ..utils.profiling import span
 
 __all__ = ["make_no_adv_params", "make_mesh", "sweep_mus", "no_adv_batch",
            "stokes_for_study", "transport_batch", "add_shard_arguments",
@@ -279,13 +280,16 @@ def stokes_for_study(mesh, H, device, shard=None, **cycle_options):
     hierarchy's (``stokes_setup``).  ``shard``: a started ``RankGroup``
     solves it by sharded f64 MINRES instead, as the JAX package's
     ``sharded_stokes_or_single`` does, the field kept in the setup cache
-    under a key of its own (``stokes_solve_sharded``)."""
+    under a key of its own (``stokes_solve_sharded``).  A ``stokes``
+    span (``utils.profiling``) holds it all."""
     device = setup(device)
-    if shard is None:
-        return stokes_solve(mesh, H, device, **cycle_options)
-    from ..parallel.sharded_solve import stokes_solve_sharded
-    _check_shard(shard, device, **cycle_options)
-    return stokes_solve_sharded(shard, mesh, H, rtol=1e-9, chunk_iters=40)
+    with span("stokes"):
+        if shard is None:
+            return stokes_solve(mesh, H, device, **cycle_options)
+        from ..parallel.sharded_solve import stokes_solve_sharded
+        _check_shard(shard, device, **cycle_options)
+        return stokes_solve_sharded(shard, mesh, H, rtol=1e-9,
+                                    chunk_iters=40)
 
 
 def transport_batch(mesh, u, D_batch, mu_batch, device, rtol=1e-12,

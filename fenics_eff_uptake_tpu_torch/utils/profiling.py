@@ -2,10 +2,11 @@
 ``utils/profiling.py``; the reference has none).
 
 Spans.  ``span(name)`` marks a stretch of host work inside the program
-(the layers ``meshing``, ``assembly``, ``ml_setup``, ``solve``,
-``metrics`` and their children, and ``StageTimer``'s stages).  Recording
-is off by default: a span is then one flag test and a shared null context.
-It is on inside ``recording()`` and inside ``device_trace``:
+(the layers ``meshing``, ``stokes``, ``assembly``, ``ml_setup``,
+``solve``, ``metrics`` and their children, and ``StageTimer``'s stages).
+Recording is off by default: a span is then one flag test and a shared
+null context.  It is on inside ``recording()`` and inside
+``device_trace``:
 
     with recording():
         solve_sweep(...)
@@ -24,7 +25,16 @@ Counters, counted always (plain module integers, as the kernels' launch
 counters are): ``host_syncs``, the blocking device-to-host reads of
 ``solve_sweep`` and of the batched Krylov loops, every one made through
 ``host_read``; ``krylov_steps``, the executed iterations of those loops
-(one per trip, whatever the number of columns).
+(one per trip, whatever the number of columns).  The Stokes solve counts
+apart, so that syncs per Krylov step stay a transport number:
+``stokes_solves``, the MINRES saddle solves run (``saddle_solve``; a
+cached field is none); ``minres_steps``, their MINRES iterations over
+every pass (the sum of ``outer_iters``); ``stokes_host_syncs``, their
+blocking reads, every one made through ``stokes_read``.  The transfer
+plans (``ops.band_plans.build_rect_band_plan``) count
+``rect_band_plans`` built, ``rect_band_widened`` (those past the width
+menu), ``rect_band_entries`` (the live entries placed) and
+``rect_band_slots`` (T * R * W of each plan).
 
 ``device_trace`` writes a Chrome trace (``trace_<pid>_<ns>.json``,
 readable in Perfetto or chrome://tracing) of the host and, where a CUDA
@@ -44,11 +54,18 @@ from typing import List, NamedTuple
 import torch
 
 __all__ = ["Span", "span", "recording", "take", "on_timeline",
-           "device_trace", "host_read"]
+           "device_trace", "host_read", "stokes_read"]
 
 # read them as ``profiling.host_syncs``: an imported name is a copy
 host_syncs = 0
 krylov_steps = 0
+stokes_solves = 0
+minres_steps = 0
+stokes_host_syncs = 0
+rect_band_plans = 0
+rect_band_widened = 0
+rect_band_entries = 0
+rect_band_slots = 0
 
 
 def host_read(t):
@@ -56,6 +73,14 @@ def host_read(t):
     read the device, counted in ``host_syncs``."""
     global host_syncs
     host_syncs += 1
+    return t.cpu().numpy()
+
+
+def stokes_read(t):
+    """``host_read`` of the Stokes solve, counted in
+    ``stokes_host_syncs``."""
+    global stokes_host_syncs
+    stokes_host_syncs += 1
     return t.cpu().numpy()
 
 

@@ -18,6 +18,11 @@ device.  Prints one JSON line (and writes it to ``--out``):
   of the ``ml_setup`` stage that level meshes, velocities and systems,
   transfers, transfer bands and the coarsest inverses cover;
 * ``host_syncs_per_step``: the counters' deltas summed over every request;
+* ``stokes``, for the set-up and for the requests: the Stokes solve's
+  split (``stokes_split_s``: the ``stokes`` span's children, mean seconds
+  per solve), its MINRES steps and host syncs per solve, and the transfer
+  plans built (``plans``, ``widened``, ``fill``: live entries over band
+  slots), from the counters' deltas;
 * over the whole profiled requests: ``inside_share``, the device records
   that start inside a span of their request or less than 1 ms after one
   ends; ``solve_launches_per_step``, the records starting inside the
@@ -116,6 +121,36 @@ def _window(spans, recs):
             "idle": idle, "device": dev, "htod": htod}
 
 
+COUNTERS = ("stokes_solves", "minres_steps", "stokes_host_syncs",
+            "rect_band_plans", "rect_band_widened", "rect_band_entries",
+            "rect_band_slots")
+
+
+def _counters(profiling):
+    return {k: getattr(profiling, k) for k in COUNTERS}
+
+
+def _stokes_part(spans, before, after):
+    """The Stokes solves and transfer plans between two counter readings,
+    with the ``stokes`` span's children in ``spans``."""
+    d = {k: after[k] - before[k] for k in COUNTERS}
+    n = d["stokes_solves"]
+    top = {s.id for s in spans if s.name == "stokes" and not s.parent}
+    split = defaultdict(float)
+    for s in spans:
+        if s.parent in top:
+            split[s.name] += (s.end_ns - s.start_ns) / 1e9
+    return {"solves": n,
+            "stokes_split_s": {k: v / n for k, v in split.items()} if n
+            else {},
+            "minres_steps_per_solve": d["minres_steps"] / n if n else None,
+            "stokes_syncs_per_solve": (d["stokes_host_syncs"] / n if n
+                                       else None),
+            "plans": d["rect_band_plans"], "widened": d["rect_band_widened"],
+            "fill": (d["rect_band_entries"] / d["rect_band_slots"]
+                     if d["rect_band_slots"] else None)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -155,11 +190,16 @@ def main(argv=None):
         seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
 
     first = traffic.next()
-    port.setup(first["geometry"], stage)
+    c0 = _counters(profiling)
+    with profiling.recording():
+        port.setup(first["geometry"], stage)
+    setup_stokes = _stokes_part(profiling.take(), c0, _counters(profiling))
     port.request(first, stage)
     port.sync()
     profiling.take()
     requests, windows = [], []
+    c0 = _counters(profiling)
+    stokes_spans = []
     for i in range(args.requests):
         req = traffic.next()
         seconds.clear()
@@ -173,6 +213,7 @@ def main(argv=None):
             else:
                 out = port.request(req, stage)
         spans = profiling.take()
+        stokes_spans += spans
         q = {"id": req["id"], "profiled": profiled,
              "stages": dict(seconds),
              "syncs": profiling.host_syncs - s0,
@@ -200,6 +241,7 @@ def main(argv=None):
               f"steps={q['steps']}", file=sys.stderr, flush=True)
 
     plain = [q for q in requests if not q["profiled"]]
+    request_stokes = _stokes_part(stokes_spans, c0, _counters(profiling))
 
     def mean(key, qs, field):
         return statistics.fmean(q[field].get(key, 0.0) for q in qs)
@@ -251,6 +293,7 @@ def main(argv=None):
                                key=lambda kv: -kv[1])[:15],
         "htod_pageable": sorted(([k, n, t] for k, (n, t) in htod.items()),
                                 key=lambda x: -x[2]),
+        "stokes": {"setup": setup_stokes, "requests": request_stokes},
     }
     line = json.dumps(result)
     if args.out:
