@@ -28,8 +28,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    in f64: the card's row of the port's utils/roofline.PEAKS, which has
    only the H100 SXM's, so another card stops the run here): for A and B
    both over the whole band (dense) and over the
-   column spans these inputs need (span), with the share of the span
-   bound that the kernel's device time reaches.  Kernel C runs in both
+   column spans these inputs need (span), and for A over the band's
+   nonzeros (nonzero), with the share of the span bound that the
+   kernel's device time reaches; an f32 A band that binds the packed form
+   (``ops/banded.band_form``: every assembled band here) is held to the
+   span form bit for bit, its share is of the nonzero bound, and the span
+   form's device time is printed beside it.  Kernel C runs in both
    forms: the full output (f64 K, the defect residual's) and out=, added
    into the Robin block's own rows (every Robin apply of both paths).
    The flow path's cases follow (``phase_kernels_flow``, on the solved
@@ -547,20 +551,31 @@ def device_ms(fn, calls=20, warmup=3):
 device_ms.profiler_lost = False
 
 
-def back_to_back_ms(fn, calls=20):
+def back_to_back_ms(fn, calls=20, hold_cycles=1 << 25):
     """The CUDA event interval around ``calls`` calls of fn queued back to
-    back, over the calls: an upper bound of the device time per call (for
-    a kernel of a few microseconds it is the host's launch rate).  Taken
-    only where the profiler gave no device time, under its own key."""
+    back, over the calls: an upper bound of the device time per call.
+    The stream is held by a device-side wait (``torch.cuda._sleep``,
+    ``hold_cycles`` clock cycles) until the host has queued every call,
+    so that the interval is the device's (its gaps between kernels
+    included), not the host's launch rate; where the wait ended before
+    the host had queued them, it is taken again with a wait twice as
+    long.  Taken only where the profiler gave no device time, under its
+    own key."""
     import torch
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    a.record()
-    for _ in range(calls):
-        fn()
-    b.record()
-    b.synchronize()
+    for _ in range(4):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(hold_cycles)
+        a.record()
+        for _ in range(calls):
+            fn()
+        held = not a.query()           # the wait outlasted the queueing
+        b.record()
+        b.synchronize()
+        if held:
+            break
+        hold_cycles *= 2
     return a.elapsed_time(b) / calls
 
 
@@ -589,18 +604,21 @@ def bound_ms(nbytes, flops, elem_size):
 
 def band_bounds(band, spans, n_in, n_out, B, extra_bytes=0, x_size=4,
                 y_size=4):
-    """Dense and span bounds of a band apply: the band (whole, or its
-    spans' elements) read once, X (n_in, B) read once, Y (n_out, B)
-    written once, each at its element size, 2 * B FLOPs per band element at
-    the rate of the band's type."""
+    """Dense, span and nonzero bounds of a band apply: the band (whole,
+    its spans' elements, or its nonzeros) read once, X (n_in, B) read
+    once, Y (n_out, B) written once, each at its element size, 2 * B FLOPs
+    per band element at the rate of the band's type."""
+    import torch
     from fenics_eff_uptake_tpu_torch.ops.banded import span_elements
     bs = band.element_size()
     io = B * (x_size * n_in + y_size * n_out) + extra_bytes
     dense = band.numel()
     sp = span_elements(band, spans)
+    nz = int(torch.count_nonzero(band))
     return {"dense": bound_ms(bs * dense + io, 2 * B * dense, bs),
             "span": bound_ms(bs * sp + io + spans.numel() * 4, 2 * B * sp,
                              bs),
+            "nonzero": bound_ms(bs * nz + io, 2 * B * nz, bs),
             "span_fill": sp / dense}
 
 
@@ -619,7 +637,8 @@ def compare(label, kernel, plain, rtol, library=None, bounds=None,
     """Kernel vs plain on the same inputs: errors, device times per call
     of the kernel, the plain version and the library call, the kernel's
     per-call time, and the bounds (``bounds``: "span" and, for the band
-    kernels, "dense" (ms, what binds) pairs).  ``check``, where given,
+    kernels, "dense" and "nonzero" (ms, what binds) pairs; the share is of
+    ``bounds["share_of"]``, "span" where not given).  ``check``, where given,
     makes the two outputs compared (the out= form's calls accumulate).
     ``terms`` (the bf16 forms): each output's sum of |terms|; an f32 output
     is then held to rtol of it elementwise, and a bf16 output to >= 99%
@@ -658,8 +677,10 @@ def compare(label, kernel, plain, rtol, library=None, bounds=None,
     plain_ms = device_ms(plain)
     lib_ms = None if library is None else device_ms(library)
     event_ms = back_to_back_ms(kernel) if ms is None else None
-    span, by = bounds["span"]
-    share = None if ms is None else span / ms
+    span, by = bounds[bounds.get("share_of", "span")]
+    # the profiler's device time, else the held events' (an upper bound)
+    share = (span / ms if ms is not None
+             else None if not event_ms else span / event_ms)
 
     def f(v):
         return "not measured" if v is None else f"{v:.4f} ms"
@@ -671,20 +692,29 @@ def compare(label, kernel, plain, rtol, library=None, bounds=None,
     text = (f"[kernels] {label}: max_abs_err {abs_err:.3e} max_rel_err "
             f"{rel:.3e} (tol {rtol:.0e}) device: kernel {f(ms)}"
             + ("" if event_ms is None
-               else f" (events, back to back: {event_ms:.4f} ms)")
+               else f" (events, back to back, device held: "
+               f"{event_ms:.4f} ms)")
             + f" plain {f(plain_ms)} library "
             + ("none" if library is None else f(lib_ms))
             + f"; per call {call_ms:.4f} ms")
     if "dense" in bounds:
         d, dby = bounds["dense"]
+        sp, spby = bounds["span"]
+        nz, nzby = bounds["nonzero"]
         out.update(dense_bound_ms=d, dense_bound_by=dby,
+                   span_bound_ms=sp, nonzero_bound_ms=nz,
+                   share_of=bounds.get("share_of", "span"),
                    span_fill=bounds["span_fill"])
-        text += (f"; bound dense {d:.4f} ms ({dby}), span {span:.4f} ms "
-                 f"({by}, {100 * bounds['span_fill']:.1f}% of the band)")
+        text += (f"; bound dense {d:.4f} ms ({dby}), span {sp:.4f} ms "
+                 f"({spby}, {100 * bounds['span_fill']:.1f}% of the band), "
+                 f"nonzero {nz:.4f} ms ({nzby}); share of the "
+                 f"{out['share_of']} bound")
     else:
         text += f"; bound {span:.4f} ms ({by})"
     print(text + "; share of the bound "
-          + ("not measured" if share is None else f"{share:.3f}"), flush=True)
+          + ("not measured" if share is None else f"{share:.3f}")
+          + (" (events)" if ms is None and share is not None else ""),
+          flush=True)
     if terms is None and not rel <= rtol:
         raise AssertionError(f"{label}: relative error {rel:.3e} > {rtol}")
     return out
@@ -852,11 +882,14 @@ def bound_equals_free(label, y_bound, y_free):
 
 def band_case(label, band, spans, X, coef, rtol=1e-5):
     """Kernel A on one band: kernel, plain, and the plain version's one
-    cuBLAS call (bmm on the windows, built before the timing)."""
+    cuBLAS call (bmm on the windows, built before the timing).  Where the
+    band binds the packed form, its Y must equal the span form's bit for
+    bit; its share is of the nonzero bound, and the span form's device ms
+    is kept beside it (``span_form_ms``)."""
     import torch
     import torch.nn.functional as F
     from fenics_eff_uptake_tpu_torch.ops.banded import (
-        BandKernel, band_apply, band_apply_plain)
+        BandKernel, _SpanBandKernel, band_apply, band_apply_plain)
     T, R, W = band.shape
     halo = (W // R - 1) // 2
     win = F.pad(X, (0, 0, halo * R, halo * R)).unfold(0, W, R).contiguous()
@@ -869,14 +902,36 @@ def band_case(label, band, spans, X, coef, rtol=1e-5):
     kern = BandKernel(band, spans)
     bound_equals_free(label, kern(X, coef),
                       band_apply(band, X, coef, spans=spans))
+    bounds = band_bounds(band, spans, n, n, B,
+                         0 if coef is None else xs * B, xs, xs)
+    span_ms = None
+    if kern.packed is not None:
+        span = _SpanBandKernel(band, spans)
+        y = kern(X, coef)
+        torch.cuda.synchronize()
+        if not torch.equal(y, span(X, coef)):
+            raise AssertionError(f"{label}: the packed form differs from "
+                                 "the span form")
+        bounds["share_of"] = "nonzero"
+        span_ms = device_ms(lambda: span(X, coef))
+        if span_ms is None:
+            span_ms = back_to_back_ms(lambda: span(X, coef))
+        print(f"[kernels] {label}: packed form, {kern.packed.entries} "
+              f"nonzeros in {kern.packed.slots} slots "
+              f"({kern.packed.nbytes()} bytes), equal to the span form; "
+              "span form device "
+              + ("not measured" if span_ms is None else f"{span_ms:.4f} ms")
+              + (" (events)" if device_ms.profiler_lost else ""),
+              flush=True)
     rec = compare(
         label, lambda: kern(X, coef),
         lambda: band_apply_plain(band, X, coef), rtol,
         library=lambda: torch.bmm(band, win.transpose(1, 2)),
-        bounds=band_bounds(band, spans, n, n, B,
-                           0 if coef is None else xs * B, xs, xs),
-        terms=terms)
+        bounds=bounds, terms=terms)
     rec["key"] = ["band_apply", str(band.dtype), T, R, W, B]
+    rec["form"] = "packed" if kern.packed is not None else (
+        "span" if band.dtype == torch.float32 else "bf16")
+    rec["span_form_ms"] = span_ms
     return rec
 
 
@@ -1561,6 +1616,7 @@ def zero_launches():
     from fenics_eff_uptake_tpu_torch.ops.elemspmv import ElementKernel
     band_apply.launches = rect_band_apply.launches = 0
     band_apply.launches_bf16 = rect_band_apply.launches_bf16 = 0
+    band_apply.launches_packed = 0
     rect_band_apply.launches_bf16_band = 0
     ElementKernel.launches = ElementKernel.launches_out = 0
     ElementKernel.launches_sample = ElementKernel.launches_bf16 = 0
@@ -3395,7 +3451,7 @@ def _main(args, card, t_start):
     # package has no Pallas kernel for it, only the unrolled multiply-adds
     # of _Block.apply_batched
     meta = {
-        "band_apply": ("band_f32.cu", f"{PALLAS}:155"),
+        "band_apply": ("band_packed.cu", f"{PALLAS}:155"),
         "rect_band_apply": ("band_f32.cu", f"{PALLAS}:274"),
         "element_apply": ("element_apply.cu", f"{PALLAS}:51"),
         PER_SAMPLE: ("element_apply.cu", f"{JAX_SWEEP}:104"),

@@ -37,6 +37,7 @@ _SIGNATURES = {
     "feu_band_bind": [_P],
     "feu_band_launch": [_P, _P, _L, _P, _P, _I, _I, _I, _P],
     "feu_band_plan_layout": [_P, _I],
+    "feu_band_packed_launch": [_P, _P, _P, _P, _I, _P],
     "feu_band_apply_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "feu_rect_band_apply_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
                                  _I, _P],

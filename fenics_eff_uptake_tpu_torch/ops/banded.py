@@ -32,6 +32,16 @@ is made and carried beside it, and the kernels stream only those chunks.
 Every skipped term is ``fmaf(0, x, acc) == acc``, so for finite X the
 result equals the full-width sum bit for bit.
 
+An assembled operator's spans are still mostly zeros (a graded band's
+64-row block spans ~1,150 columns for ~12 nonzeros a row), so kernel A
+has a second f32 form, ``csrc/band_packed.cu``, that streams only the
+nonzeros (:func:`band_pack`, :class:`PackedBand`: sliced ELL, slices of
+``PACK_ROWS`` rows, each row's entries in ascending window column).  Its
+outputs are the same chains less their zero terms, so it gives the span
+form's bits.  :func:`band_form` picks the form of a band by its bytes:
+:class:`BandKernel` binds the packed form where it reads fewer bytes than
+the spans, the span form elsewhere (dense bands).
+
 Operand types.  Both kernels take f32 operands, and the bf16 operand forms
 of the JAX package's bf16 cycle and bf16 transfer bands:
 
@@ -58,10 +68,12 @@ from __future__ import annotations
 
 import collections
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from . import _build
 from .band_plans import BandPlan, RectBandPlan
 from .elemspmv import make_segment_plan, planned_segment_sum
@@ -69,7 +81,8 @@ from .elemspmv import make_segment_plan, planned_segment_sum
 __all__ = ["band_from_elements", "rect_band_values", "band_spans",
            "span_elements", "SPAN_ROWS", "SPAN_COLS", "MAX_COLS",
            "band_order", "band_items", "work_list", "box_rows",
-           "chunk_subs", "ring_stages", "BandKernel", "RectBandKernel",
+           "chunk_subs", "ring_stages", "PACK_ROWS", "PackedBand",
+           "band_pack", "band_form", "BandKernel", "RectBandKernel",
            "band_apply", "band_apply_plain", "check_band_apply_args",
            "rect_band_apply", "rect_band_apply_plain",
            "check_rect_band_apply_args", "BAND_APPLY_DTYPES",
@@ -120,16 +133,20 @@ def band_spans(band):
     return torch.stack([lo, hi], -1).to(torch.int32).contiguous()
 
 
-def span_elements(band, spans):
-    """The band elements inside the column spans: what a kernel streams
-    of the band (``band.numel()`` with full spans)."""
+def _span_elements(band, spans):
     T, R, W = band.shape
     nb = spans.shape[1]
     rows = torch.clamp(R - SPAN_ROWS * torch.arange(nb, device=band.device),
                        max=SPAN_ROWS)
     cols = (torch.clamp(spans[..., 1] * SPAN_COLS, max=W)
             - spans[..., 0] * SPAN_COLS).clamp(min=0)
-    return int((cols * rows).sum())
+    return (cols.long() * rows).sum()
+
+
+def span_elements(band, spans):
+    """The band elements inside the column spans: what a kernel streams
+    of the band (``band.numel()`` with full spans)."""
+    return int(_span_elements(band, spans))
 
 
 def band_order(spans, W):
@@ -223,6 +240,144 @@ def _check_spans(name, band, spans, dev):
 
 
 # ---------------------------------------------------------------------------
+# kernel A's packed form: the band's nonzeros alone
+# ---------------------------------------------------------------------------
+
+# rows of one slice of the packed form (csrc/band_packed.cu kSlice): a warp
+PACK_ROWS = 32
+# band elements a packing step scans at once (its transient int32 ranks)
+_PACK_STEP = 1 << 26
+
+
+class PackedBand(NamedTuple):
+    """Kernel A's packed f32 form of a (T, R, W) band (sliced ELL).
+
+    The rows (t * R + r) go in slices of ``PACK_ROWS``; slice s holds
+    k_s slots a row, k_s its longest row's nonzeros, slot-major (slot j
+    of row s * PACK_ROWS + i at ``offs[s] + j * PACK_ROWS + i``), so
+    that a warp's loads of one slot are one coalesced run.  A row's
+    entries are its nonzeros in ascending window column w, then padding:
+    value 0 at the row's own column (w = halo * R + r)."""
+    vals: torch.Tensor      # (slots,) f32
+    cols: torch.Tensor      # (slots,) w: uint16 bits in int16 (W <= 65,535),
+                            # else int32
+    offs: torch.Tensor      # (slices + 1,) int32 slot offsets
+    entries: int            # the band's nonzeros
+
+    @property
+    def slots(self):
+        return self.vals.numel()
+
+    def nbytes(self):
+        """What the kernel streams of the form: its slots' values and
+        columns."""
+        return self.slots * (4 + self.cols.element_size())
+
+
+def _row_counts(band):
+    """Nonzeros of each row (T * R,) int32, and each slice's longest
+    (slices,) int32."""
+    T, R, W = band.shape
+    step = max(1, _PACK_STEP // (R * W))
+    cnt = torch.cat([(band[t:t + step] != 0).sum(-1, dtype=torch.int32)
+                     .reshape(-1) for t in range(0, T, step)])
+    ns = -(-T * R // PACK_ROWS)
+    k = F.pad(cnt, (0, ns * PACK_ROWS - T * R)).reshape(ns, PACK_ROWS)
+    return cnt, k.amax(1)
+
+
+def _pack(band, k, kmax, slots, entries):
+    """The packed form from the slices' slot counts k (``_row_counts``),
+    the longest row kmax and the slots: no host sync.  Row i's j-th
+    entry is at the first w where its running count of nonzeros reaches
+    j (``searchsorted``); past its count the search gives W, padding."""
+    T, R, W = band.shape
+    dev = band.device
+    ns = k.numel()
+    npad = ns * PACK_ROWS
+    halo = (W // R - 1) // 2
+    pos = torch.full((npad, kmax), W, dtype=torch.int32, device=dev)
+    vals = torch.zeros((npad, kmax), dtype=torch.float32, device=dev)
+    if kmax:
+        step = max(1, _PACK_STEP // (R * W))
+        j = torch.arange(1, kmax + 1, dtype=torch.int32, device=dev)
+        for t in range(0, T, step):
+            rank = (band[t:t + step] != 0).reshape(-1, W).cumsum(
+                1, dtype=torch.int32)
+            at = torch.searchsorted(rank, j.expand(len(rank), kmax)
+                                    .contiguous(), out_int32=True)
+            rows = slice(t * R, t * R + len(rank))
+            pos[rows] = at
+            live, at = at < W, at.clamp(max=W - 1).long()
+            vals[rows] = torch.where(
+                live, band[t:t + step].reshape(-1, W).gather(1, at), 0.0)
+    own = (halo * R + torch.arange(npad, device=dev) % R).to(torch.int32)
+    cols = torch.where(pos < W, pos, own[:, None])
+    if W <= 65535:                      # uint16 bits in an int16 tensor
+        cols = torch.where(cols > 32767, cols - 65536, cols).to(torch.int16)
+    # slot-major slices, each cut to its own k_s slots a row
+    offs = F.pad(torch.cumsum(k * PACK_ROWS, 0), (1, 0)).to(torch.int32)
+    m = slots // PACK_ROWS
+    s = torch.repeat_interleave(torch.arange(ns, device=dev), k,
+                                output_size=m)
+    src = s * kmax + torch.arange(m, device=dev) - (offs[:-1] // PACK_ROWS)[s]
+
+    def slot_major(a):
+        a = a.reshape(ns, PACK_ROWS, kmax).transpose(1, 2)
+        return a.reshape(ns * kmax, PACK_ROWS)[src].reshape(-1)
+    return PackedBand(slot_major(vals), slot_major(cols), offs, entries)
+
+
+def _sizes(band, spans):
+    """(each slice's slots a row, the entries, the slots, the longest
+    row, the span elements): one host sync."""
+    cnt, k = _row_counts(band)
+    sp = (_span_elements(band, spans) if spans is not None
+          else torch.zeros((), dtype=torch.long, device=band.device))
+    entries, slots, kmax, span_el = torch.stack(
+        [cnt.sum().long(), k.sum().long() * PACK_ROWS, k.max().long(),
+         sp]).tolist()
+    return k, entries, slots, kmax, span_el
+
+
+def band_pack(band):
+    """The packed form of an f32 (T, R, W) band (:class:`PackedBand`), on
+    the band's device: a few device operations and one host sync (the
+    slots)."""
+    k, entries, slots, kmax, _ = _sizes(band, None)
+    return _pack(band, k, kmax, slots, entries)
+
+
+def band_form(band, spans):
+    """The form kernel A binds for an f32 band and its spans: the
+    :class:`PackedBand` where its bytes (slots x (4 + column bytes)) are
+    below the span form's (``span_elements`` x 4), else None (the span
+    form).  One host sync, then, for the packed form, a few device
+    operations; the result is kept on the band until it or the spans
+    change.  Each call is one bind, counted in ``utils.profiling``:
+    ``band_packed_binds`` or ``band_span_binds``, and the packed form's
+    ``band_packed_entries`` and ``band_packed_slots``."""
+    memo = getattr(band, "_feu_band_form", None)
+    if (memo is None or memo[0] != band._version or memo[1] is not spans
+            or memo[2] != spans._version):
+        k, entries, slots, kmax, span_el = _sizes(band, spans)
+        per = 4 + (2 if band.shape[2] <= 65535 else 4)
+        packed = None
+        if slots * per < span_el * 4 and slots < 2 ** 31:   # int32 offs
+            packed = _pack(band, k, kmax, slots, entries)
+        memo = (band._version, spans, spans._version, packed)
+        band._feu_band_form = memo
+    packed = memo[3]
+    if packed is None:
+        profiling.band_span_binds += 1
+    else:
+        profiling.band_packed_binds += 1
+        profiling.band_packed_entries += packed.entries
+        profiling.band_packed_slots += packed.slots
+    return packed
+
+
+# ---------------------------------------------------------------------------
 # kernel A: square band
 # ---------------------------------------------------------------------------
 
@@ -301,7 +456,8 @@ def band_apply(band, X, coef=None, spans=None):
     it.  f32 operands, or band, X and coef all bf16 (f32 sums, Y bf16).
     The kernel bound for this one call (:class:`BandKernel`).
     ``band_apply.launches`` counts the launches of kernel A,
-    bound or not, ``.launches_bf16`` those of the bf16 form among them."""
+    bound or not, ``.launches_bf16`` those of the bf16 form and
+    ``.launches_packed`` those of the packed f32 form among them."""
     if X.device.type == "cpu":
         return band_apply_plain(band, X, coef)
     check_band_apply_args(band, X, coef, spans)
@@ -310,6 +466,7 @@ def band_apply(band, X, coef=None, spans=None):
 
 band_apply.launches = 0
 band_apply.launches_bf16 = 0
+band_apply.launches_packed = 0
 
 
 # ---------------------------------------------------------------------------
@@ -380,6 +537,21 @@ class _BandStruct(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in ("T", "R", "W", "halo", "rb")])
 
 
+class _PackedStruct(ctypes.Structure):
+    """csrc/band_packed.cu ``PackedPlan``: one bound packed band."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("vals", "cols", "offs")]
+                + [("n", ctypes.c_longlong)]
+                + [(n, ctypes.c_int) for n in ("ns", "R", "halo", "wide")])
+
+
+def _packed_struct(band, pk):
+    T, R, W = band.shape
+    return _PackedStruct(
+        vals=pk.vals.data_ptr(), cols=pk.cols.data_ptr(),
+        offs=pk.offs.data_ptr(), n=T * R, ns=pk.offs.numel() - 1, R=R,
+        halo=(W // R - 1) // 2, wide=int(pk.cols.dtype == torch.int32))
+
+
 class _Bound:
     """What kernels A and B share: the band and its spans, checked once;
     an f32 band's work list (``work_list``) and tensor map
@@ -409,8 +581,13 @@ class _Bound:
         _check_cuda(self.name, band,
                     [band] + ([] if offs is None else [offs]), band.device)
         _check_spans(self.name, band, spans, band.device)
-        if band.dtype != _F32:
-            return
+        if band.dtype == _F32:
+            self._bind_f32(halo)
+
+    def _bind_f32(self, halo):
+        """The span form: the work list and the tensor map."""
+        band, spans, offs = self.band, self.spans, self.offs
+        T, R, W = band.shape
         self.items = work_list(spans, W, offs)
         self._plan = _BandStruct(
             band=band.data_ptr(), items=self.items.data_ptr(),
@@ -463,15 +640,18 @@ class BandKernel(_Bound):
     """Kernel A bound to one (T, R, W) band, f32 or bf16, and its spans
     (``band_spans``, or of the f32 band a bf16 one was rounded from).
 
-    The band and spans are checked here, once, and an f32 band gets its
-    work list (``work_list``: ``band_items``, the most sub-boxes first)
-    and its tensor map; neither may change after.  ``kernel(X, coef)`` checks X
-    and coef (dtype, shape, device, contiguity) and launches on the
-    current stream: Y = coef * (A @ X).  A CPU X takes
-    ``band_apply_plain``.  Launches count in ``band_apply.launches`` (and
-    ``.launches_bf16``)."""
+    The band and spans are checked here, once.  An f32 band on the card
+    binds the form of fewer bytes (``band_form``): its packed form
+    (``packed``, ``csrc/band_packed.cu``), or the span form with its work
+    list (``work_list``: ``band_items``, the most sub-boxes first) and
+    its tensor map; the two give the same bits.  Neither band nor spans
+    may change after.  ``kernel(X, coef)`` checks X and coef (dtype,
+    shape, device, contiguity) and launches on the current stream: Y =
+    coef * (A @ X).  A CPU X takes ``band_apply_plain``.  Launches count
+    in ``band_apply.launches`` (and ``.launches_bf16``,
+    ``.launches_packed``)."""
 
-    __slots__ = ()
+    __slots__ = ("packed",)
     name = "band_apply"
 
     def __init__(self, band, spans):
@@ -482,7 +662,17 @@ class BandKernel(_Bound):
             halo = (W // R - 1) // 2
         else:
             halo = 0
+        self.packed = None
         super().__init__(band, spans, None, halo)
+
+    def _bind_f32(self, halo):
+        self.packed = band_form(self.band, self.spans)
+        if self.packed is None:
+            super()._bind_f32(halo)
+            return
+        self._plan = _packed_struct(self.band, self.packed)
+        self._addr = ctypes.addressof(self._plan)
+        self._launch = _build.library().feu_band_packed_launch
 
     def check(self, X, coef=None):
         """Raise unless the kernel can take X and coef as they are."""
@@ -503,7 +693,15 @@ class BandKernel(_Bound):
         T, R, W = self.band.shape
         n, B = X.shape
         Y = torch.empty_like(X)
-        if self._launch is not None:
+        if self.packed is not None:
+            err = self._launch(self._addr, X.data_ptr(),
+                               None if coef is None else coef.data_ptr(),
+                               Y.data_ptr(), B,
+                               _build.raw_stream(self._index))
+            if err:
+                _build.check(err, self.name)
+            band_apply.launches_packed += 1
+        elif self._launch is not None:
             self._run(X, n, coef, Y)
         else:
             err = _build.library().feu_band_apply_bf16(
@@ -515,6 +713,17 @@ class BandKernel(_Bound):
         band_apply.launches += 1
         launches_by_band[self._key + (B,)] += 1
         return Y
+
+
+class _SpanBandKernel(BandKernel):
+    """Kernel A bound to the span form whatever ``band_form`` picks: the
+    form the packed one is held to (tests, ``chip_smoke.py``)."""
+
+    __slots__ = ()
+
+    def _bind_f32(self, halo):
+        profiling.band_span_binds += 1
+        _Bound._bind_f32(self, halo)
 
 
 class RectBandKernel(_Bound):

@@ -34,7 +34,11 @@ blocking reads, every one made through ``stokes_read``.  The transfer
 plans (``ops.band_plans.build_rect_band_plan``) count
 ``rect_band_plans`` built, ``rect_band_widened`` (those past the width
 menu), ``rect_band_entries`` (the live entries placed) and
-``rect_band_slots`` (T * R * W of each plan).
+``rect_band_slots`` (T * R * W of each plan).  Kernel A's binds of an
+f32 band on the card (``ops.banded.band_form``) count by form:
+``band_packed_binds`` and ``band_span_binds``, and the packed form's
+``band_packed_entries`` (nonzeros) and ``band_packed_slots`` (slots with
+their padding).
 
 ``device_trace`` writes a Chrome trace (``trace_<pid>_<ns>.json``,
 readable in Perfetto or chrome://tracing) of the host and, where a CUDA
@@ -66,6 +70,10 @@ rect_band_plans = 0
 rect_band_widened = 0
 rect_band_entries = 0
 rect_band_slots = 0
+band_packed_binds = 0
+band_span_binds = 0
+band_packed_entries = 0
+band_packed_slots = 0
 
 
 def host_read(t):

@@ -23,6 +23,10 @@ device.  Prints one JSON line (and writes it to ``--out``):
   per solve), its MINRES steps and host syncs per solve, and the transfer
   plans built (``plans``, ``widened``, ``fill``: live entries over band
   slots), from the counters' deltas;
+* ``band_forms``, for the set-up and for the requests: kernel A's f32
+  binds by form (``packed``, ``span``), the packed form's fill (nonzeros
+  over slots), and kernel A's launches (``launches``; ``launches_packed``
+  among them), from the counters' deltas;
 * over the whole profiled requests: ``inside_share``, the device records
   that start inside a span of their request or less than 1 ms after one
   ends; ``solve_launches_per_step``, the records starting inside the
@@ -126,8 +130,26 @@ COUNTERS = ("stokes_solves", "minres_steps", "stokes_host_syncs",
             "rect_band_slots")
 
 
+BAND_COUNTERS = ("band_packed_binds", "band_span_binds",
+                 "band_packed_entries", "band_packed_slots")
+
+
 def _counters(profiling):
-    return {k: getattr(profiling, k) for k in COUNTERS}
+    from fenics_eff_uptake_tpu_torch.ops.banded import band_apply
+    return {**{k: getattr(profiling, k) for k in COUNTERS + BAND_COUNTERS},
+            "launches": band_apply.launches,
+            "launches_packed": band_apply.launches_packed}
+
+
+def _band_part(before, after):
+    """Kernel A's binds by form, the packed fill and its launches between
+    two counter readings."""
+    d = {k: after[k] - before[k] for k in after}
+    return {"packed": d["band_packed_binds"], "span": d["band_span_binds"],
+            "fill": (d["band_packed_entries"] / d["band_packed_slots"]
+                     if d["band_packed_slots"] else None),
+            "launches": d["launches"],
+            "launches_packed": d["launches_packed"]}
 
 
 def _stokes_part(spans, before, after):
@@ -194,6 +216,7 @@ def main(argv=None):
     with profiling.recording():
         port.setup(first["geometry"], stage)
     setup_stokes = _stokes_part(profiling.take(), c0, _counters(profiling))
+    setup_bands = _band_part(c0, _counters(profiling))
     port.request(first, stage)
     port.sync()
     profiling.take()
@@ -242,6 +265,7 @@ def main(argv=None):
 
     plain = [q for q in requests if not q["profiled"]]
     request_stokes = _stokes_part(stokes_spans, c0, _counters(profiling))
+    request_bands = _band_part(c0, _counters(profiling))
 
     def mean(key, qs, field):
         return statistics.fmean(q[field].get(key, 0.0) for q in qs)
@@ -294,6 +318,7 @@ def main(argv=None):
         "htod_pageable": sorted(([k, n, t] for k, (n, t) in htod.items()),
                                 key=lambda x: -x[2]),
         "stokes": {"setup": setup_stokes, "requests": request_stokes},
+        "band_forms": {"setup": setup_bands, "requests": request_bands},
     }
     line = json.dumps(result)
     if args.out:

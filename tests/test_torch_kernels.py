@@ -833,11 +833,11 @@ def _columns_do_not_depend_on_b(Y, narrow):
 @pytest.mark.parametrize("B", _WORK_B)
 @pytest.mark.parametrize("R", _WORK_R)
 def test_bound_band_kernel_widths_and_tiles(cuda, R, B):
-    """Kernel A bound (work list longest span first) at every tile shape
-    and batch width: equal to the free function (bound for the call) bit
-    for bit, to plain within 1e-5, zero rows (times coef) on the empty
-    tile and block, one launch a call, and a column's values the same at
-    any B."""
+    """Kernel A's span form bound (work list longest span first) at every
+    tile shape and batch width: equal to the free function (bound for the
+    call, here to the packed form) bit for bit, to plain within 1e-5, zero
+    rows (times coef) on the empty tile and block, one launch a call, and
+    a column's values the same at any B."""
     rng = np.random.default_rng(1000 * R + B)
     band = torch.as_tensor(_work_band(rng, R), device=cuda)
     T = band.shape[0]
@@ -846,7 +846,8 @@ def test_bound_band_kernel_widths_and_tiles(cuda, R, B):
     coef = torch.as_tensor(rng.random(B).astype(np.float32) + 0.5,
                            device=cuda)
     spans = tb.band_spans(band)
-    kern = tb.BandKernel(band, spans)
+    assert tb.BandKernel(band, spans).packed is not None
+    kern = tb._SpanBandKernel(band, spans)
     assert torch.equal(kern.items, tb.band_items(spans, band.shape[2]))
     assert torch.equal(kern.items[:, 0],
                        tb.band_order(spans, band.shape[2]))
