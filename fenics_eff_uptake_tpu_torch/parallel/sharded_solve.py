@@ -19,13 +19,14 @@ inverses) split over "sweep".  As in JAX, the coarsest product is rounded
 to f32 before its prolongation.  Per iteration that is 3 all-reduces for
 CG and 6 for BiCGStab under the cycle, 1 and 2 under Jacobi.
 
-The host protocol is JAX's: chunks of ``chunk_iters`` iterations, one
-host read of the (B,) residual norms per chunk, per-column freezing by the
-``active`` masks, iterations counted in whole chunks.  The right-hand side
-and the inverse diagonal come from the sharded operator (one all-reduce
-each).  At the end the columns are gathered over "sweep" (one all-reduce
-of a zero-padded buffer) and every rank holds X in FunctionSpace
-numbering.
+The host protocol is JAX's: chunks of ``chunk_iters`` iterations (each
+a call of ``solvers/batched.py``'s ``cg_step`` or ``bicgstab_step``, the
+steps of every transport solve), one host read of the (B,) residual norms
+per chunk, per-column freezing by the ``active`` masks, iterations
+counted in whole chunks.  The right-hand side and the inverse diagonal
+come from the sharded operator (one all-reduce each).  At the end the
+columns are gathered over "sweep" (one all-reduce of a zero-padded
+buffer) and every rank holds X in FunctionSpace numbering.
 
 Stokes: the saddle MINRES with the velocity stiffness and the divergence
 block split over "cells" and ONE fused all-reduce per saddle apply (A U,
@@ -48,6 +49,8 @@ import torch
 
 from ..models.stokes_flow import _Divergence, _sync
 from ..ops.elemspmv import make_segment_plan, planned_segment_sum
+from ..solvers.batched import (_colnorm, bicgstab_state, bicgstab_step,
+                               cg_state, cg_step)
 from ..solvers.minres import minres_tree
 from ..solvers.multilevel import gather_transfer
 from .sharding import all_reduce_sum, kernel_launches
@@ -393,10 +396,6 @@ def _cycle(hv: _RankHierarchy, A_bc, dt):
     return M
 
 
-def _colnorm(R):
-    return torch.sqrt(torch.sum(R * R, dim=0))
-
-
 def _gather_columns(X, cols: slice, B: int, lay: _Layout):
     """(n, B) on every rank from each sweep rank's (n, B / dp) columns:
     one all-reduce over "sweep" of a zero-padded buffer."""
@@ -405,52 +404,14 @@ def _gather_columns(X, cols: slice, B: int, lay: _Layout):
     return all_reduce_sum(full, lay.sweep)
 
 
-def _cg_chunk(A_bc, M, n_iters, state, tol):
-    """``n_iters`` masked CG iterations (the JAX chunk body)."""
-    X, R, Z, P, rz = state
+def _krylov_chunk(step, A_bc, M, n_iters, state, tol):
+    """``n_iters`` calls of ``solvers.batched``'s ``step`` (the JAX chunk
+    body), each column active while its recurrence residual norm is above
+    its ``tol`` (B,): the mask is taken on the device, and the chunk reads
+    nothing back to the host and counts no step."""
     for _ in range(n_iters):
-        active = _colnorm(R) > tol
-        AP = A_bc(P)
-        pAp = torch.sum(P * AP, dim=0)
-        alpha = torch.where(active & (pAp != 0),
-                            rz / torch.where(pAp != 0, pAp, 1.0), 0.0)
-        X = X + alpha * P
-        R = R - alpha * AP
-        Z = M(R)
-        rz_new = torch.sum(R * Z, dim=0)
-        beta = torch.where(active & (rz != 0),
-                           rz_new / torch.where(rz != 0, rz, 1.0), 0.0)
-        P = torch.where(active, Z + beta * P, P)
-        rz = rz_new
-    return X, R, Z, P, rz
-
-
-def _bicgstab_chunk(A_bc, M, n_iters, state, Rhat, tol):
-    """``n_iters`` masked BiCGStab iterations (the JAX chunk body)."""
-    X, R, P, V, rho, alpha, omega = state
-    for _ in range(n_iters):
-        active = _colnorm(R) > tol
-        rho_new = torch.sum(Rhat * R, dim=0)
-        beta = torch.where(
-            active, (rho_new / torch.where(rho != 0, rho, 1.0))
-            * (alpha / torch.where(omega != 0, omega, 1.0)), 0.0)
-        P = torch.where(active, R + beta * (P - omega * V), P)
-        Phat = M(P)
-        V = A_bc(Phat)
-        denom = torch.sum(Rhat * V, dim=0)
-        alpha = torch.where(active & (denom != 0),
-                            rho_new / torch.where(denom != 0, denom, 1.0),
-                            0.0)
-        S = R - alpha * V
-        Shat = M(S)
-        T = A_bc(Shat)
-        tt = torch.sum(T * T, dim=0)
-        omega = torch.where(active & (tt != 0), torch.sum(T * S, dim=0)
-                            / torch.where(tt != 0, tt, 1.0), 0.0)
-        X = X + alpha * Phat + omega * Shat
-        R = torch.where(active, S - omega * T, R)
-        rho = rho_new
-    return X, R, P, V, rho, alpha, omega
+        state = step(A_bc, M, state, _colnorm(state.R) > tol)
+    return state
 
 
 def sharded_solve_sweep(ss: ShardedSystem, D_values, mu_values,
@@ -514,34 +475,21 @@ def sharded_solve_sweep(ss: ShardedSystem, D_values, mu_values,
     iters = chunks = 0
     chunk_s = []
     t_chunk = t_loop = _sync(dev)
-    if ss.Adv is not None:
-        calls0 = all_reduce_sum.calls
-        ones = torch.ones(Bl, dtype=dt, device=dev)
-        state, Rhat = (X, R, torch.zeros_like(R), torch.zeros_like(R),
-                       ones, ones, ones), R
-        while iters < maxiter and (rn > tol_np).any():
-            active = rn > tol_np
-            state = _bicgstab_chunk(A_bc, M, chunk_iters, state, Rhat, tol)
-            iters, chunks = iters + chunk_iters, chunks + 1
-            rn = _colnorm(state[1]).cpu().numpy()
-            col_iters[active] = iters
-            chunk_s.append(time.time() - t_chunk)
-            t_chunk = time.time()
-    else:
-        Z = M(R)
-        calls0 = all_reduce_sum.calls
-        state = (X, R, Z, Z, torch.sum(R * Z, dim=0))
-        while iters < maxiter and (rn > tol_np).any():
-            active = rn > tol_np
-            state = _cg_chunk(A_bc, M, chunk_iters, state, tol)
-            iters, chunks = iters + chunk_iters, chunks + 1
-            rn = _colnorm(state[1]).cpu().numpy()
-            col_iters[active] = iters
-            chunk_s.append(time.time() - t_chunk)
-            t_chunk = time.time()
+    step, start = ((bicgstab_step, bicgstab_state) if ss.Adv is not None
+                   else (cg_step, cg_state))
+    state = start(M, X, R)
+    calls0 = all_reduce_sum.calls
+    while iters < maxiter and (rn > tol_np).any():
+        active = rn > tol_np
+        state = _krylov_chunk(step, A_bc, M, chunk_iters, state, tol)
+        iters, chunks = iters + chunk_iters, chunks + 1
+        rn = _colnorm(state.R).cpu().numpy()
+        col_iters[active] = iters
+        chunk_s.append(time.time() - t_chunk)
+        t_chunk = time.time()
     per_iter = (all_reduce_sum.calls - calls0) / max(iters, 1)
     t_end = _sync(dev)
-    X = state[0].double()
+    X = state.X.double()
     if f32:        # the certificate is an f64 residual
         A_raw, A_bc = _operator(ss, D64, mu64, torch.float64)
         RHS = torch.where(free, -A_raw(G64), G64)

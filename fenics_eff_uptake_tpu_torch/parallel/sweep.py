@@ -31,7 +31,8 @@ R is added last, in place, into the rows it touches (kernel C's ``out=``
 form, shared or per-sample), with the rounding of the separate apply and
 add.
 
-Convergence of the inner iteration is tested on the host once per
+The Krylov iterations are ``solvers/batched.py``'s masked steps and its
+loop (``krylov_loop``), which tests convergence on the host once per
 iteration (``any(|r_b| > tol_b)``), one device sync each; the ``active``
 masks make any extra iteration a no-op for converged columns, as in the
 JAX programs.  Every host read of a solve goes through
@@ -71,7 +72,9 @@ from ..ops.elemspmv import (CHUNK_SLOTS, FILL_TILES, MIN_TILE_ROWS,
                             _i32, element_apply_plain, make_scatter,
                             make_segment_plan, make_tiles,
                             planned_segment_sum)
-from ..utils import profiling
+from ..solvers.batched import (_colnorm, batched_bicgstab, batched_cg,
+                               bicgstab_state, bicgstab_step, cg_state,
+                               cg_step, krylov_loop)
 from ..utils.diskcache import (Memo, cache_key_of, count, disk_enabled,
                                load_arrays, store_arrays, timed)
 from ..utils.profiling import host_read, span
@@ -564,59 +567,46 @@ def fine_dinv(sys: TransportSystem, D_vec, mu_vec, robin_matrices=None,
                        1.0).to(dtype)
 
 
-def _colnorm(R):
-    return torch.sqrt(torch.sum(R * R, dim=0))
+def _defect_pass(a64, a32, M, step, start, RHS, X, R64, tol, inner_rtol,
+                 n_inner, true=True):
+    """One pass of the f64 defect correction from X at its f64 residual
+    R64: ``solvers.batched``'s f32 ``step`` (``start`` its state) from the
+    correction 0, to max(inner_rtol ||R64||, 0.1 tol) per column and at
+    most ``n_inner`` iterations, then X + the correction in f64 and the
+    new residual: the true f64 one, or (``true`` False: a cheap pass) the
+    inner recurrence's.  The caller opens the ``solve.pass`` span.
+
+    Returns (X, R64, its norms (B,), iterations (B,))."""
+    rn0 = _colnorm(R64)
+    R = R64.float()
+    tol_in = torch.maximum(inner_rtol * rn0, 0.1 * tol).float()
+    s, cit = krylov_loop(step, lambda P: apply_operator(a32, P), M,
+                         start(M, torch.zeros_like(R), R), tol_in, n_inner)
+    X = X + s.X.double()
+    R64 = RHS - apply_operator(a64, X) if true else s.R.double()
+    return X, R64, _colnorm(R64), cit
 
 
 def _mixed_solve(a64, a32, M, RHS, X0, tol, cheap_passes=CHEAP_PASSES,
                  inner_rtol=INNER_RTOL, n_inner=N_INNER):
     """The JAX ``_mixed_solve_program`` with ``x0_lift=True``: X0 is the
-    Dirichlet lift, so the opening residual is where(free, RHS, 0).
-    ``cheap_passes`` = 0 runs true passes only (each closing f64 residual
-    opens the next pass); ``n_inner``: f32 CG iterations per pass at most.
+    Dirichlet lift, so the opening residual is where(free, RHS, 0).  Each
+    pass is a ``_defect_pass`` of ``solvers.batched.cg_step``: one leading
+    true pass, ``cheap_passes`` cheap ones, a certifying f64 residual,
+    then true passes until every column meets ``tol``.  ``cheap_passes`` =
+    0 runs true passes only (each closing f64 residual opens the next
+    pass); ``n_inner``: f32 CG iterations per pass at most.
 
     Returns (X, rn (B,) true f64 residual norms, iters (B,), passes)."""
     B = RHS.shape[1]
-    free = a64.free[:, None]
 
-    def inner(R64):
-        rn0 = _colnorm(R64)
-        R = R64.float()
-        tol_in = torch.maximum(inner_rtol * rn0, 0.1 * tol).float()
-        Z = M(R)
-        P = Z
-        rz = torch.sum(R * Z, dim=0)
-        Dx = torch.zeros_like(R)
-        cit = torch.zeros(B, dtype=torch.int64, device=R.device)
-        for _ in range(n_inner):
-            active = _colnorm(R) > tol_in
-            if not bool(host_read(active.any())):
-                break
-            profiling.krylov_steps += 1
-            AP = apply_operator(a32, P)
-            pAp = torch.sum(P * AP, dim=0)
-            alpha = torch.where(active & (pAp != 0),
-                                rz / torch.where(pAp != 0, pAp, 1.0), 0.0)
-            Dx = Dx + alpha * P
-            R = R - alpha * AP
-            Z = M(R)
-            rz_new = torch.sum(R * Z, dim=0)
-            beta = torch.where(active & (rz != 0),
-                               rz_new / torch.where(rz != 0, rz, 1.0), 0.0)
-            P = torch.where(active, Z + beta * P, P)
-            rz = rz_new
-            cit = cit + active
-        return Dx, R, cit
-
-    def true_pass(X, R64):
+    def pass_(X, R64, true=True):
         with span("solve.pass"):
-            Dx, _, cit = inner(R64)
-            X = X + Dx.double()
-            R64 = RHS - apply_operator(a64, X)
-            return X, R64, _colnorm(R64), cit
+            return _defect_pass(a64, a32, M, cg_step, cg_state, RHS, X, R64,
+                                tol, inner_rtol, n_inner, true)
 
     X = X0
-    R64 = torch.where(free, RHS, 0.0)
+    R64 = torch.where(a64.free[:, None], RHS, 0.0)
     rn = _colnorm(R64)
     tot = torch.zeros(B, dtype=torch.int64, device=RHS.device)
     k = 0
@@ -624,22 +614,18 @@ def _mixed_solve(a64, a32, M, RHS, X0, tol, cheap_passes=CHEAP_PASSES,
         # one leading true pass: a cheap pass started at full residual
         # scale would carry ~2^-24 ||b|| of f32 drift
         if bool(host_read((rn > tol).any())):
-            X, R64, rn, cit = true_pass(X, R64)
+            X, R64, rn, cit = pass_(X, R64)
             tot, k = tot + cit, k + 1
         # cheap passes carry the inner CG's own recurrence residual
         while k < 1 + cheap_passes and bool(host_read((rn > tol).any())):
-            with span("solve.pass"):
-                Dx, Rf, cit = inner(R64)
-                X = X + Dx.double()
-                R64 = Rf.double()
-                rn = _colnorm(R64)
-                tot, k = tot + cit, k + 1
+            X, R64, rn, cit = pass_(X, R64, true=False)
+            tot, k = tot + cit, k + 1
         # certification: reported norms are always a true f64 residual
         with span("solve.certify"):
             R64 = RHS - apply_operator(a64, X)
             rn = _colnorm(R64)
     while k < MAX_PASSES and bool(host_read((rn > tol).any())):
-        X, R64, rn, cit = true_pass(X, R64)
+        X, R64, rn, cit = pass_(X, R64)
         tot, k = tot + cit, k + 1
     return X, rn, tot, k
 
@@ -647,66 +633,22 @@ def _mixed_solve(a64, a32, M, RHS, X0, tol, cheap_passes=CHEAP_PASSES,
 def _bicgstab_solve(a64, a32, M, RHS, X0, tol, inner_rtol=INNER_RTOL,
                     n_inner=N_INNER):
     """The JAX per-pass ``_refine_program_bicgstab`` loop: up to
-    MAX_PASSES_BICGSTAB true f64 passes (at least one), each an f32
-    preconditioned BiCGStab with per-column ``active`` masks, started from
+    MAX_PASSES_BICGSTAB true passes (at least one), each a
+    ``_defect_pass`` of ``solvers.batched.bicgstab_step``, started from
     the Dirichlet lift X0 (so the opening residual is where(free, RHS, 0),
     and each pass's closing residual opens the next: the same f64 values
     the JAX program recomputes); ``n_inner``: BiCGStab iterations per pass
     at most.
 
     Returns (X, rn (B,) true f64 residual norms, iters (B,), passes)."""
-    B = RHS.shape[1]
-
-    def inner(R64):
-        rn0 = _colnorm(R64)
-        R = R64.float()
-        tol_in = torch.maximum(inner_rtol * rn0, 0.1 * tol).float()
-        Rhat = R
-        rho = alpha = omega = torch.ones(B, dtype=R.dtype, device=R.device)
-        Dx = torch.zeros_like(R)
-        P = torch.zeros_like(R)
-        V = torch.zeros_like(R)
-        cit = torch.zeros(B, dtype=torch.int64, device=R.device)
-        for _ in range(n_inner):
-            active = _colnorm(R) > tol_in
-            if not bool(host_read(active.any())):
-                break
-            profiling.krylov_steps += 1
-            # the breakdown guards of the JAX body, term for term
-            rho_new = torch.sum(Rhat * R, dim=0)
-            beta = torch.where(
-                active,
-                (rho_new / torch.where(rho != 0, rho, 1.0))
-                * (alpha / torch.where(omega != 0, omega, 1.0)), 0.0)
-            P = torch.where(active, R + beta * (P - omega * V), P)
-            Phat = M(P)
-            V = apply_operator(a32, Phat)
-            denom = torch.sum(Rhat * V, dim=0)
-            alpha = torch.where(active & (denom != 0),
-                                rho_new / torch.where(denom != 0, denom, 1.0),
-                                0.0)
-            S = R - alpha * V
-            Shat = M(S)
-            T = apply_operator(a32, Shat)
-            tt = torch.sum(T * T, dim=0)
-            omega = torch.where(active & (tt != 0),
-                                torch.sum(T * S, dim=0)
-                                / torch.where(tt != 0, tt, 1.0), 0.0)
-            Dx = Dx + alpha * Phat + omega * Shat
-            R = torch.where(active, S - omega * T, R)
-            rho = rho_new
-            cit = cit + active
-        return Dx, cit
-
     X = X0
     R64 = torch.where(a64.free[:, None], RHS, 0.0)
-    tot = torch.zeros(B, dtype=torch.int64, device=RHS.device)
+    tot = torch.zeros(RHS.shape[1], dtype=torch.int64, device=RHS.device)
     for k in range(1, MAX_PASSES_BICGSTAB + 1):
         with span("solve.pass"):
-            Dx, cit = inner(R64)
-            X = X + Dx.double()
-            R64 = RHS - apply_operator(a64, X)
-            rn = _colnorm(R64)
+            X, R64, rn, cit = _defect_pass(
+                a64, a32, M, bicgstab_step, bicgstab_state, RHS, X, R64, tol,
+                inner_rtol, n_inner)
             tot = tot + cit
             if not bool(host_read((rn > tol).any())):
                 break
@@ -825,7 +767,6 @@ def solve_sweep(sys: TransportSystem, D_values, mu_values=None, rtol=1e-12,
                         "converged": resnorm / bn <= rtol,
                         "passes": int(passes)}
                 return unpermute_columns(sys, X.t()), info
-        from ..solvers.batched import batched_bicgstab, batched_cg
         krylov = batched_bicgstab if nonsym else batched_cg
         a = a64 if precision == "f64" else a32
         if precision == "f32":

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where the mixed BiCGStab solve breaks down under a cycle that rounds to
-bf16: a traced copy of ``parallel.sweep._bicgstab_solve``.
+bf16: the pass loop of ``parallel.sweep._bicgstab_solve``, traced, around
+the solver's own ``solvers.batched.bicgstab_step``.
 
     python3 scripts/bicgstab_bf16_breakdown.py [--mesh-size 0.06]
         [--device cpu] [--every 20]
@@ -9,16 +10,20 @@ Builds the no-uptake transport system of the reference geometry (Stokes
 velocity, Pe = 0.1, 1, 10; the mult cycle) and runs the f32 BiCGStab
 passes inside f64 defect correction under the f32 cycle, under
 ``transfer_dtype=bf16`` and under ``ml_dtype=bf16``, with the solver's own
-guards, recording in every iteration each column's residual norm and the
-scalars the guards protect (rho, the alpha denominator (rhat, v), (t, t),
-alpha, omega, beta).  Prints each pass's trajectory every ``--every``
+step and guards, recording in every iteration what the step's state holds
+(each column's residual norm, rho, alpha, omega and the correction) and
+the two denominators its guards test, which the state does not hold:
+(rhat, v) from the new state's Rhat and V, and (t, t) with t = A M(s),
+s = r - alpha v, from the old state's r and the new alpha and v (the
+step's own operations on the same tensors, so the same bits, for one
+more cycle and operator apply an iteration).  beta is not recorded.
+Prints each pass's trajectory every ``--every``
 iterations and, per column, the first iteration of the first pass in which
 a scalar, the residual or the correction is not finite, with the values of
 the iterations before it, and which guard (if any) was the one that passed
 it.  It stops at the first such pass.  Last it runs ``solve_sweep`` itself
 under each configuration and prints its iterations beside the traced
-copy's (equal up to the pass at which the trace stopped; a last pass at the
-rounding floor may differ by a few iterations).
+loop's (equal up to the pass at which the trace stopped).
 """
 
 import argparse
@@ -31,72 +36,56 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from fenics_eff_uptake_tpu_torch.parallel import sweep as tsw          # noqa: E402
+from fenics_eff_uptake_tpu_torch.solvers.batched import (              # noqa: E402
+    _colnorm, bicgstab_state, bicgstab_step)
 from fenics_eff_uptake_tpu_torch.solvers import multilevel as tml      # noqa: E402
 from fenics_eff_uptake_tpu_torch.studies.common import (               # noqa: E402
     make_mesh, stokes_for_study)
 from fenics_eff_uptake_tpu_torch.studies.no_uptake import _make_params  # noqa: E402
 
 PECLET = [0.1, 1.0, 10.0]
-SCALARS = ("rho", "denom", "tt", "alpha", "omega", "beta")
+SCALARS = ("rho", "denom", "tt", "alpha", "omega")
 
 
 def traced_pass(a32, M, R64, tol, every):
-    """One inner pass of ``_bicgstab_solve`` on the opening residual R64,
-    term for term, with a record per iteration.  Returns (iterations per
-    column, the records, the correction Dx)."""
-    B = R64.shape[1]
-    rn0 = tsw._colnorm(R64)
+    """One inner pass of ``_bicgstab_solve`` on the opening residual R64:
+    the solver's own ``bicgstab_step`` from the correction 0, with a
+    record per iteration of what its state holds and of its guards'
+    denominators.  Returns (iterations per column, the records, the
+    correction Dx)."""
+    rn0 = _colnorm(R64)
     R = R64.float()
     tol_in = torch.maximum(tsw.INNER_RTOL * rn0, 0.1 * tol).float()
-    Rhat = R
-    rho = alpha = omega = torch.ones(B, dtype=R.dtype, device=R.device)
-    Dx = torch.zeros_like(R)
-    P = torch.zeros_like(R)
-    V = torch.zeros_like(R)
-    cit = torch.zeros(B, dtype=torch.int64, device=R.device)
+    s = bicgstab_state(M, torch.zeros_like(R), R)
+    cit = torch.zeros(R.shape[1], dtype=torch.int64, device=R.device)
     log = []
+
+    def A(P):
+        return tsw.apply_operator(a32, P)
+
     for it in range(tsw.N_INNER):
-        rn = tsw._colnorm(R)
+        rn = _colnorm(s.R)
         active = rn > tol_in
         if not bool(active.any()):
             break
-        rho_new = torch.sum(Rhat * R, dim=0)
-        beta = torch.where(
-            active,
-            (rho_new / torch.where(rho != 0, rho, 1.0))
-            * (alpha / torch.where(omega != 0, omega, 1.0)), 0.0)
-        P = torch.where(active, R + beta * (P - omega * V), P)
-        Phat = M(P)
-        V = tsw.apply_operator(a32, Phat)
-        denom = torch.sum(Rhat * V, dim=0)
-        alpha = torch.where(active & (denom != 0),
-                            rho_new / torch.where(denom != 0, denom, 1.0),
-                            0.0)
-        S = R - alpha * V
-        Shat = M(S)
-        T = tsw.apply_operator(a32, Shat)
-        tt = torch.sum(T * T, dim=0)
-        omega = torch.where(active & (tt != 0),
-                            torch.sum(T * S, dim=0)
-                            / torch.where(tt != 0, tt, 1.0), 0.0)
-        Dx = Dx + alpha * Phat + omega * Shat
-        R = torch.where(active, S - omega * T, R)
-        rho = rho_new
+        old, s = s, bicgstab_step(A, M, s, active)
         cit = cit + active
+        denom = torch.sum(s.Rhat * s.V, dim=0)
+        T = A(M(old.R - s.alpha * s.V))
+        tt = torch.sum(T * T, dim=0)
         log.append({"it": it, "active": active.tolist(),
-                    "rn": (rn / rn0).tolist(), "rho": rho_new.tolist(),
+                    "rn": (rn / rn0).tolist(), "rho": s.rho.tolist(),
                     "denom": denom.tolist(), "tt": tt.tolist(),
-                    "alpha": alpha.tolist(), "omega": omega.tolist(),
-                    "beta": beta.tolist(),
-                    "rn_after": (tsw._colnorm(R) / rn0).tolist(),
-                    "dx": Dx.abs().amax(dim=0).tolist()})
+                    "alpha": s.alpha.tolist(),
+                    "omega": s.omega.tolist(),
+                    "rn_after": (_colnorm(s.R) / rn0).tolist(),
+                    "dx": s.X.abs().amax(dim=0).tolist()})
         if it % every == 0:
-            print(f"    it {it:3d} |r|/|r0| "
-                  + " ".join(f"{v:10.3e}" for v in log[-1]["rn"])
-                  + "  alpha " + " ".join(f"{v:10.3e}" for v in alpha.tolist())
-                  + "  omega " + " ".join(f"{v:10.3e}" for v in omega.tolist()),
-                  flush=True)
-    return cit.tolist(), log, Dx
+            print(f"    it {it:3d}" + "".join(
+                f" {k} " + " ".join(f"{v:10.3e}" for v in log[-1][key])
+                for k, key in (("|r|/|r0|", "rn"), (" alpha", "alpha"),
+                               (" omega", "omega"))), flush=True)
+    return cit.tolist(), log, s.X
 
 
 def first_nonfinite(log, b):
@@ -152,11 +141,11 @@ def traced_solve(name, a64, a32, M, RHS, X0, tol, every):
     the iterations per column."""
     X = X0
     R64 = torch.where(a64.free[:, None], RHS, 0.0)
-    bn = tsw._colnorm(RHS)
+    bn = _colnorm(RHS)
     tot = np.zeros(RHS.shape[1], dtype=np.int64)
     for k in range(1, tsw.MAX_PASSES_BICGSTAB + 1):
         print(f"  {name}, pass {k}: opening true |r|/|b| "
-              f"{[f'{v:.3e}' for v in (tsw._colnorm(R64) / bn).tolist()]}",
+              f"{[f'{v:.3e}' for v in (_colnorm(R64) / bn).tolist()]}",
               flush=True)
         cit, log, Dx = traced_pass(a32, M, R64, tol, every)
         tot += np.asarray(cit)
@@ -165,7 +154,7 @@ def traced_solve(name, a64, a32, M, RHS, X0, tol, every):
             break
         X = X + Dx.double()
         R64 = RHS - tsw.apply_operator(a64, X)
-        if not bool((tsw._colnorm(R64) > tol).any()):
+        if not bool((_colnorm(R64) > tol).any()):
             break
     return tot.tolist()
 
@@ -188,12 +177,15 @@ def main(argv=None):
     print(f"h = {args.mesh_size}: {mesh.num_cells} cells, {sys_.ndofs} "
           f"padded dofs, {len(ml.levels)} smoothed levels, device {dev}, "
           f"{torch.get_num_threads()} threads", flush=True)
-    a64 = tsw.operator_args(sys_, D, mu0, f32=False)
-    a32 = tsw.operator_args(sys_, D, mu0, f32=True)
+    # f64 arrays, as solve_sweep takes them (a list of floats would
+    # become an f32 tensor and round D = 0.1)
+    Dv, muv = np.asarray(D, dtype=np.float64), np.asarray(mu0, np.float64)
+    a64 = tsw.operator_args(sys_, Dv, muv, f32=False)
+    a32 = tsw.operator_args(sys_, Dv, muv, f32=True)
     G = sys_.bc_values[:, None].expand(-1, len(D)).contiguous()
     RHS = tsw.operator_rhs(a64, G)
     R64 = torch.where(a64.free[:, None], RHS, 0.0)   # the opening residual
-    tol = 1e-12 * tsw._colnorm(RHS)
+    tol = 1e-12 * _colnorm(RHS)
     bf16 = torch.bfloat16
     for name, kw in (("f32 cycle", {}),
                      ("transfer_dtype=bf16", {"transfer_dtype": bf16}),
