@@ -35,11 +35,15 @@ The Krylov iterations are ``solvers/batched.py``'s masked steps and its
 loop (``krylov_loop``), which tests convergence on the host once per
 iteration (``any(|r_b| > tol_b)``), one device sync each; the ``active``
 masks make any extra iteration a no-op for converged columns, as in the
-JAX programs.  Every host read of a solve goes through
+JAX programs.  On the card the mixed passes run the loop's graphed twin
+(``KrylovGraph``): one graph of the f32 step per solve, captured at its
+second step and replayed at every later one, with the eager loop's
+iterations, reads and bits.  Every host read of a solve goes through
 ``utils.profiling.host_read`` (counted in ``host_syncs``), every
 iteration counts in ``krylov_steps``, and a solve is a ``solve`` span
 with ``solve.preconditioner``, one ``solve.pass`` per defect pass and
-``solve.certify`` inside.
+``solve.certify`` inside (and ``solve.capture`` inside the pass that
+captures the step's graph).
 
 ``solve_sweep`` reaches the JAX package's other configurations through
 keyword arguments (it reads no environment variable): ``precision="f64"``
@@ -55,6 +59,7 @@ The defaults are the configuration the JAX package runs on a TPU.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -72,9 +77,9 @@ from ..ops.elemspmv import (CHUNK_SLOTS, FILL_TILES, MIN_TILE_ROWS,
                             _i32, element_apply_plain, make_scatter,
                             make_segment_plan, make_tiles,
                             planned_segment_sum)
-from ..solvers.batched import (_colnorm, batched_bicgstab, batched_cg,
-                               bicgstab_state, bicgstab_step, cg_state,
-                               cg_step, krylov_loop)
+from ..solvers.batched import (KrylovGraph, _colnorm, batched_bicgstab,
+                               batched_cg, bicgstab_state, bicgstab_step,
+                               cg_state, cg_step, krylov_loop)
 from ..utils.diskcache import (Memo, cache_key_of, count, disk_enabled,
                                load_arrays, store_arrays, timed)
 from ..utils.profiling import host_read, span
@@ -567,21 +572,35 @@ def fine_dinv(sys: TransportSystem, D_vec, mu_vec, robin_matrices=None,
                        1.0).to(dtype)
 
 
-def _defect_pass(a64, a32, M, step, start, RHS, X, R64, tol, inner_rtol,
+def _inner_loop(step, a32, M, RHS):
+    """The f32 Krylov loop of a mixed solve's passes, ``loop(state, tol,
+    maxiter) -> (state, iterations)``: on the card one ``KrylovGraph``
+    for the whole solve (its step captured once and replayed in every
+    pass; its buffers go with the loop when the solve returns), on the
+    CPU ``krylov_loop``."""
+    def A(P):
+        return apply_operator(a32, P)
+
+    if RHS.is_cuda:
+        return KrylovGraph(step, A, M).loop
+    return functools.partial(krylov_loop, step, A, M)
+
+
+def _defect_pass(a64, M, loop, start, RHS, X, R64, tol, inner_rtol,
                  n_inner, true=True):
     """One pass of the f64 defect correction from X at its f64 residual
-    R64: ``solvers.batched``'s f32 ``step`` (``start`` its state) from the
-    correction 0, to max(inner_rtol ||R64||, 0.1 tol) per column and at
-    most ``n_inner`` iterations, then X + the correction in f64 and the
-    new residual: the true f64 one, or (``true`` False: a cheap pass) the
-    inner recurrence's.  The caller opens the ``solve.pass`` span.
+    R64: the solve's f32 ``loop`` (``_inner_loop``; ``start`` its step's
+    state) from the correction 0, to max(inner_rtol ||R64||, 0.1 tol) per
+    column and at most ``n_inner`` iterations, then X + the correction in
+    f64 and the new residual: the true f64 one, or (``true`` False: a
+    cheap pass) the inner recurrence's.  The caller opens the
+    ``solve.pass`` span.
 
     Returns (X, R64, its norms (B,), iterations (B,))."""
     rn0 = _colnorm(R64)
     R = R64.float()
     tol_in = torch.maximum(inner_rtol * rn0, 0.1 * tol).float()
-    s, cit = krylov_loop(step, lambda P: apply_operator(a32, P), M,
-                         start(M, torch.zeros_like(R), R), tol_in, n_inner)
+    s, cit = loop(start(M, torch.zeros_like(R), R), tol_in, n_inner)
     X = X + s.X.double()
     R64 = RHS - apply_operator(a64, X) if true else s.R.double()
     return X, R64, _colnorm(R64), cit
@@ -599,11 +618,12 @@ def _mixed_solve(a64, a32, M, RHS, X0, tol, cheap_passes=CHEAP_PASSES,
 
     Returns (X, rn (B,) true f64 residual norms, iters (B,), passes)."""
     B = RHS.shape[1]
+    loop = _inner_loop(cg_step, a32, M, RHS)
 
     def pass_(X, R64, true=True):
         with span("solve.pass"):
-            return _defect_pass(a64, a32, M, cg_step, cg_state, RHS, X, R64,
-                                tol, inner_rtol, n_inner, true)
+            return _defect_pass(a64, M, loop, cg_state, RHS, X, R64, tol,
+                                inner_rtol, n_inner, true)
 
     X = X0
     R64 = torch.where(a64.free[:, None], RHS, 0.0)
@@ -644,11 +664,12 @@ def _bicgstab_solve(a64, a32, M, RHS, X0, tol, inner_rtol=INNER_RTOL,
     X = X0
     R64 = torch.where(a64.free[:, None], RHS, 0.0)
     tot = torch.zeros(RHS.shape[1], dtype=torch.int64, device=RHS.device)
+    loop = _inner_loop(bicgstab_step, a32, M, RHS)
     for k in range(1, MAX_PASSES_BICGSTAB + 1):
         with span("solve.pass"):
             X, R64, rn, cit = _defect_pass(
-                a64, a32, M, bicgstab_step, bicgstab_state, RHS, X, R64, tol,
-                inner_rtol, n_inner)
+                a64, M, loop, bicgstab_state, RHS, X, R64, tol, inner_rtol,
+                n_inner)
             tot = tot + cit
             if not bool(host_read((rn > tol).any())):
                 break

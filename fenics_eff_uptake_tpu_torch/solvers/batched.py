@@ -26,21 +26,32 @@ each) and stops when no column is active; ``iters`` counts the iterations
 each column was active for, which is what the JAX loop gives with chunks
 of one iteration.  The host reads go through ``utils.profiling.host_read``
 (counted in ``host_syncs``) and each iteration counts in ``krylov_steps``.
+
+``KrylovGraph`` is ``krylov_loop``'s graphed twin, which only the mixed
+passes of ``parallel.sweep`` take, and only on the card: one CUDA graph of
+the step and its bookkeeping, captured once per solve and replayed at
+every later step, so that a step costs the host one replay and one read
+instead of the launches of its 120-270 kernels.  The other drivers stay
+eager: the f64 and f32 solves, Stokes' inner solves (tens of one-column
+steps a solve), the sharded operators (a gloo all-reduce, which a graph
+cannot hold) and the sharded chunks.
 """
 
 from __future__ import annotations
 
+import contextlib
+from collections import Counter
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..utils import profiling
-from ..utils.profiling import host_read
+from ..utils.profiling import host_read, span
 
 __all__ = ["batched_cg", "batched_bicgstab", "BatchedResult", "CGState",
            "BiCGStabState", "cg_state", "bicgstab_state", "cg_step",
-           "bicgstab_step", "krylov_loop"]
+           "bicgstab_step", "krylov_loop", "KrylovGraph", "LaunchCounts"]
 
 
 class BatchedResult(NamedTuple):
@@ -156,6 +167,187 @@ def krylov_loop(step: Callable, A: Callable, M: Callable, state, tol,
         state = step(A, M, state, active)
         cit = cit + active
     return state, cit
+
+
+class LaunchCounts:
+    """Counters that a CUDA graph's capture moves though nothing runs:
+    integer attributes ``(owner, name)`` and ``collections.Counter``
+    tallies.  Inside ``capture()`` they move as the calls made there move
+    them; when it ends they are set back, and what they moved by is the
+    graph's.  ``replayed()`` adds that once: a replay runs the captured
+    kernels, so the counters count executions, as the eager loop's do."""
+
+    def __init__(self, attrs, tallies=()):
+        self.attrs, self.tallies = tuple(attrs), tuple(tallies)
+        self.delta = ([0] * len(self.attrs), [Counter() for _ in tallies])
+
+    def _read(self):
+        return ([getattr(o, n) for o, n in self.attrs],
+                [Counter(t) for t in self.tallies])
+
+    @contextlib.contextmanager
+    def capture(self):
+        ints, tallies = self._read()
+        try:
+            yield
+        finally:
+            now, now_t = self._read()
+            self.delta = ([b - a for a, b in zip(ints, now)],
+                          [b - a for a, b in zip(tallies, now_t)])
+            for (o, n), v in zip(self.attrs, ints):
+                setattr(o, n, v)
+            for t, v in zip(self.tallies, tallies):
+                t.clear()
+                t.update(v)
+
+    def replayed(self):
+        for (o, n), d in zip(self.attrs, self.delta[0]):
+            if d:
+                setattr(o, n, getattr(o, n) + d)
+        for t, d in zip(self.tallies, self.delta[1]):
+            t.update(d)
+
+
+def _kernel_counts() -> LaunchCounts:
+    """The hand kernels' launch counters (those ``parallel.sharding.
+    kernel_launches`` reads, and the launches by band)."""
+    from ..ops.banded import band_apply, launches_by_band, rect_band_apply
+    from ..ops.elemspmv import ElementKernel
+    return LaunchCounts(
+        [(band_apply, n) for n in ("launches", "launches_packed",
+                                   "launches_bf16")]
+        + [(rect_band_apply, n) for n in ("launches", "launches_bf16",
+                                          "launches_bf16_band")]
+        + [(ElementKernel, n) for n in ("launches", "launches_out",
+                                        "launches_sample", "launches_bf16")],
+        [launches_by_band])
+
+
+# per device: the side stream the captures run on (as torch.cuda.graph
+# keeps one) and the last graph captured, which holds the capture pool
+_CAPTURE = {}
+
+
+def _cuda_graph(body, device):
+    """A ``torch.cuda.CUDAGraph`` of ``body()``, captured on the device's
+    side stream, which waits for the current one (the current stream waits
+    for it in turn); the capture runs the host side of ``body`` and no
+    kernel.
+
+    Every capture allocates its temporaries from the memory pool of the
+    capture before it, and the last graph is kept (never replayed again)
+    to hold that pool.  A pool of its own per graph is handed back when
+    the graph dies but freed only where an allocation fails: the memory
+    reserved then grows by one step's temporaries a solve (2 MiB a solve
+    of the h = 0.15 test system on the H100), where the shared pool stays
+    at one capture's.  Sharing is safe while replays run one at a time on
+    one stream: everything a graph allocates is dead when its replay ends
+    (the state lives in the ``KrylovGraph``'s buffers, allocated outside
+    the pool)."""
+    side, last = _CAPTURE.get(device.index) or (torch.cuda.Stream(device),
+                                                None)
+    main = torch.cuda.current_stream(device)
+    side.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(pool=None if last is None else last.pool(),
+                            capture_error_mode="thread_local")
+        try:
+            body()
+        finally:
+            graph.capture_end()
+    main.wait_stream(side)
+    _CAPTURE[device.index] = (side, graph)
+    return graph
+
+
+class KrylovGraph:
+    """``krylov_loop`` of one ``step``, A and M, its steps replayed as one
+    CUDA graph: made once per solve and handed to each loop of the solve
+    (``loop``), on the card.
+
+    The solve's first step runs eagerly and binds what the step's kernels
+    bind at their first call (the kernel library, kernel attributes).  The
+    next is captured with its bookkeeping into one graph over static
+    buffers: the step written back into the state's buffers, ``cit +=
+    active``, the next ``active`` (``|R_b| > tol_b``) and whether any
+    column is.  Every later step of every loop of the solve replays it; a
+    loop copies its start state, ``tol``, mask and counts into the buffers
+    first.  Per step the host replays, counts the step and reads the flag:
+    the eager loop's arithmetic in its order and its reads, so the
+    iterations, the host syncs and every bit of the state are the eager
+    loop's.  A and M apply the same operators on the same tensors at every
+    loop, and read nothing from the device on the host.
+
+    The kernel wrappers' launch counters move at the capture, where no
+    kernel runs: its increments are set back and added once per replay
+    (``LaunchCounts``).  Counted in ``profiling.krylov_graph_captures``
+    (one per graph) and ``krylov_graph_steps`` (steps replayed); the
+    capture is a ``solve.capture`` span.  Dropping the object frees its
+    buffers; its graph, never replayed again, holds the capture pool until
+    the next capture takes it over (``_cuda_graph``)."""
+
+    def __init__(self, step: Callable, A: Callable, M: Callable):
+        self.step, self.A, self.M = step, A, M
+        self._warm = False
+        self._graph = None
+        self._counts = _kernel_counts()
+
+    def loop(self, state, tol, maxiter: int):
+        """``krylov_loop(step, A, M, state, tol, maxiter)``, bit for bit.
+        Where a step was replayed, the state and iterations returned are
+        this object's buffers, which the next ``loop`` overwrites."""
+        cit = torch.zeros(state.R.shape[1], dtype=torch.int64,
+                          device=state.R.device)
+        active = _colnorm(state.R) > tol
+        n = 0
+        if not self._warm:
+            if maxiter < 1 or not bool(host_read(active.any())):
+                return state, cit
+            profiling.krylov_steps += 1
+            state = self.step(self.A, self.M, state, active)
+            cit = cit + active
+            active = _colnorm(state.R) > tol
+            self._warm = True
+            n = 1
+        if n >= maxiter or not bool(host_read(active.any())):
+            return state, cit
+        self._load(state, tol, active, cit)
+        while True:
+            self._graph.replay()
+            self._counts.replayed()
+            profiling.krylov_steps += 1
+            profiling.krylov_graph_steps += 1
+            n += 1
+            if n >= maxiter or not bool(host_read(self._flag)):
+                return self._state, self._cit
+
+    def _load(self, state, tol, active, cit):
+        if self._graph is None:
+            self._state = type(state)(*(t.clone() for t in state))
+            self._tol, self._active = tol.clone(), active.clone()
+            self._cit = cit.clone()
+            self._flag = torch.zeros((), dtype=torch.bool,
+                                     device=tol.device)
+            with span("solve.capture"), self._counts.capture():
+                self._graph = _cuda_graph(self._body, tol.device)
+            profiling.krylov_graph_captures += 1
+            return
+        for buf, t in zip(self._state, state):
+            buf.copy_(t)
+        self._tol.copy_(tol)
+        self._active.copy_(active)
+        self._cit.copy_(cit)
+
+    def _body(self):
+        """One step and its bookkeeping, in place in the buffers."""
+        new = self.step(self.A, self.M, self._state, self._active)
+        for buf, t in zip(self._state, new):
+            if t is not buf:
+                buf.copy_(t)
+        self._cit += self._active
+        self._active.copy_(_colnorm(self._state.R) > self._tol)
+        self._flag.copy_(self._active.any())
 
 
 def _solve(step, start, A, B_rhs, M, X0, rtol, atol, maxiter):

@@ -25,7 +25,11 @@ Counters, counted always (plain module integers, as the kernels' launch
 counters are): ``host_syncs``, the blocking device-to-host reads of
 ``solve_sweep`` and of the batched Krylov loops, every one made through
 ``host_read``; ``krylov_steps``, the executed iterations of those loops
-(one per trip, whatever the number of columns).  The Stokes solve counts
+(one per trip, whatever the number of columns); ``krylov_graph_captures``,
+the graphs of a step that the mixed solves captured on the card (one per
+solve that replays, ``solvers.batched.KrylovGraph``), and
+``krylov_graph_steps``, the steps among ``krylov_steps`` that ran as a
+replay of one.  The Stokes solve counts
 apart, so that syncs per Krylov step stay a transport number:
 ``stokes_solves``, the MINRES saddle solves run (``saddle_solve``; a
 cached field is none); ``minres_steps``, their MINRES iterations over
@@ -63,6 +67,8 @@ __all__ = ["Span", "span", "recording", "take", "on_timeline",
 # read them as ``profiling.host_syncs``: an imported name is a copy
 host_syncs = 0
 krylov_steps = 0
+krylov_graph_captures = 0
+krylov_graph_steps = 0
 stokes_solves = 0
 minres_steps = 0
 stokes_host_syncs = 0

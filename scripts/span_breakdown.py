@@ -18,6 +18,12 @@ device.  Prints one JSON line (and writes it to ``--out``):
   of the ``ml_setup`` stage that level meshes, velocities and systems,
   transfers, transfer bands and the coarsest inverses cover;
 * ``host_syncs_per_step``: the counters' deltas summed over every request;
+* ``krylov_graph``: per request, the graphs of the Krylov step that the
+  solves captured (``captures``), the share of the Krylov steps that ran
+  as a replay of one (``graph_step_share``) and the seconds of the
+  captures (``capture_s``, the ``solve.capture`` spans); and the host
+  seconds of the ``solve`` span per Krylov step over the unprofiled
+  requests (``solve_ms_per_step``);
 * ``stokes``, for the set-up and for the requests: the Stokes solve's
   split (``stokes_split_s``: the ``stokes`` span's children, mean seconds
   per solve), its MINRES steps and host syncs per solve, and the transfer
@@ -229,6 +235,7 @@ def main(argv=None):
         profiled = i % 2 == 0
         s0, k0, n0 = profiling.host_syncs, profiling.krylov_steps, \
             launches()
+        g0 = (profiling.krylov_graph_captures, profiling.krylov_graph_steps)
         with profiling.recording():
             if profiled:
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -241,6 +248,10 @@ def main(argv=None):
              "stages": dict(seconds),
              "syncs": profiling.host_syncs - s0,
              "steps": profiling.krylov_steps - k0,
+             "captures": profiling.krylov_graph_captures - g0[0],
+             "graph_steps": profiling.krylov_graph_steps - g0[1],
+             "capture_s": sum((s.end_ns - s.start_ns) / 1e9 for s in spans
+                              if s.name == "solve.capture"),
              "iters": [int(v) for v in out["info"]["iters"]],
              "passes": out["info"].get("passes")}
         out = None
@@ -261,7 +272,9 @@ def main(argv=None):
         requests.append(q)
         print(f"[spans] request {req['id']} profiled={profiled} "
               f"stages={q['stages']} syncs={q['syncs']} "
-              f"steps={q['steps']}", file=sys.stderr, flush=True)
+              f"steps={q['steps']} captures={q['captures']} "
+              f"graph_steps={q['graph_steps']} "
+              f"capture_s={q['capture_s']:.4f}", file=sys.stderr, flush=True)
 
     plain = [q for q in requests if not q["profiled"]]
     request_stokes = _stokes_part(stokes_spans, c0, _counters(profiling))
@@ -308,6 +321,14 @@ def main(argv=None):
                                 / max(1, sum(q["steps"] for q in requests))),
         "syncs_steps_passes": [(q["syncs"], q["steps"], q["passes"])
                                for q in requests],
+        "krylov_graph": {
+            "captures": [q["captures"] for q in requests],
+            "graph_step_share": [q["graph_steps"] / q["steps"]
+                                 if q["steps"] else None for q in requests],
+            "capture_s": [q["capture_s"] for q in requests],
+            "solve_ms_per_step": (
+                1e3 * sum(q["tree"].get("solve", 0.0) for q in plain)
+                / max(1, sum(q["steps"] for q in plain)))},
         "inside_share": (sum(w["inside"] for w in windows)
                          / max(1, sum(w["records"] for w in windows))),
         "solve_launches_per_step": (
